@@ -1,0 +1,321 @@
+"""Seismic index construction, flat tier (port of ``repro.core.build``).
+
+Algorithm 1 per coordinate i (one inverted list):
+  1. static pruning  — keep the lam docs with the largest x_i (§5.1)
+  2. geometric blocking — shallow K-Means: beta sampled members are the
+     representatives; every member goes to its max-inner-product
+     representative (§5.2)
+  3. physical blocks — contiguous runs after the cluster permutation,
+     split at ``block_cap`` boundaries
+  4. summaries — coordinate-wise max per block (Eq. 2; or the centroid),
+     alpha-mass pruned (Def. 3.1), 8-bit quantized (§5.3)
+
+Lists are processed ``list_chunk`` at a time, all lists of a chunk in
+one batch of tensor ops. Nothing ``[lam, nnz, beta]``-shaped and no
+dense ``[n_blocks, d]`` row is ever made: the assignment is one sparse
+(members) x dense (representatives) product per chunk, and a summary
+sorts only its block's non-zeros. The superblock tier is not ported.
+"""
+from __future__ import annotations
+
+import time
+import warnings
+
+import torch
+
+from repro_torch.core.types import SeismicConfig, SeismicIndex
+from repro_torch.sparse.ops import PaddedSparse, widen_coords
+from repro_torch.sparse.quant import quantize_u8
+
+
+def _sorted_postings(docs: PaddedSparse):
+    """Flatten (coord, val, doc) triples and sort them by (coord asc, val
+    desc, position asc), as ``lexsort((-v, c))`` does, with ONE stable
+    sort of an int64 key: the coordinate in the high 32 bits, and below it
+    the value's float32 bits counted down (a positive float's bits grow
+    with its value). Padding entries (val <= 0) get coordinate ``dim`` and
+    sort to the end. Returns (vals, docs, starts, counts): the sorted
+    values and doc ids, and each coordinate's first position and count."""
+    nnz = docs.coords.shape[1]
+    flat_v = docs.vals.reshape(-1).to(torch.float32)
+    live = flat_v > 0
+    coord = torch.where(live, widen_coords(docs.coords).reshape(-1), docs.dim)
+    counts = torch.bincount(coord, minlength=docs.dim + 1)[:docs.dim]
+    low = flat_v.view(torch.int32).to(torch.int64)         # in place below:
+    low.neg_().add_(0x7FFFFFFF).masked_fill_(~live, 0)    # 1.1e9 entries at
+    key = coord.bitwise_left_shift_(32).bitwise_or_(low)  # MS MARCO scale
+    del coord, low
+    order = torch.sort(key, stable=True).indices
+    del key
+    return flat_v[order], (order // nnz).to(torch.int32), \
+        torch.cumsum(counts, 0) - counts, counts
+
+
+def _prune_list(lists, sorted_v, sorted_d, starts, counts, lam: int,
+                n_docs: int):
+    """Top-lam postings of the lists ``lists`` [Lc] out of the global
+    sorted triples -> (docs [Lc, lam], vals [Lc, lam], cnt [Lc])."""
+    cnt = counts[lists].clamp(max=lam)
+    pos = torch.arange(lam, device=lists.device)
+    idx = (starts[lists, None] + pos).clamp(0, max(sorted_d.numel() - 1, 0))
+    valid = pos < cnt[:, None]
+    docs = torch.where(valid, sorted_d[idx], n_docs)
+    vals = torch.where(valid, sorted_v[idx], 0.0)
+    return docs.to(torch.int32), vals, cnt.to(torch.int32)
+
+
+def _assign_clusters(rep_pos, docs, cnt, fwd: PaddedSparse,
+                     cfg: SeismicConfig) -> torch.Tensor:
+    """Shallow K-Means over a chunk of pruned lists [Lc, lam].
+
+    Representatives of list l are its members at positions
+    ``rep_pos[l]``; each member goes to the representative maximizing
+    <x, mu> (first one on ties). All lists of the chunk go through ONE
+    sparse x dense product: members form a CSR matrix whose row (l, m)
+    has its entries in columns ``l * d + coord``, and list l's
+    representatives fill rows ``l * d .. l * d + d - 1`` of a dense
+    ``[Lc * d, beta]`` matrix."""
+    lc, lam = docs.shape
+    beta, d, n = cfg.beta, fwd.dim, fwd.n
+    dev = docs.device
+    base = (torch.arange(lc, device=dev) * d)[:, None, None]
+    rep_ids = docs.gather(1, rep_pos.clamp(0, lam - 1)).long().clamp(0, n - 1)
+    rep_c = widen_coords(fwd.coords[rep_ids]) + base          # [Lc, beta, nnz]
+    rep_b = torch.arange(beta, device=dev)[None, :, None].expand_as(rep_c)
+    reps = torch.zeros((lc * d, beta), dtype=torch.float32, device=dev)
+    reps.index_put_((rep_c.reshape(-1), rep_b.reshape(-1)),
+                    fwd.vals[rep_ids].to(torch.float32).reshape(-1),
+                    accumulate=True)
+    member = docs.long().clamp(0, n - 1)
+    mv = fwd.vals[member].to(torch.float32)                    # [Lc, lam, nnz]
+    pos = torch.arange(lam, device=dev)
+    mv = torch.where((pos < cnt[:, None])[..., None], mv, 0.0)  # no padding
+    key = torch.where(mv > 0, widen_coords(fwd.coords[member]), d)
+    key, order = torch.sort(key, dim=-1)                       # CSR: cols asc
+    mv = mv.gather(-1, order)
+    live = key < d
+    crow = torch.zeros(lc * lam + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(live.reshape(lc * lam, -1).sum(-1), 0)
+    with warnings.catch_warnings():     # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        members = torch.sparse_csr_tensor(crow, (key + base)[live], mv[live],
+                                          size=(lc * lam, lc * d),
+                                          check_invariants=False)
+    ips = (members @ reps).view(lc, lam, beta)
+    assign = ips.argmax(dim=-1).to(torch.int32)
+    return torch.where(pos < cnt[:, None], assign, beta)      # padding last
+
+
+def _physical_blocks(assign, cnt, cfg: SeismicConfig):
+    """Stable-sort each list by cluster, then split runs at block_cap
+    boundaries -> (perm, block_id, blk_off, blk_len), all [Lc, ...]."""
+    lc, lam = assign.shape
+    nb, dev = cfg.n_blocks, assign.device
+    perm = torch.sort(assign, dim=-1, stable=True).indices
+    sa = assign.gather(1, perm)
+    pos = torch.arange(lam, device=dev).expand(lc, lam)
+    prev = torch.cat([torch.full((lc, 1), -1, dtype=sa.dtype, device=dev),
+                      sa[:, :-1]], dim=1)
+    new_cluster = sa != prev
+    cluster_start = torch.cummax(torch.where(new_cluster, pos, 0), 1).values
+    live = pos < cnt[:, None]
+    new_block = (new_cluster | ((pos - cluster_start) % cfg.block_cap == 0)) \
+        & live
+    block_id = torch.cumsum(new_block.to(torch.int32), dim=1) - 1
+    block_id = torch.where(live, block_id, nb)
+    blk_len = torch.zeros((lc, nb + 1), dtype=torch.int64, device=dev)
+    blk_len.scatter_add_(1, block_id.clamp(0, nb).long(),
+                         torch.ones_like(block_id, dtype=torch.int64))
+    blk_len = blk_len[:, :nb]
+    blk_off = torch.cumsum(blk_len, dim=1) - blk_len
+    return perm, block_id.to(torch.int32), blk_off.to(torch.int32), \
+        blk_len.to(torch.int32)
+
+
+def _summaries(docs_perm, block_id, fwd: PaddedSparse, cfg: SeismicConfig):
+    """Per-block summary of a chunk of lists -> (coords [Lc, nb, S],
+    u8 [Lc, nb, S], scale [Lc, nb], zero [Lc, nb]).
+
+    Equal to the JAX builder's dense route (scatter into ``[nb, d]``,
+    then ``alpha_mass_subvector`` over ``arange(d)``) without the dense
+    rows: the block's non-zeros are sorted by (block, -value, coord);
+    the zero entries of the dense row follow in ascending coordinate
+    order, which matters when they are kept (an empty block, or
+    ``alpha >= 1``). Prefix sums are taken in float64 and rounded to
+    float32, so the keep boundary can differ from the JAX builder's
+    float32 cumsum only where ``alpha * total`` lies within rounding of a
+    prefix sum."""
+    lc, lam = docs_perm.shape
+    nb, d, s, n = cfg.n_blocks, fwd.dim, cfg.summary_nnz, fwd.n
+    dev = docs_perm.device
+    nblk = lc * nb
+    member = docs_perm.long().clamp(0, n - 1)
+    blk = torch.arange(lc, device=dev)[:, None] * nb + block_id.long()
+    in_block = (docs_perm < n) & (block_id < nb)               # [Lc, lam]
+    dv = fwd.vals[member].to(torch.float32)                    # [Lc, lam, nnz]
+    take = (dv > 0) & in_block[..., None]
+    key = (blk[..., None] * d + widen_coords(fwd.coords[member]))[take]
+    ukey, inv = torch.unique(key, return_inverse=True)
+    uval = torch.zeros(ukey.numel(), dtype=torch.float32, device=dev)
+    if cfg.summary_kind == "centroid":
+        uval.index_add_(0, inv, dv[take])
+        members = torch.bincount(blk[in_block], minlength=nblk)
+        uval = uval / torch.clamp_min(members[ukey // d].to(torch.float32),
+                                      1.0)
+    else:   # "max": the conservative Eq. 2 bound
+        uval.scatter_reduce_(0, inv, dv[take], "amax", include_self=True)
+    order = torch.sort(-uval, stable=True).indices
+    order = order[torch.sort(ukey[order] // d, stable=True).indices]
+    sb = ukey[order] // d                                      # block
+    sc = ukey[order] - sb * d                                  # coord
+    sv = uval[order]                                           # value
+    m = torch.bincount(sb, minlength=nblk)                     # nnz per block
+    start = torch.cumsum(m, 0) - m
+    rank = torch.arange(sb.numel(), device=dev) - start[sb]
+    c64 = torch.cumsum(sv.to(torch.float64), 0)
+    block_base = (c64 - sv.to(torch.float64))[start[sb]]
+    cum = (c64 - block_base).to(torch.float32)                 # in-block prefix
+    total = torch.zeros(nblk, dtype=torch.float32, device=dev)
+    has = m > 0
+    total[has] = cum[(start + m - 1)[has]]
+    thresh = cfg.alpha * total
+    sel = ((cum <= thresh[sb]) | (rank == 0)) & (rank < s)
+    out_c = torch.zeros((nblk, s), dtype=torch.int32, device=dev)
+    out_v = torch.zeros((nblk, s), dtype=torch.float32, device=dev)
+    out_c[sb[sel], rank[sel]] = sc[sel].to(torch.int32)
+    out_v[sb[sel], rank[sel]] = sv[sel]
+    # zero entries of the dense row: kept iff total <= alpha * total; the
+    # j-th one is the j-th coordinate outside the support (< m + S)
+    fill = (total <= thresh) & (m < s)
+    w = min(2 * s, d)
+    outside = torch.ones((nblk, w), dtype=torch.bool, device=dev)
+    near = sc < w
+    outside[sb[near], sc[near]] = False
+    slot = m[:, None] + torch.cumsum(outside.to(torch.int64), 1) - 1
+    put = outside & (slot < s) & fill[:, None]
+    bi, ci = put.nonzero(as_tuple=True)
+    out_c[bi, slot[bi, ci]] = ci.to(torch.int32)
+    q, scale, zero = quantize_u8(out_v)
+    return (out_c.view(lc, nb, s), q.view(lc, nb, s), scale.view(lc, nb),
+            zero.view(lc, nb))
+
+
+def list_block_arrays(docs, vals, cnt, fwd: PaddedSparse,
+                      cfg: SeismicConfig, rep_pos=None, tick=None):
+    """Cluster + block + summarize a chunk of pruned lists [Lc, lam]:
+    the per-list half of Algorithm 1 after static pruning. ``rep_pos``
+    [Lc, beta] holds the representatives' positions (geometric blocking
+    only). ``tick(phase)`` is called after each phase."""
+    tick = tick or (lambda phase: None)
+    if cfg.blocking == "fixed":
+        # Fig. 5 baseline: impact-ordered chunks of one cluster
+        pos = torch.arange(cfg.lam, device=docs.device)
+        assign = torch.where(pos < cnt[:, None], 0, cfg.beta).to(torch.int32)
+    else:
+        assign = _assign_clusters(rep_pos, docs, cnt, fwd, cfg)
+    tick("assign")
+    perm, block_id, blk_off, blk_len = _physical_blocks(assign, cnt, cfg)
+    docs_perm = docs.gather(1, perm)
+    vals_perm = vals.gather(1, perm)
+    tick("blocks")
+    sc, q, scale, zero = _summaries(docs_perm, block_id, fwd, cfg)
+    tick("summaries")
+    return docs_perm, vals_perm, cnt, blk_off, blk_len, sc, q, scale, zero
+
+
+def sample_rep_pos(counts, cfg: SeismicConfig,
+                   gen: torch.Generator) -> torch.Tensor:
+    """Representative positions [L, beta], uniform over each list's
+    ``max(min(count, lam), 1)`` members (with replacement)."""
+    hi = counts.clamp(max=cfg.lam).clamp(min=1)
+    u = torch.rand((counts.shape[0], cfg.beta), generator=gen,
+                   device=counts.device)
+    return torch.minimum((u * hi[:, None]).long(), hi[:, None] - 1)
+
+
+class _Ticker:
+    """Accumulates seconds per build phase into ``timings`` (syncing the
+    device first); a no-op when ``timings`` is None."""
+
+    def __init__(self, timings: dict | None, device: torch.device):
+        self.timings, self.device = timings, device
+        self.last = self._now()
+
+    def _now(self) -> float:
+        if self.timings is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        if self.timings is None:
+            return
+        now = self._now()
+        self.timings[phase] = self.timings.get(phase, 0.0) + now - self.last
+        self.last = now
+
+
+def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
+                list_chunk: int = 64, rep_pos: torch.Tensor | None = None,
+                timings: dict | None = None) -> SeismicIndex:
+    """Algorithm 1 over the whole collection, on the collection's device.
+
+    ``rep_pos`` [dim, beta] fixes the representatives' positions
+    (default: drawn from a generator seeded with ``cfg.seed``). With
+    ``timings`` given, seconds per phase accumulate into it."""
+    if cfg.superblock_fanout > 0:
+        raise NotImplementedError(
+            "the superblock tier is not ported yet (ROADMAP Queue 1, "
+            "hierarchical routing and the superblock build)")
+    dev, d, n = docs.device, docs.dim, docs.n
+    lam, nb, s = cfg.lam, cfg.n_blocks, cfg.summary_nnz
+    tick = _Ticker(timings, dev)
+    fwd32 = docs.astype(torch.float32)
+    sorted_v, sorted_d, starts, counts = _sorted_postings(docs)
+    if cfg.blocking != "fixed" and rep_pos is None:
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        rep_pos = sample_rep_pos(counts, cfg, gen)
+    tick("postings")
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    list_docs = torch.empty((d, lam), **i32)
+    list_vals = torch.empty((d, lam), **f32)
+    list_len = torch.empty((d,), **i32)
+    block_off = torch.empty((d, nb), **i32)
+    block_len = torch.empty((d, nb), **i32)
+    sum_coords = torch.empty((d, nb, s), **i32)
+    sum_q = torch.empty((d, nb, s), dtype=torch.uint8, device=dev)
+    sum_scale = torch.empty((d, nb), **f32)
+    sum_zero = torch.empty((d, nb), **f32)
+    for i0 in range(0, d, list_chunk):
+        lists = torch.arange(i0, min(d, i0 + list_chunk), device=dev)
+        ld, lv, cnt = _prune_list(lists, sorted_v, sorted_d, starts, counts,
+                                  lam, n)
+        tick("prune")
+        out = list_block_arrays(
+            ld, lv, cnt, fwd32, cfg,
+            rep_pos=None if rep_pos is None else rep_pos[lists], tick=tick)
+        for dst, src in zip((list_docs, list_vals, list_len, block_off,
+                             block_len, sum_coords, sum_q, sum_scale,
+                             sum_zero), out):
+            dst[i0:i0 + lists.numel()] = src
+    fwd_scale = fwd_zero = None
+    if cfg.fwd_quant:
+        # compact forward index: u8 values (per-doc affine) + u16 coords
+        q, fwd_scale, fwd_zero = quantize_u8(docs.vals.to(torch.float32))
+        coords = docs.coords.to(torch.int32)
+        if d < 65536:
+            coords = coords.to(torch.int16).view(torch.uint16)
+        fwd = PaddedSparse(coords, q, d)
+    else:
+        fwd = docs.astype(getattr(torch, cfg.fwd_dtype))
+    tick("forward")
+    return SeismicIndex(
+        fwd=fwd, list_docs=list_docs, list_vals=list_vals, list_len=list_len,
+        block_off=block_off, block_len=block_len, sum_coords=sum_coords,
+        sum_q=sum_q, sum_scale=sum_scale, sum_zero=sum_zero,
+        fwd_scale=fwd_scale, fwd_zero=fwd_zero, config=cfg)
+
+
+def live_blocks(index: SeismicIndex) -> torch.Tensor:
+    """Per-list live-block counts of a built index."""
+    return (index.block_len > 0).sum(dim=-1).to(torch.int32)

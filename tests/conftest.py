@@ -22,6 +22,11 @@ from repro.data import SyntheticSparseConfig, make_collection
 from repro.sparse.ops import PaddedSparse
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def small_collection():
     cfg = SyntheticSparseConfig(dim=1024, n_docs=2048, n_queries=16,

@@ -1,0 +1,262 @@
+"""Port parity: the kernel wrappers of ``repro_torch.kernels``.
+
+On the CPU a wrapper takes its kernel's plain version; those are held
+against the JAX package's Pallas kernels in interpret mode
+(``summary_dot_batch``, ``gather_dot_batch``, ``gather_dot_cand_batch``)
+at odd shapes, with all-padding rows, sentinels and all-sentinel tiles.
+Scores are ``allclose(rtol=1e-5, atol=1e-6)`` (summation order differs);
+-inf positions are equal.
+
+Tests marked ``gpu`` hold each CUDA kernel against its plain version on
+the card and skip here (``python -m pytest -q -m gpu
+--noconftest tests/test_torch_kernels.py`` on a CUDA host: the suite's
+conftest and the JAX reference are not needed there, and JAX may be
+absent, in which case only the ``gpu`` tests can run).
+"""
+import numpy as np
+import pytest
+import torch
+
+try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
+    import jax.numpy as jnp
+
+    from repro.kernels.gather_dot.ops import \
+        cand_tiles_processed as jax_tiles
+    from repro.kernels.gather_dot.ops import gather_dot_batch as jax_gather_dot
+    from repro.kernels.gather_dot.ops import gather_dot_cand_batch as jax_cand
+    from repro.kernels.summary_dot.ops import summary_dot_batch as jax_summary
+except ModuleNotFoundError:
+    jnp = None
+from repro_torch.kernels import runtime
+from repro_torch.kernels.gather_dot.ops import (CAND_TILE_N, CAND_TILE_Q,
+                                                cand_tiles_processed,
+                                                gather_dot_batch,
+                                                gather_dot_cand_batch)
+from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
+                                                gather_dot_cand_ref)
+from repro_torch.kernels.summary_dot.ops import summary_dot_batch
+from repro_torch.kernels.summary_dot.ref import summary_dot_batch_ref
+from repro_torch.sparse.ops import take_rows
+from repro_torch.sparse.quant import quantize_u8
+
+RTOL, ATOL = 1e-5, 1e-6
+VAL_KINDS = ("f32", "bf16", "u8")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _quantize(vals):
+    """u8 levels, scale, zero as numpy (the port's quantize_u8, equal to
+    the JAX one: tests/test_torch_sparse.py)."""
+    return tuple(x.numpy() for x in quantize_u8(torch.from_numpy(vals)))
+
+
+def assert_scores(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+
+
+def summary_inputs(qn, l, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.lognormal(0, 1, (qn, d)).astype(np.float32)
+    q[rng.random((qn, d)) < 0.5] = 0.0
+    coords = rng.integers(0, d, (qn, l, s)).astype(np.int32)
+    vals = rng.lognormal(0, 1, (qn, l, s)).astype(np.float32)
+    vals[rng.random((qn, l, s)) < 0.3] = 0.0
+    vals[0, : max(l // 3, 1)] = 0.0                # all-padding summaries
+    return (q, coords) + _quantize(vals)
+
+
+def row_inputs(shape, d, kind, seed=0):
+    """(coords, vals, scale, zero) numpy rows of one value kind; u8 rows
+    come with uint16 coords, as a compact forward index stores them."""
+    rng = np.random.default_rng(seed)
+    coords = rng.integers(0, d, shape).astype(np.int32)
+    vals = rng.lognormal(0, 1, shape).astype(np.float32)
+    vals[rng.random(shape) < 0.25] = 0.0
+    vals[(0,) * (len(shape) - 1)] = 0.0            # an all-padding row
+    if kind == "u8":
+        return (coords.astype(np.uint16),) + _quantize(vals)
+    if kind == "bf16":    # bf16 values, rounded, kept as float32 here
+        return coords, torch.from_numpy(vals).bfloat16().float().numpy(), \
+            "bf16", None
+    return coords, vals, None, None
+
+
+def as_jax(coords, vals, scale, zero):
+    if isinstance(scale, str):      # the "bf16" marker
+        return (jnp.asarray(coords), jnp.asarray(vals, jnp.bfloat16), None,
+                None)
+    return (jnp.asarray(coords.astype(np.int32)), jnp.asarray(vals),
+            None if scale is None else jnp.asarray(scale),
+            None if zero is None else jnp.asarray(zero))
+
+
+def as_torch(coords, vals, scale, zero):
+    if isinstance(scale, str):      # the "bf16" marker
+        return _t(coords), _t(vals).bfloat16(), None, None
+    return (_t(coords), _t(vals), None if scale is None else _t(scale),
+            None if zero is None else _t(zero))
+
+
+def cand_inputs(qn, c, n_docs, seed=0):
+    """Compacted candidate ids: a live sorted prefix per query, then
+    sentinels; some queries have none (all-sentinel rows and tiles)."""
+    rng = np.random.default_rng(seed)
+    cand = np.full((qn, c), n_docs, np.int32)
+    for q in range(qn):
+        live = 0 if q % 3 == 0 else int(rng.integers(1, min(c, n_docs) + 1))
+        cand[q, :live] = np.sort(rng.choice(n_docs, live, replace=False))
+    return cand
+
+
+@pytest.mark.parametrize("qn,l,s,d", [
+    (8, 128, 32, 512), (3, 37, 17, 300), (1, 5, 96, 64), (13, 260, 33, 1000)])
+def test_summary_dot_plain_matches_pallas(qn, l, s, d):
+    q, coords, u8, scale, zero = summary_inputs(qn, l, s, d, seed=qn + l)
+    want = jax_summary(jnp.asarray(q), jnp.asarray(coords), jnp.asarray(u8),
+                       jnp.asarray(scale), jnp.asarray(zero))
+    got = summary_dot_batch(_t(q), _t(coords), _t(u8), _t(scale), _t(zero))
+    assert_scores(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", VAL_KINDS)
+@pytest.mark.parametrize("qn,n,nnz,d", [
+    (8, 128, 16, 512), (3, 37, 17, 300), (1, 5, 8, 64), (5, 70, 24, 777)])
+def test_gather_dot_plain_matches_pallas(qn, n, nnz, d, kind):
+    q = np.random.default_rng(n).lognormal(0, 1, (qn, d)).astype(np.float32)
+    rows = row_inputs((qn, n, nnz), d, kind, seed=qn * n)
+    want = jax_gather_dot(jnp.asarray(q), *as_jax(*rows))
+    got = gather_dot_batch(_t(q), *as_torch(*rows))
+    assert_scores(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", VAL_KINDS)
+@pytest.mark.parametrize("qn,c,n_docs,nnz,d", [
+    (6, 70, 300, 24, 500), (3, 256, 1000, 16, 700), (1, 33, 40, 48, 128)])
+def test_gather_dot_cand_plain_matches_pallas(qn, c, n_docs, nnz, d, kind):
+    q = np.random.default_rng(c).lognormal(0, 1, (qn, d)).astype(np.float32)
+    fc, fv, fs, fz = row_inputs((n_docs, nnz), d, kind, seed=n_docs)
+    cand = cand_inputs(qn, c, n_docs, seed=qn)
+    jfc, jfv, jfs, jfz = as_jax(fc, fv, fs, fz)
+    want = jax_cand(jnp.asarray(q), jnp.asarray(cand), jfc, jfv, jfs, jfz,
+                    n_docs=n_docs)
+    tfc, tfv, tfs, tfz = as_torch(fc, fv, fs, fz)
+    got = gather_dot_cand_batch(_t(q), _t(cand), tfc, tfv, tfs, tfz,
+                                n_docs=n_docs)
+    assert_scores(got.numpy(), np.asarray(want))
+    assert np.isneginf(got.numpy()[cand >= n_docs]).all()
+
+
+@pytest.mark.parametrize("qn,c", [(5, 70), (4, 64), (1, 1), (7, 129)])
+def test_cand_tiles_processed_mirrors_the_skip_predicate(qn, c):
+    """The mirror marks a tile live iff one of its ids is live — the
+    kernel's __syncthreads_or over its CAND_TILE_N ids — and agrees with
+    the JAX mirror evaluated at the port's tile."""
+    n_docs = 50
+    cand = cand_inputs(qn, c, n_docs, seed=c)
+    got = cand_tiles_processed(_t(cand), n_docs).numpy()
+    gq, gn = -(-qn // CAND_TILE_Q), -(-c // CAND_TILE_N)
+    want = np.zeros((gq, gn), bool)
+    for q in range(qn):
+        for n in range(c):
+            if cand[q, n] < n_docs:
+                want[q // CAND_TILE_Q, n // CAND_TILE_N] = True
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, jax_tiles(cand, n_docs, CAND_TILE_Q, CAND_TILE_N))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(2, 10)
+    c = torch.zeros(2, 3, 4, dtype=torch.int32)
+    v = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError, match="int32 or uint16"):
+        gather_dot_batch(q, c.long(), v)
+    with pytest.raises(ValueError, match="uint8"):
+        gather_dot_batch(q, c, v.to(torch.uint8))       # u8 without scale
+    with pytest.raises(ValueError, match="f32"):
+        gather_dot_batch(q.double(), c, v)
+    with pytest.raises(ValueError, match="batch"):
+        summary_dot_batch(q[:1], c, v.to(torch.uint8), torch.zeros(2, 3),
+                          torch.zeros(2, 3))
+    with pytest.raises(ValueError, match="n_docs"):
+        gather_dot_cand_batch(q, torch.zeros(2, 5, dtype=torch.int32),
+                              c[0], v[0], n_docs=7)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        runtime.use_plain(q, q.to("meta"))
+
+
+def test_plain_path_counts_no_launch():
+    runtime.reset_launches()
+    q, coords, u8, scale, zero = summary_inputs(2, 9, 8, 50)
+    summary_dot_batch(_t(q), _t(coords), _t(u8), _t(scale), _t(zero))
+    assert runtime.LAUNCHES == {"summary_dot": 0, "gather_dot": 0,
+                                "gather_dot_cand": 0}
+
+
+def test_kernel_sources_are_registered_and_hashed():
+    for name, src in runtime.SOURCES.items():
+        assert src.exists(), src
+        assert runtime.library_path(name).parent == runtime.BUILD_DIR
+        assert src.read_text().count("Replaces") == 1
+
+
+# ----------------------------------------------------------- on the card
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on an H100 host)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_summary_dot_kernel_matches_plain_on_card():
+    dev = _cuda()
+    args = [_t(x).to(dev) for x in summary_inputs(16, 600, 96, 30522)]
+    before = runtime.LAUNCHES["summary_dot"]
+    got = summary_dot_batch(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["summary_dot"] == before + 1
+    assert_scores(got.cpu().numpy(), summary_dot_batch_ref(*args).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", VAL_KINDS)
+def test_gather_dot_kernel_matches_plain_on_card(kind):
+    dev = _cuda()
+    q = _t(np.random.default_rng(1).lognormal(0, 1, (16, 30522))
+           .astype(np.float32)).to(dev)
+    rows = [None if x is None else x.to(dev)
+            for x in as_torch(*row_inputs((16, 513, 128), 30522, kind))]
+    got = gather_dot_batch(q, *rows)
+    torch.cuda.synchronize()
+    assert_scores(got.cpu().numpy(), gather_dot_batch_ref(q, *rows).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", VAL_KINDS)
+def test_gather_dot_cand_kernel_matches_plain_on_card(kind):
+    dev = _cuda()
+    n_docs = 5000
+    q = _t(np.random.default_rng(2).lognormal(0, 1, (9, 30522))
+           .astype(np.float32)).to(dev)
+    plane = [None if x is None else x.to(dev)
+             for x in as_torch(*row_inputs((n_docs, 128), 30522, kind))]
+    cand = _t(cand_inputs(9, 1000, n_docs)).to(dev)
+    got = gather_dot_cand_batch(q, cand, *plane, n_docs=n_docs)
+    torch.cuda.synchronize()
+    assert_scores(got.cpu().numpy(),
+                  gather_dot_cand_ref(q, cand, *plane, n_docs).cpu())
+    # same row dot as the batch kernel: bitwise equal scores
+    idx = cand.long().clamp(max=n_docs - 1)
+    fs, fz = plane[2:]
+    batch = gather_dot_batch(q, take_rows(plane[0], idx), plane[1][idx],
+                             None if fs is None else fs[idx],
+                             None if fz is None else fz[idx])
+    live = cand < n_docs
+    assert torch.equal(got[live], batch[live])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs N] [--seed S]
 
@@ -9,19 +9,38 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    float32 matmuls and convolutions, so every reference is full float32;
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` each, in parallel) and print ptxas' register/spill report;
-3. each kernel against its plain PyTorch version at the slice's shapes
-   (Q = 256, L = 4940, S = 96; N = 4096 and 512; nnz = 128;
-   d = 30522), in f32, bf16, and u8 values with u16 coords;
-4. the collection and the index at the MS MARCO widths of
+3. each kernel against its plain PyTorch version at the slices' shapes,
+   on seeded inputs: summary_dot (Q = 256, L = 4940, S = 96), gather_dot
+   (N = 4096 and 512, nnz = 128) and gather_dot_cand in f32, bf16 and
+   u8 values with u16 coords, router_flat (cut 10 over 494 blocks of 96
+   entries), router_hier (cut 8 over 62 superblocks of 768 entries,
+   m 32, fanout 8) and refine_round (k 10, degree 8, 90 seen ids, a
+   1,048,576-doc forward plane in the three value kinds), d = 30522;
+4. run to run: a 65,536-doc collection and its index (superblock fanout
+   8) made twice from one seed must be bitwise equal, plane by plane (a
+   differing plane is named and fails the run);
+5. the collection and the index at the MS MARCO widths of
    ``configs/seismic_msmarco.py`` (d = 30522, 128 nnz per doc, 48 per
    query; lam 6000, beta 400, alpha 0.4, block_cap 64, 96-entry
-   summaries, bf16 forward index), ``--n-docs`` documents (the only cut);
-5. the main path: ``SeismicServer`` answers 256 queries and
-   ``search_pipeline`` a 4096-query batch, at kernel fuse levels 0 and 1,
-   with launch counts set to 0 just before and read just after; the
-   plain path (``use_kernel=False``) is the reference at 256; recall@10
-   against the exact top-10 on the card; per-stage times;
-6. each kernel timed on the main path's own inputs with CUDA events
+   summaries, bf16 forward index) with ``CONFIG_HIER``'s superblock tier
+   (fanout 8: 62 superblocks of 768 entries per list), ``--n-docs``
+   documents (the only cut);
+6. the flat path (kernels summary_dot, gather_dot, gather_dot_cand,
+   router_flat): ``SeismicServer`` answers 256 queries and
+   ``search_pipeline`` a 4096-query batch at fuse levels 0, 1 and 2
+   (adaptive policy, cut 10, block_budget 64), with launch counts set to
+   0 just before and read just after; the plain path
+   (``use_kernel=False``) is the reference at 256; recall@10 against the
+   exact top-10 on the card; per-stage times;
+7. the kNN graph (``build_doc_graph``, degree 8, 4096 docs per call) and
+   the hierarchical, refined path (kernels summary_dot, gather_dot,
+   gather_dot_cand, router_hier, refine_round) at ``CONFIG_TUNED``'s
+   0.95 operating point (k 10, cut 8, block_budget 128, budget policy,
+   superblock_budget 32, graph_degree 8, refine_rounds 2): the same two
+   front ends at fuse levels 0, 1 and 2 with launch counts set to 0 just
+   before and read just after, the plain reference at 256, recall@10 at
+   refine_rounds 0, 1 and 2, per-stage and per-round times;
+8. each kernel timed on its main path's own inputs with CUDA events
    (L2 flushed before every launch) beside its bound, its plain version
    and one PyTorch library call where one computes the same function.
 
@@ -29,11 +48,16 @@ The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; nothing falls back to the CPU or the plain versions.
 
-Tolerance, kernel against plain: ``|k - p| <= 2e-5 * |p| + 1e-6``. Both
-sum at most 128 nonnegative float32 products in different orders (the
-kernel also fuses the dequant multiply-add); each order is within
-128 * 2^-24 ~ 7.6e-6 relative of the exact sum, so two orders differ by
-less than 1.6e-5.
+Tolerance, kernel against plain: ``|k - p| <= 2e-5 * |p| + 1e-6``. Every
+score a kernel returns sums at most 128 nonnegative float32 products
+(96-entry summaries, 128-entry forward rows), in another order than the
+plain version (the kernel also fuses the dequant multiply-add); each
+order is within 128 * 2^-24 ~ 7.6e-6 relative of the exact sum, so two
+orders differ by less than 1.6e-5. Integer outputs (router_hier's flat
+positions, which its 768-entry stage-A scores choose; refine_round's
+frontier ids) are equal. Kernel paths against each other (fuse levels
+0, 1, 2): bitwise equal ids, ``docs_evaluated`` and scores, since every
+kernel scores a row with one shared row dot.
 """
 from __future__ import annotations
 
@@ -54,6 +78,16 @@ INDEX = dict(lam=6000, beta=400, alpha=0.4, block_cap=64, summary_nnz=96,
              fwd_dtype="bfloat16")
 ROUTER_L, SUMMARY_S, SCORER_N, STAGE1_N = 4940, 96, 4096, 512
 PLANE_DOCS = 1 << 20
+# CONFIG_HIER (configs/seismic_msmarco.py): suggest_fanout of the modelled
+# MS MARCO lists; 62 superblocks of 8 * 96 = 768 entries per list
+FANOUT, N_SUPER, SUPER_S = 8, 62, 768
+# CONFIG_TUNED's operating point at recall target 0.95
+TUNED = dict(k=10, cut=8, block_budget=128, policy="budget",
+             superblock_fanout=FANOUT, superblock_budget=32, graph_degree=8,
+             refine_rounds=2)
+GRAPH_DEGREE, GRAPH_BATCH = 8, 4096
+SYNTH_LISTS = 2048              # lists of the synthetic router planes
+RUN_TO_RUN_DOCS = 1 << 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SOURCES = {
@@ -64,6 +98,15 @@ SOURCES = {
     "gather_dot_cand": (
         "src/repro_torch/kernels/gather_dot/csrc/gather_dot.cu",
         "src/repro/kernels/gather_dot/gather_dot.py:202"),
+    "router_flat": (
+        "src/repro_torch/kernels/router_fused/csrc/router_fused.cu",
+        "src/repro/kernels/router_fused/router_fused.py:96"),
+    "router_hier": (
+        "src/repro_torch/kernels/router_fused/csrc/router_fused.cu",
+        "src/repro/kernels/router_fused/router_fused.py:186"),
+    "refine_round": (
+        "src/repro_torch/kernels/refine_fused/csrc/refine_fused.cu",
+        "src/repro/kernels/refine_fused/refine_fused.py:118"),
 }
 
 
@@ -130,7 +173,8 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def synthetic_phase(torch, dev, gen) -> None:
-    """Phase 3: every kernel variant against its plain version at the
+    """Phase 3, the unfused kernels: every variant of summary_dot,
+    gather_dot and gather_dot_cand against its plain version at the
     slice's shapes, on seeded random inputs."""
     from repro_torch.kernels.gather_dot.ops import (
         gather_dot_batch, gather_dot_batch_ref, gather_dot_cand_batch,
@@ -188,6 +232,189 @@ def synthetic_phase(torch, dev, gen) -> None:
             f"rel {e[1]:.3e}")
 
 
+def fused_synthetic_phase(torch, dev, gen) -> None:
+    """Phase 3, the fused kernels: router_flat, router_hier and
+    refine_round against their plain versions on seeded inputs."""
+    from repro_torch.kernels.refine_fused.ops import (refine_round_batch,
+                                                      refine_round_ref)
+    from repro_torch.kernels.router_fused.ops import (router_flat_batch,
+                                                      router_flat_ref,
+                                                      router_hier_batch,
+                                                      router_hier_ref)
+    from repro_torch.sparse.quant import quantize_u8
+    d, qn, nl, nb, s = DIM, Q_ONLINE, SYNTH_LISTS, ROUTER_L // CUT, SUMMARY_S
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def tier(n, width):
+        vals = rand(nl, n, width) * (rand(nl, n, width) < 0.9)
+        return (ints(0, d, nl, n, width),) + quantize_u8(vals)
+
+    q = rand(qn, d) * (rand(qn, d) < QUERY_NNZ / d)
+    q[:, 0] = 1.0
+    block_len = ints(0, 3, nl, nb)                   # a third of blocks dead
+    block_len[0] = 0                                 # a dead list
+    blocks = tier(nb, s)
+    lists = ints(0, nl, qn, CUT)
+    lists[0] = 0
+    args = (lists, q) + blocks + (block_len,)
+    e = compare(torch, "router_flat", router_flat_batch(*args),
+                router_flat_ref(*args))
+    log(f"  router_flat  Q={qn} cut={CUT} nb={nb} S={s}: max abs "
+        f"{e[0]:.3e} rel {e[1]:.3e}")
+    lists8 = lists[:, :TUNED["cut"]].contiguous()
+    hargs = (lists8, q) + tier(N_SUPER, SUPER_S) + blocks + (block_len,)
+    m = TUNED["superblock_budget"]
+    rb, flat = router_hier_batch(*hargs, m=m, fanout=FANOUT)
+    want_rb, want_flat = router_hier_ref(*hargs, m=m, fanout=FANOUT)
+    if not torch.equal(flat, want_flat):
+        raise AssertionError("router_hier: flat positions differ from the "
+                             "plain version")
+    e = compare(torch, "router_hier", rb, want_rb)
+    log(f"  router_hier  Q={qn} cut={TUNED['cut']} ns={N_SUPER} "
+        f"S2={SUPER_S} m={m} f={FANOUT}: flat positions equal, max abs "
+        f"{e[0]:.3e} rel {e[1]:.3e}")
+    k, degree, n_docs, nnz = TUNED["k"], TUNED["graph_degree"], PLANE_DOCS, \
+        DOC_NNZ
+    knn = ints(0, n_docs, n_docs, degree)
+    knn[rand(n_docs, degree) < 0.05] = n_docs        # missing edges
+    ids = ints(0, n_docs, qn, k)
+    ids[::5, k // 2:] = -1
+    w = k + k * degree               # the seen set of a second round
+    scored = torch.cat([torch.where(ids >= 0, ids, n_docs),
+                        knn[ids[:, :1].long().clamp(min=0)].reshape(qn, -1),
+                        ints(0, n_docs, qn, w - k - degree)], dim=1)
+    for kind in ("float32", "bfloat16", "u8"):
+        coords = ints(0, d, n_docs, nnz)
+        vals = rand(n_docs, nnz) * (rand(n_docs, nnz) < 0.9)
+        if kind == "u8":
+            plane = (coords.to(torch.int16).view(torch.uint16),) \
+                + quantize_u8(vals)
+        else:
+            plane = (coords, vals.to(getattr(torch, kind)), None, None)
+        fargs = (ids, scored.contiguous(), q, knn) + plane
+        cand, scores = refine_round_batch(*fargs, n_docs=n_docs,
+                                          degree=degree)
+        want_c, want_s = refine_round_ref(*fargs, n_docs, degree)
+        if not torch.equal(cand, want_c):
+            raise AssertionError(f"refine_round {kind}: frontier ids differ "
+                                 "from the plain version")
+        e = compare(torch, f"refine_round {kind}", scores, want_s)
+        log(f"  refine_round {kind:8s} k={k} degree={degree} W={w}: "
+            f"frontier ids equal ({int((cand < n_docs).sum())} live), max "
+            f"abs {e[0]:.3e} rel {e[1]:.3e}")
+
+
+def run_to_run_phase(torch, dev, seed) -> None:
+    """Phase 4: the collection and the index made twice from one seed at
+    65,536 docs; raises naming every plane that differs."""
+    from repro_torch.core.build import build_index
+    from repro_torch.core.types import SeismicConfig
+    from repro_torch.data import SyntheticSparseConfig, make_collection
+    cfg = SyntheticSparseConfig(dim=DIM, n_docs=RUN_TO_RUN_DOCS,
+                                n_queries=Q_ONLINE, doc_nnz=DOC_NNZ,
+                                query_nnz=QUERY_NNZ, seed=seed)
+    (d1, q1, _), (d2, q2, _) = (make_collection(cfg, device=dev)
+                                for _ in range(2))
+    icfg = SeismicConfig(**INDEX, superblock_fanout=FANOUT, seed=seed)
+    i1, i2 = build_index(d1, icfg), build_index(d1, icfg)
+    index_planes = [("fwd.coords", i1.fwd.coords, i2.fwd.coords),
+                    ("fwd.vals", i1.fwd.vals, i2.fwd.vals)]
+    index_planes += [(n, t, getattr(i2, n))
+                     for n, t in i1._tensor_fields().items() if t is not None]
+    for what, planes in (
+            ("collection", [("docs.coords", d1.coords, d2.coords),
+                            ("docs.vals", d1.vals, d2.vals),
+                            ("queries.coords", q1.coords, q2.coords),
+                            ("queries.vals", q1.vals, q2.vals)]),
+            ("index from one collection", index_planes)):
+        differ = [f"{n} ({int((a != b).sum())} entries)" for n, a, b in planes
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"run to run, {what}: {', '.join(differ)} "
+                                 "differ")
+        log(f"  {what} twice: all {len(planes)} planes bitwise equal")
+
+
+def same_results(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def as_triple(out):
+    """(scores, ids, docs_evaluated) of a server result or a pipeline
+    tuple."""
+    if isinstance(out, tuple):
+        return out
+    return out.scores, out.ids, out.docs_evaluated
+
+
+def check_against_plain(torch, label, got, ref, k) -> int:
+    """Kernel path against the plain path: scores within tolerance, ids
+    equal except at non-isolated scores (or the k-th position). Returns
+    the number of rows whose ids differ."""
+    compare(torch, f"{label} scores vs plain", got[0], ref[0])
+    diff = got[1] != ref[1]
+    for q, i in diff.nonzero().tolist():
+        s = ref[0][q].double()
+        near = (s - s[i]).abs() <= ATOL + RTOL * abs(float(s[i]))
+        if int(near.sum()) < 2 and i != k - 1:
+            raise AssertionError(f"{label}: query {q} ids differ from the "
+                                 "plain path at an isolated score")
+    return int(diff.any(dim=1).sum())
+
+
+def drive(torch, SeismicServer, search_pipeline, index, levels, q256,
+          q4096):
+    """Every level's server (256 queries) and pipeline (4096) run three
+    times each -> (last results, ms per run), keyed (level, label)."""
+    results, batch_ms = {}, {}
+    for fuse, p in levels.items():
+        server = SeismicServer(index, p, max_batch=Q_ONLINE)
+        for label, run in (("server 256", lambda: server.search(q256)),
+                           ("pipeline 4096",
+                            lambda: search_pipeline(index, q4096, p))):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            results[fuse, label] = as_triple(out)
+            batch_ms[fuse, label] = times
+    return results, batch_ms
+
+
+def check_levels(torch, name, results, batch_ms, levels) -> None:
+    """Ids, docs_evaluated and scores bitwise equal across the levels."""
+    for label in ("server 256", "pipeline 4096"):
+        base = results[0, label]
+        for fuse in levels:
+            if not same_results(torch, results[fuse, label], base):
+                raise AssertionError(
+                    f"{name} {label}: ids, docs_evaluated or scores differ "
+                    f"between fuse levels 0 and {fuse}")
+        times = "; ".join(
+            f"fuse {f} ms {['%.1f' % t for t in batch_ms[f, label]]}"
+            for f in levels)
+        log(f"  {name} {label}: {times}"
+            + f"; ids, docs_evaluated and scores bitwise equal across levels;"
+            f" mean docs_evaluated {float(base[2].float().mean()):.1f}")
+
+
+def staged_ms(index, p, qs, run_pipeline_staged, split_refine=False) -> str:
+    stages: dict[str, float] = {}
+    for _ in range(2):
+        run_pipeline_staged(index, qs.coords, qs.vals, p,
+                            record=stages.__setitem__,
+                            split_refine=split_refine)
+    return ", ".join(f"{k} {v * 1e3:.2f}" for k, v in stages.items())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1 << 20,
@@ -204,14 +431,23 @@ def main() -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.build import build_index
+    from repro_torch.core.build import build_index, live_blocks, \
+        suggest_fanout
     from repro_torch.core.oracle import exact_topk, mean_recall_at_k
     from repro_torch.core.types import SeismicConfig
     from repro_torch.data import SyntheticSparseConfig, make_collection
+    from repro_torch.graph import build_doc_graph
+    from repro_torch.graph.refine import scored_init
     from repro_torch.kernels import runtime
     from repro_torch.kernels.gather_dot.ops import (
         cand_tiles_processed, gather_dot_batch, gather_dot_batch_ref,
         gather_dot_cand_batch, gather_dot_cand_ref)
+    from repro_torch.kernels.refine_fused.ops import (refine_round_batch,
+                                                      refine_round_ref)
+    from repro_torch.kernels.router_fused.ops import (router_flat_batch,
+                                                      router_flat_ref,
+                                                      router_hier_batch,
+                                                      router_hier_ref)
     from repro_torch.kernels.summary_dot.ops import (summary_dot_batch,
                                                      summary_dot_batch_ref)
     from repro_torch.retrieval import (SearchParams, run_pipeline_staged,
@@ -244,14 +480,21 @@ def main() -> int:
                                        "Compiling")):
                 log(f"  {name}: {line.strip()}")
 
-    # ---- 3. kernels against plain, synthetic inputs at the slice's shapes
+    # ---- 3. kernels against plain, synthetic inputs at the slices' shapes
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
     synthetic_phase(torch, dev, gen)
+    fused_synthetic_phase(torch, dev, gen)
     log(f"[3 kernels vs plain] all variants within rtol={RTOL} atol={ATOL} "
         f"in {time.perf_counter() - t0:.1f} s")
 
-    # ---- 4. collection and index at the MS MARCO widths
+    # ---- 4. run to run: collection and index made twice from one seed
+    t0 = time.perf_counter()
+    log(f"[4 run to run] {RUN_TO_RUN_DOCS} docs, seed {args.seed}:")
+    run_to_run_phase(torch, dev, args.seed)
+    log(f"  in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5. collection and index at the MS MARCO widths, superblock tier
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     data_cfg = SyntheticSparseConfig(dim=DIM, n_docs=args.n_docs,
@@ -260,93 +503,114 @@ def main() -> int:
     docs, queries, _ = make_collection(data_cfg, device=dev)
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
-    icfg = SeismicConfig(**INDEX, seed=args.seed)
+    icfg = SeismicConfig(**INDEX, superblock_fanout=FANOUT, seed=args.seed)
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
     index = build_index(docs, icfg, timings=timings)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    log(f"[4 index] {args.n_docs} docs (MS MARCO: 8841823), d={DIM}, "
+    log(f"[5 index] {args.n_docs} docs (MS MARCO: 8841823), d={DIM}, "
         f"collection {t_data:.1f} s, build {t_build:.1f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items()))
     log(f"  index bytes {json.dumps(index.nbytes())}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-        f"n_blocks {icfg.n_blocks}; live blocks "
-        f"{int((index.block_len > 0).sum())}")
+        f"n_blocks {icfg.n_blocks}, n_superblocks {icfg.n_superblocks} of "
+        f"{index.sup_coords.shape[-1]} entries; live blocks "
+        f"{int((index.block_len > 0).sum())}; suggest_fanout of the live "
+        f"blocks {suggest_fanout(live_blocks(index))} (configured "
+        f"{FANOUT})")
 
-    # ---- 5. the main path
+    # ---- 6. the flat path
     q256, q4096 = queries[:Q_ONLINE], queries
     base = dict(k=10, cut=CUT, block_budget=BLOCK_BUDGET)
     plain = SearchParams(use_kernel=False, fuse_level=0, **base)
     ref256 = search_pipeline(index, q256, plain)
-    levels = {0: SearchParams(use_kernel=True, fuse_level=0, **base),
-              1: SearchParams(use_kernel=True, fuse_level=1, **base)}
-    results, batch_ms = {}, {}
+    levels = {f: SearchParams(use_kernel=True, fuse_level=f, **base)
+              for f in (0, 1, 2)}
     torch.cuda.synchronize()
     runtime.reset_launches()
-    for fuse, p in levels.items():
-        server = SeismicServer(index, p, max_batch=Q_ONLINE)
-        for label, run in (("server 256", lambda: server.search(q256)),
-                           ("pipeline 4096",
-                            lambda: search_pipeline(index, q4096, p))):
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                out = run()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            results[fuse, label] = out
-            batch_ms[fuse, label] = times
-    launches = dict(runtime.LAUNCHES)
-    log(f"[5 main path] launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    results, batch_ms = drive(torch, SeismicServer, search_pipeline, index,
+                              levels, q256, q4096)
+    flat_launches = dict(runtime.LAUNCHES)
+    log(f"[6 flat path] launches {flat_launches}")
+    for name in ("summary_dot", "gather_dot", "gather_dot_cand",
+                 "router_flat"):
+        if flat_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    for label in ("server 256", "pipeline 4096"):
-        r0, r1 = results[0, label], results[1, label]
-        a = (r0.scores, r0.ids, r0.docs_evaluated) \
-            if label.startswith("server") else r0
-        b = (r1.scores, r1.ids, r1.docs_evaluated) \
-            if label.startswith("server") else r1
-        if not (torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])):
-            raise AssertionError(f"{label}: ids or docs_evaluated differ "
-                                 "between fuse levels 0 and 1")
-        log(f"  {label}: fuse 0 ms {['%.1f' % t for t in batch_ms[0, label]]}"
-            f", fuse 1 ms {['%.1f' % t for t in batch_ms[1, label]]}; ids and "
-            f"docs_evaluated equal across levels, scores bitwise equal: "
-            f"{torch.equal(a[0], b[0])}; mean docs_evaluated "
-            f"{float(b[2].float().mean()):.1f}")
+                                 "flat path")
+    check_levels(torch, "flat", results, batch_ms, levels)
     k256 = results[1, "server 256"]
-    compare(torch, "main path scores vs plain", k256.scores, ref256[0])
-    diff_rows = int((k256.ids != ref256[1]).any(dim=1).sum())
-    for q, i in (k256.ids != ref256[1]).nonzero().tolist():
-        s = ref256[0][q].double()
-        near = (s - s[i]).abs() <= ATOL + RTOL * abs(float(s[i]))
-        if int(near.sum()) < 2 and i != base["k"] - 1:
-            raise AssertionError(f"query {q}: ids differ from the plain path "
-                                 f"at an isolated score")
+    n_diff = check_against_plain(torch, "flat path", k256, ref256, 10)
     log(f"  kernel path vs plain path at {q256.n}: scores within tolerance, "
-        f"{diff_rows} rows with ids differing at non-isolated ties")
+        f"{n_diff} rows with ids differing at non-isolated ties")
     t0 = time.perf_counter()
     ex_s, ex_i = exact_topk(docs.coords, docs.vals, docs.dim, q256.coords,
                             q256.vals, 10)
     torch.cuda.synchronize()
     log(f"  recall@10 vs exact top-10 ({q256.n} queries, exact in "
         f"{time.perf_counter() - t0:.1f} s): kernel path "
-        f"{mean_recall_at_k(k256.ids, ex_i):.4f}, plain path "
+        f"{mean_recall_at_k(k256[1], ex_i):.4f}, plain path "
         f"{mean_recall_at_k(ref256[1], ex_i):.4f}")
     for fuse, p in levels.items():
         for qs in (q256, q4096):
-            stages: dict[str, float] = {}
-            run_pipeline_staged(index, qs.coords, qs.vals, p,
-                                record=stages.__setitem__)
-            run_pipeline_staged(index, qs.coords, qs.vals, p,
-                                record=stages.__setitem__)
             log(f"  stages ms, fuse {fuse}, Q={qs.n}: "
-                + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in stages.items()))
+                + staged_ms(index, p, qs, run_pipeline_staged))
 
-    # ---- 6. kernels on the main path's inputs: errors and times
+    # ---- 7. the kNN graph and the hierarchical, refined path
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    index = build_doc_graph(index, degree=GRAPH_DEGREE, batch=GRAPH_BATCH)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    knn = index.knn_ids
+    own = torch.arange(index.n_docs, device=dev)[:, None]
+    log(f"[7 graph + hierarchical path] build_doc_graph degree "
+        f"{GRAPH_DEGREE}, {-(-index.n_docs // GRAPH_BATCH)} pipeline calls "
+        f"of {GRAPH_BATCH}: {t_graph:.1f} s; graph bytes {knn.nbytes}, "
+        f"missing edges {int((knn >= index.n_docs).sum())}, self edges "
+        f"{int((knn == own).sum())}"
+        f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    tuned = {f: SearchParams(use_kernel=True, fuse_level=f, **TUNED)
+             for f in (0, 1, 2)}
+    plain_h = SearchParams(use_kernel=False, fuse_level=0, **TUNED)
+    ref_h = search_pipeline(index, q256, plain_h)
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    results_h, batch_ms_h = drive(torch, SeismicServer, search_pipeline,
+                                  index, tuned, q256, q4096)
+    hier_launches = dict(runtime.LAUNCHES)
+    log(f"  params {TUNED}; launches {hier_launches}")
+    for name in ("summary_dot", "gather_dot", "gather_dot_cand",
+                 "router_hier", "refine_round"):
+        if hier_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "hierarchical, refined path")
+    check_levels(torch, "hierarchical", results_h, batch_ms_h, tuned)
+    n_diff = check_against_plain(torch, "hierarchical path",
+                                 results_h[2, "server 256"], ref_h, 10)
+    log(f"  kernel path vs plain path at {q256.n}: scores within tolerance, "
+        f"{n_diff} rows with ids differing at non-isolated ties")
+    recalls = []
+    for rounds in (0, 1, 2):
+        p = SearchParams(use_kernel=True, fuse_level=2,
+                         **{**TUNED, "refine_rounds": rounds})
+        _, ids, ev = search_pipeline(index, q256, p)
+        recalls.append((mean_recall_at_k(ids, ex_i), float(ev.float().mean())))
+    log(f"  recall@10 vs exact top-10 ({q256.n} queries, fuse 2): "
+        + ", ".join(f"refine_rounds {r}: {rc:.4f} (mean docs_evaluated "
+                    f"{e:.1f})" for r, (rc, e) in enumerate(recalls)))
+    if any(b[0] < a[0] for a, b in zip(recalls, recalls[1:])):
+        raise AssertionError("recall@10 fell from one refine round to the "
+                             "next")
+    for fuse, p in tuned.items():
+        for qs in (q256, q4096):
+            log(f"  stages ms, fuse {fuse}, Q={qs.n}: "
+                + staged_ms(index, p, qs, run_pipeline_staged,
+                            split_refine=True))
+
+    # ---- 8. kernels on the main paths' inputs: errors and times
+    launches = {n: flat_launches[n] + hier_launches[n] for n in SOURCES}
     bench = Bench(torch, dev)
     p0 = levels[0]
     q_dense, lists, _ = prep_queries(q256.coords, q256.vals, index.dim, p0.cut)
@@ -370,15 +634,100 @@ def main() -> int:
     # a document that is a candidate of several queries is read once
     n_rows = torch.unique(live_ids).numel()
     tiles = cand_tiles_processed(cand1, index.n_docs)
+    d_in = (lists, q_dense, index.sum_coords, index.sum_q, index.sum_scale,
+            index.sum_zero, index.block_len)
+    # the hierarchical path's router inputs and its first refine round
+    ph = tuned[2]
+    qh, lists_h, _ = prep_queries(q256.coords, q256.vals, index.dim, ph.cut)
+    m, f = ph.superblock_budget, FANOUT
+    e_in = (lists_h, qh, index.sup_coords, index.sup_q, index.sup_scale,
+            index.sup_zero) + d_in[2:]
+    seen_h: dict[str, object] = {}
+    run_pipeline_staged(index, q256.coords, q256.vals, ph,
+                        probe=seen_h.__setitem__)
+    ids_h = seen_h["merge_ids"]
+    f_in = (ids_h, scored_init(ids_h, index.n_docs), qh, index.knn_ids,
+            index.fwd.coords, index.fwd.vals)
+    rb, flat = router_hier_batch(*e_in, m=m, fanout=f)
+    cand_f, _ = refine_round_batch(*f_in, n_docs=index.n_docs,
+                                   degree=ph.graph_degree)
     l_, n_, nnz = a_in[1].shape[1], cand0.shape[1], index.fwd.coords.shape[1]
     vb, cb = index.fwd.vals.element_size(), index.fwd.coords.element_size()
+    row_b = nnz * (vb + cb) + (8 if index.fwd_scale is not None else 0)
+    ns, s2 = icfg.n_superblocks, index.sup_coords.shape[-1]
+    nbl = torch.nn.functional.pad(index.block_len > 0, (0, (-nb) % f))
+    sup_alive = nbl.reshape(nbl.shape[0], ns, f).any(-1)      # [L, ns]
+    # d: block_len rows of the distinct probed lists, their live summary
+    # rows; operations over live (query, block) rows
+    lists_d = torch.unique(lists).long()
+    rows_d = int((index.block_len[lists_d] > 0).sum())
+    alive_d = int((index.block_len[li] > 0).sum())
+    # e: block_len rows of the distinct probed lists, their live superblock
+    # rows, the distinct scored (list, child) summaries
+    lh = lists_h.long()
+    lists_e = torch.unique(lh)
+    rows_e = int(sup_alive[lists_e].sum())
+    alive_e = int(sup_alive[lh].sum())
+    live_b = torch.isfinite(rb)
+    child = lh.gather(1, (flat // nb).long()) * nb + flat % nb  # [Q, m*f]
+    n_child = torch.unique(child[live_b]).numel()
+    # f: knn rows of the distinct top-k ids, distinct live frontier rows
+    n_top = torch.unique(ids_h[ids_h >= 0]).numel()
+    live_f = cand_f[cand_f < index.n_docs]
+    n_front = torch.unique(live_f).numel()
+    k_f, w_f = ids_h.shape[1], f_in[1].shape[1]
+
+    def q_bytes(*reads) -> int:
+        """Bytes of q a kernel must read: one f32 per distinct (query,
+        coordinate) among the entries of the rows it reads. Each read is
+        (coords [Q, rows, width], live [Q, rows] or None for all rows)."""
+        hit = torch.zeros(q256.n, index.dim, dtype=torch.bool, device=dev)
+        for coords, live in reads:
+            c = coords.long().reshape(q256.n, -1, coords.shape[-1])
+            if live is None:
+                hit.scatter_(1, c.reshape(q256.n, -1), True)
+            else:
+                qi, ri = live.reshape(q256.n, -1).nonzero(as_tuple=True)
+                hit[qi[:, None], c[qi, ri]] = True
+        return int(hit.sum()) * 4
+
+    def fwd_coords(ids):
+        return take_rows(index.fwd.coords,
+                         ids.long().clamp(0, index.n_docs - 1))
+
+    q_read = {
+        "summary_dot": q_bytes((a_in[1], None)),
+        "gather_dot": q_bytes((b_in[1], None)),
+        "gather_dot_cand": q_bytes((fwd_coords(cand1),
+                                    cand1 < index.n_docs)),
+        "router_flat": q_bytes((index.sum_coords[li],
+                                index.block_len[li] > 0)),
+        "router_hier": q_bytes((index.sup_coords[lh], sup_alive[lh]),
+                               (index.sum_coords.reshape(-1, s)[child.long()],
+                                live_b)),
+        "refine_round": q_bytes((fwd_coords(cand_f), cand_f < index.n_docs)),
+    }
+    # a summary entry costs 4 operations (dequant and multiply-add, two
+    # FMAs), a forward entry 2 (one multiply-add)
     bounds = {
-        "summary_dot": bound(qn * l_ * s * 5 + qn * l_ * 12
-                             + q_dense.nbytes, 4 * qn * l_ * s),
+        "summary_dot": bound(qn * l_ * s * 5 + qn * l_ * 8 + qn * l_ * 4
+                             + q_read["summary_dot"], 4 * qn * l_ * s),
         "gather_dot": bound(qn * n_ * nnz * (vb + cb) + qn * n_ * 4
-                            + q_dense.nbytes, 2 * qn * n_ * nnz),
-        "gather_dot_cand": bound(n_rows * nnz * (vb + cb) + qn * n_ * 8
-                                 + q_dense.nbytes, 2 * n_live * nnz),
+                            + q_read["gather_dot"], 2 * qn * n_ * nnz),
+        "gather_dot_cand": bound(n_rows * row_b + cand1.nbytes + qn * n_ * 4
+                                 + q_read["gather_dot_cand"],
+                                 2 * n_live * nnz),
+        "router_flat": bound(
+            lists.nbytes + lists_d.numel() * nb * 4 + rows_d * (s * 5 + 8)
+            + qn * CUT * nb * 4 + q_read["router_flat"], 4 * alive_d * s),
+        "router_hier": bound(
+            lists_h.nbytes + lists_e.numel() * nb * 4 + rows_e * (s2 * 5 + 8)
+            + n_child * (s * 5 + 8) + qn * m * f * 8 + q_read["router_hier"],
+            4 * (alive_e * s2 + int(live_b.sum()) * s)),
+        "refine_round": bound(
+            qn * (k_f + w_f) * 4 + n_top * ph.graph_degree * 4
+            + n_front * row_b + qn * k_f * ph.graph_degree * 8
+            + q_read["refine_round"], 2 * live_f.numel() * nnz),
     }
 
     def library_bag(coords, weights):
@@ -394,6 +743,12 @@ def main() -> int:
             off, table, per_sample_weights=w, mode="sum")
 
     a_deq = dequantize_u8(a_in[2], a_in[3], a_in[4])
+    hier_kernel = lambda: router_hier_batch(*e_in, m=m, fanout=f)  # noqa: E731
+    hier_plain = lambda: router_hier_ref(*e_in, m=m, fanout=f)     # noqa: E731
+    refine_kernel = lambda: refine_round_batch(  # noqa: E731
+        *f_in, n_docs=index.n_docs, degree=ph.graph_degree)
+    refine_plain = lambda: refine_round_ref(  # noqa: E731
+        *f_in, None, None, index.n_docs, ph.graph_degree)
     rows = {
         "summary_dot": (lambda: summary_dot_batch(*a_in),
                         lambda: summary_dot_batch_ref(*a_in),
@@ -405,7 +760,19 @@ def main() -> int:
             lambda: gather_dot_cand_batch(*c_in, n_docs=index.n_docs),
             lambda: gather_dot_cand_ref(*c_in, None, None, index.n_docs),
             None),
+        "router_flat": (lambda: router_flat_batch(*d_in),
+                        lambda: router_flat_ref(*d_in), None),
+        "router_hier": (lambda: hier_kernel()[0], lambda: hier_plain()[0],
+                        None),
+        "refine_round": (lambda: refine_kernel()[1],
+                         lambda: refine_plain()[1], None),
     }
+    if not torch.equal(hier_kernel()[1], hier_plain()[1]):
+        raise AssertionError("router_hier: flat positions differ from the "
+                             "plain version on the main path's inputs")
+    if not torch.equal(refine_kernel()[0], refine_plain()[0]):
+        raise AssertionError("refine_round: frontier ids differ from the "
+                             "plain version on the main path's inputs")
     record = []
     for name, (kern, ref, lib) in rows.items():
         abs_err, rel_err = compare(torch, name, kern(), ref())
@@ -419,14 +786,27 @@ def main() -> int:
             launches=launches[name], max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib_ms))
-        log(f"[6 {name}] {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
+        log(f"[8 {name}] {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
             f"{bms / ms:.1%} of it), plain {plain_ms:.3f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; max abs "
-            f"err {abs_err:.3e}, rel {rel_err:.3e}")
+            f"err {abs_err:.3e}, rel {rel_err:.3e}; launches flat path "
+            f"{flat_launches[name]}, hierarchical path {hier_launches[name]}")
     log(f"  gather_dot_cand: {n_live} live (query, candidate) pairs of "
         f"{cand1.numel()} over {n_rows} distinct documents (the rows its "
         f"bound counts), {int(tiles.sum())} of {tiles.numel()} tiles "
         "processed")
+    log(f"  router_flat: {lists_d.numel()} distinct probed lists with "
+        f"{rows_d} live block summaries (the rows its bound counts), "
+        f"{alive_d} live (query, block) rows of {qn * CUT * nb}; "
+        f"router_hier: {lists_e.numel()} distinct probed lists with {rows_e} "
+        f"live superblock summaries, {alive_e} live (query, superblock) "
+        f"rows of {qn * ph.cut * ns}, {int(live_b.sum())} scored children "
+        f"over {n_child} distinct (list, block) summaries; refine_round: "
+        f"knn rows of {n_top} distinct top-k ids, {live_f.numel()} live "
+        f"frontier ids of {cand_f.numel()} over {n_front} distinct "
+        "documents")
+    log("  q bytes in the bounds, per kernel (distinct (query, coordinate) "
+        "reads): " + ", ".join(f"{n} {b}" for n, b in q_read.items()))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": record}), flush=True)

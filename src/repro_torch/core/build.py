@@ -1,4 +1,4 @@
-"""Seismic index construction, flat tier (port of ``repro.core.build``).
+"""Seismic index construction (port of ``repro.core.build``).
 
 Algorithm 1 per coordinate i (one inverted list):
   1. static pruning  — keep the lam docs with the largest x_i (§5.1)
@@ -9,23 +9,29 @@ Algorithm 1 per coordinate i (one inverted list):
      split at ``block_cap`` boundaries
   4. summaries — coordinate-wise max per block (Eq. 2; or the centroid),
      alpha-mass pruned (Def. 3.1), 8-bit quantized (§5.3)
+  5. superblocks (``superblock_fanout > 0``) — every ``fanout``
+     consecutive blocks get one summary, the coordinate-wise max of the
+     children's dequantized summaries, round-up requantized, so it
+     upper-bounds each child for any nonnegative query
 
 Lists are processed ``list_chunk`` at a time, all lists of a chunk in
 one batch of tensor ops. Nothing ``[lam, nnz, beta]``-shaped and no
-dense ``[n_blocks, d]`` row is ever made: the assignment is one sparse
-(members) x dense (representatives) product per chunk, and a summary
-sorts only its block's non-zeros. The superblock tier is not ported.
+dense ``[n_blocks, d]`` (or ``[n_superblocks, d]``) row is ever made:
+the assignment is one ``embedding_bag`` per chunk (a member is a bag of
+its non-zeros' rows in a dense representative table), and a summary
+sorts only its block's (or its children's) non-zeros.
 """
 from __future__ import annotations
 
+import math
 import time
-import warnings
 
 import torch
 
 from repro_torch.core.types import SeismicConfig, SeismicIndex
 from repro_torch.sparse.ops import PaddedSparse, widen_coords
-from repro_torch.sparse.quant import quantize_u8
+from repro_torch.sparse.quant import (dequantize_u8, quantize_u8,
+                                      quantize_u8_ceil)
 
 
 def _sorted_postings(docs: PaddedSparse):
@@ -66,15 +72,18 @@ def _prune_list(lists, sorted_v, sorted_d, starts, counts, lam: int,
 
 def _assign_clusters(rep_pos, docs, cnt, fwd: PaddedSparse,
                      cfg: SeismicConfig) -> torch.Tensor:
-    """Shallow K-Means over a chunk of pruned lists [Lc, lam].
+    """Shallow K-Means over a chunk of pruned lists [Lc, lam]: each member
+    goes to the representative maximizing <x, mu> (first one on ties);
+    padding goes last (cluster ``beta``).
 
     Representatives of list l are its members at positions
-    ``rep_pos[l]``; each member goes to the representative maximizing
-    <x, mu> (first one on ties). All lists of the chunk go through ONE
-    sparse x dense product: members form a CSR matrix whose row (l, m)
-    has its entries in columns ``l * d + coord``, and list l's
-    representatives fill rows ``l * d .. l * d + d - 1`` of a dense
-    ``[Lc * d, beta]`` matrix."""
+    ``rep_pos[l]``; they fill rows ``l * d .. l * d + d - 1`` of a dense
+    ``[Lc * d, beta]`` table. All members of the chunk go through ONE
+    ``embedding_bag`` over that table: member (l, m) is the bag of rows
+    ``l * d + coord`` of its non-zeros, weighted by their values. A bag
+    sums its rows one after another in coordinate order, so the scores
+    are the same on every run (cuSPARSE's CSR x dense product was not on
+    CUDA, so two builds of one collection could assign differently)."""
     lc, lam = docs.shape
     beta, d, n = cfg.beta, fwd.dim, fwd.n
     dev = docs.device
@@ -89,21 +98,18 @@ def _assign_clusters(rep_pos, docs, cnt, fwd: PaddedSparse,
     member = docs.long().clamp(0, n - 1)
     mv = fwd.vals[member].to(torch.float32)                    # [Lc, lam, nnz]
     pos = torch.arange(lam, device=dev)
-    mv = torch.where((pos < cnt[:, None])[..., None], mv, 0.0)  # no padding
+    member_live = pos < cnt[:, None]
+    mv = torch.where(member_live[..., None], mv, 0.0)          # no padding
     key = torch.where(mv > 0, widen_coords(fwd.coords[member]), d)
-    key, order = torch.sort(key, dim=-1)                       # CSR: cols asc
+    key, order = torch.sort(key, dim=-1)                       # coords asc
     mv = mv.gather(-1, order)
     live = key < d
-    crow = torch.zeros(lc * lam + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(live.reshape(lc * lam, -1).sum(-1), 0)
-    with warnings.catch_warnings():     # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        members = torch.sparse_csr_tensor(crow, (key + base)[live], mv[live],
-                                          size=(lc * lam, lc * d),
-                                          check_invariants=False)
-    ips = (members @ reps).view(lc, lam, beta)
-    assign = ips.argmax(dim=-1).to(torch.int32)
-    return torch.where(pos < cnt[:, None], assign, beta)      # padding last
+    per_bag = live.sum(-1).reshape(-1)
+    ips = torch.nn.functional.embedding_bag(
+        (key + base)[live], reps, torch.cumsum(per_bag, 0) - per_bag,
+        mode="sum", per_sample_weights=mv[live])              # [Lc*lam, beta]
+    assign = ips.view(lc, lam, beta).argmax(dim=-1).to(torch.int32)
+    return torch.where(member_live, assign, beta)              # padding last
 
 
 def _physical_blocks(assign, cnt, cfg: SeismicConfig):
@@ -195,9 +201,56 @@ def _summaries(docs_perm, block_id, fwd: PaddedSparse, cfg: SeismicConfig):
     put = outside & (slot < s) & fill[:, None]
     bi, ci = put.nonzero(as_tuple=True)
     out_c[bi, slot[bi, ci]] = ci.to(torch.int32)
-    q, scale, zero = quantize_u8(out_v)
+    q, scale, zero = quantize_u8(out_v, by_reciprocal=True)
     return (out_c.view(lc, nb, s), q.view(lc, nb, s), scale.view(lc, nb),
             zero.view(lc, nb))
+
+
+def _superblock_summaries(sc, q, scale, zero, dim: int, cfg: SeismicConfig):
+    """Coarse tier over a chunk of lists' quantized block summaries
+    ([Lc, nb, S] and [Lc, nb]) -> (coords [Lc, ns, S2], u8 [Lc, ns, S2],
+    scale [Lc, ns], zero [Lc, ns]), with S2 = min(fanout * S, d).
+
+    Block j belongs to superblock j // fanout. Equal to the JAX
+    build_index's dense route (scatter-max of the dequantized children into
+    a ``[ns, d]`` row, ``lax.top_k`` of width S2, coordinate 0 where the
+    value is 0) without the dense rows: the unique (superblock,
+    coordinate) keys of the children's non-zeros take their max, then
+    sort by (superblock, value desc, coordinate asc), which is
+    ``lax.top_k``'s order on the dense row; the row's zeros would follow
+    and are written as coordinate 0, value 0."""
+    lc, nb, s = q.shape
+    f, ns = cfg.superblock_fanout, cfg.n_superblocks
+    s2 = min(cfg.superblock_nnz, dim)
+    dev = q.device
+    ng = lc * ns
+    # dequantized with one rounding, as a fused multiply-add does it (the
+    # JAX build's compiled dequant is one; so is the kernels'): the float64
+    # product (q - 1) * scale is exact, and the sum is rounded to float32
+    v = dequantize_u8(q, scale.double(), zero.double(),
+                      dtype=torch.float64).to(torch.float32)  # [Lc, nb, S]
+    group = (torch.arange(lc, device=dev)[:, None] * ns
+             + torch.arange(nb, device=dev)[None, :] // f)     # [Lc, nb]
+    take = v > 0
+    key = (group[..., None] * dim + sc.to(torch.int64))[take]
+    ukey, inv = torch.unique(key, return_inverse=True)
+    uval = torch.zeros(ukey.numel(), dtype=torch.float32, device=dev)
+    uval.scatter_reduce_(0, inv, v[take], "amax", include_self=True)
+    order = torch.sort(-uval, stable=True).indices
+    order = order[torch.sort(ukey[order] // dim, stable=True).indices]
+    sg = ukey[order] // dim                                    # superblock
+    m = torch.bincount(sg, minlength=ng)
+    rank = torch.arange(sg.numel(), device=dev) - (torch.cumsum(m, 0)
+                                                   - m)[sg]
+    keep = rank < s2
+    out_c = torch.zeros((ng, s2), dtype=torch.int32, device=dev)
+    out_v = torch.zeros((ng, s2), dtype=torch.float32, device=dev)
+    out_c[sg[keep], rank[keep]] = (ukey[order] - sg * dim)[keep].to(
+        torch.int32)
+    out_v[sg[keep], rank[keep]] = uval[order][keep]
+    q2, scale2, zero2 = quantize_u8_ceil(out_v, by_reciprocal=True)
+    return (out_c.view(lc, ns, s2), q2.view(lc, ns, s2),
+            scale2.view(lc, ns), zero2.view(lc, ns))
 
 
 def list_block_arrays(docs, vals, cnt, fwd: PaddedSparse,
@@ -205,7 +258,9 @@ def list_block_arrays(docs, vals, cnt, fwd: PaddedSparse,
     """Cluster + block + summarize a chunk of pruned lists [Lc, lam]:
     the per-list half of Algorithm 1 after static pruning. ``rep_pos``
     [Lc, beta] holds the representatives' positions (geometric blocking
-    only). ``tick(phase)`` is called after each phase."""
+    only). ``tick(phase)`` is called after each phase. With
+    ``superblock_fanout > 0`` the superblock tier's four arrays follow
+    the nine flat ones."""
     tick = tick or (lambda phase: None)
     if cfg.blocking == "fixed":
         # Fig. 5 baseline: impact-ordered chunks of one cluster
@@ -220,7 +275,11 @@ def list_block_arrays(docs, vals, cnt, fwd: PaddedSparse,
     tick("blocks")
     sc, q, scale, zero = _summaries(docs_perm, block_id, fwd, cfg)
     tick("summaries")
-    return docs_perm, vals_perm, cnt, blk_off, blk_len, sc, q, scale, zero
+    out = (docs_perm, vals_perm, cnt, blk_off, blk_len, sc, q, scale, zero)
+    if cfg.superblock_fanout > 0:
+        out += _superblock_summaries(sc, q, scale, zero, fwd.dim, cfg)
+        tick("superblocks")
+    return out
 
 
 def sample_rep_pos(counts, cfg: SeismicConfig,
@@ -262,10 +321,6 @@ def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
     ``rep_pos`` [dim, beta] fixes the representatives' positions
     (default: drawn from a generator seeded with ``cfg.seed``). With
     ``timings`` given, seconds per phase accumulate into it."""
-    if cfg.superblock_fanout > 0:
-        raise NotImplementedError(
-            "the superblock tier is not ported yet (ROADMAP Queue 1, "
-            "hierarchical routing and the superblock build)")
     dev, d, n = docs.device, docs.dim, docs.n
     lam, nb, s = cfg.lam, cfg.n_blocks, cfg.summary_nnz
     tick = _Ticker(timings, dev)
@@ -286,6 +341,17 @@ def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
     sum_q = torch.empty((d, nb, s), dtype=torch.uint8, device=dev)
     sum_scale = torch.empty((d, nb), **f32)
     sum_zero = torch.empty((d, nb), **f32)
+    planes = [list_docs, list_vals, list_len, block_off, block_len,
+              sum_coords, sum_q, sum_scale, sum_zero]
+    sup = {}
+    if cfg.superblock_fanout > 0:
+        ns, s2 = cfg.n_superblocks, min(cfg.superblock_nnz, d)
+        sup = dict(sup_coords=torch.empty((d, ns, s2), **i32),
+                   sup_q=torch.empty((d, ns, s2), dtype=torch.uint8,
+                                     device=dev),
+                   sup_scale=torch.empty((d, ns), **f32),
+                   sup_zero=torch.empty((d, ns), **f32))
+        planes += list(sup.values())
     for i0 in range(0, d, list_chunk):
         lists = torch.arange(i0, min(d, i0 + list_chunk), device=dev)
         ld, lv, cnt = _prune_list(lists, sorted_v, sorted_d, starts, counts,
@@ -294,14 +360,13 @@ def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
         out = list_block_arrays(
             ld, lv, cnt, fwd32, cfg,
             rep_pos=None if rep_pos is None else rep_pos[lists], tick=tick)
-        for dst, src in zip((list_docs, list_vals, list_len, block_off,
-                             block_len, sum_coords, sum_q, sum_scale,
-                             sum_zero), out):
+        for dst, src in zip(planes, out):
             dst[i0:i0 + lists.numel()] = src
     fwd_scale = fwd_zero = None
     if cfg.fwd_quant:
         # compact forward index: u8 values (per-doc affine) + u16 coords
-        q, fwd_scale, fwd_zero = quantize_u8(docs.vals.to(torch.float32))
+        q, fwd_scale, fwd_zero = quantize_u8(docs.vals.to(torch.float32),
+                                             by_reciprocal=True)
         coords = docs.coords.to(torch.int32)
         if d < 65536:
             coords = coords.to(torch.int16).view(torch.uint16)
@@ -313,9 +378,27 @@ def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
         fwd=fwd, list_docs=list_docs, list_vals=list_vals, list_len=list_len,
         block_off=block_off, block_len=block_len, sum_coords=sum_coords,
         sum_q=sum_q, sum_scale=sum_scale, sum_zero=sum_zero,
-        fwd_scale=fwd_scale, fwd_zero=fwd_zero, config=cfg)
+        fwd_scale=fwd_scale, fwd_zero=fwd_zero, config=cfg, **sup)
 
 
 def live_blocks(index: SeismicIndex) -> torch.Tensor:
-    """Per-list live-block counts of a built index."""
+    """Per-list live-block counts of a built index (the
+    :func:`suggest_fanout` statistic)."""
     return (index.block_len > 0).sum(dim=-1).to(torch.int32)
+
+
+def suggest_fanout(n_blocks_stats, *, max_fanout: int = 8) -> int:
+    """Superblock fanout from per-list live-block counts (a tensor or a
+    sequence): two-tier routing over a list of ``nb`` live blocks costs
+    about ``nb / f`` coarse dots plus ``f`` child dots per kept
+    superblock, so the best fanout grows like ``sqrt(nb)``; clipped to
+    [2, ``max_fanout``]. 0 (flat routing) when the mean over lists with
+    live blocks is at most 2, or no list has one."""
+    stats = torch.as_tensor(n_blocks_stats, dtype=torch.float64).reshape(-1)
+    live = stats[stats > 0]
+    if live.numel() == 0:
+        return 0
+    mean = float(live.mean())
+    if mean <= 2.0:
+        return 0
+    return int(min(max(round(math.sqrt(mean)), 2), max_fanout))

@@ -35,7 +35,7 @@ class SeismicConfig:
     cluster_mode: str = "gather"  # kept for manifest compatibility
     blocking: str = "geometric"   # "geometric" | "fixed"
     summary_kind: str = "max"     # "max" | "centroid"
-    superblock_fanout: int = 0    # coarse summary tier (not ported yet)
+    superblock_fanout: int = 0    # coarse summary tier (0 = none)
     seed: int = 0
 
     @property
@@ -70,11 +70,11 @@ class SeismicIndex:
     sum_zero: torch.Tensor           # f32   [L, n_blocks]
     fwd_scale: torch.Tensor | None = None   # f32 [N] (fwd_quant)
     fwd_zero: torch.Tensor | None = None    # f32 [N] (fwd_quant)
-    sup_coords: torch.Tensor | None = None  # superblock tier (not ported)
-    sup_q: torch.Tensor | None = None
-    sup_scale: torch.Tensor | None = None
-    sup_zero: torch.Tensor | None = None
-    knn_ids: torch.Tensor | None = None     # kNN graph (not ported)
+    sup_coords: torch.Tensor | None = None  # int32 [L, ns, S2] superblocks
+    sup_q: torch.Tensor | None = None       # uint8 [L, ns, S2]
+    sup_scale: torch.Tensor | None = None   # f32   [L, ns]
+    sup_zero: torch.Tensor | None = None    # f32   [L, ns]
+    knn_ids: torch.Tensor | None = None     # int32 [N, degree] kNN graph
     tail_ids: torch.Tensor | None = None    # int32 [tail_cap] mutation tail
     tombstone: torch.Tensor | None = None   # bool [N] delete marks
     tuned: tuple = ()                       # manifest operating points, raw

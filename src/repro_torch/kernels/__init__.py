@@ -6,6 +6,15 @@
                       variant over doc ids ``[Q, C]`` plus the forward
                       plane (in-kernel row gather, all-sentinel tiles
                       skipped)
+``router_fused``      fuse level 2 router: the flat route (``router_flat``)
+                      and the two-stage superblock route (``router_hier``)
+                      in one launch each, reading the summary planes in
+                      place
+``refine_fused``      fuse level 2 refine: one kNN-graph round (expand,
+                      dedupe, seen-mask, compact, rescore) per launch
+
+All of them score a row with the shared row dot of
+``common/csrc/row_dot.cuh``, so their scores agree to the bit.
 
 See :mod:`repro_torch.kernels.runtime` for the build and the CPU/CUDA
 dispatch rule.

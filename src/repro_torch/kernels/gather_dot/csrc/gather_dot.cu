@@ -24,8 +24,9 @@
 // Design, simple and right first: one warp per output element, lanes
 // striding nnz (coalesced coords and values), q gathered through __ldg from
 // L2 (q_dense is 31 MB at Q = 256), a warp-shuffle tree, lane 0 stores.
-// Both kernels share one __device__ row dot, so for the same row they give
-// bitwise the same score: the fused and unfused scorer paths agree exactly.
+// Both kernels use the shared row dot of row_dot.cuh, as the fused refine
+// kernel does, so for the same row they give bitwise the same score: the
+// fused and unfused scorer and refine paths agree exactly.
 // The candidate kernel's block is one tile of tile_n candidates of one
 // query (tile_n = ops.CAND_TILE_N = 32: 8 warps, 4 candidates each);
 // __syncthreads_or over the tile's ids is the skip predicate that
@@ -36,40 +37,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "row_dot.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;       // warps per 256-thread block
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// <q_row, row> for one row of nnz entries; every lane returns the sum.
-template <typename C, typename V, bool kQuant>
-__device__ __forceinline__ float row_dot(const float* __restrict__ qrow,
-                                         const C* __restrict__ c,
-                                         const V* __restrict__ v, int nnz,
-                                         float scale, float zero, int lane) {
-  float acc = 0.0f;
-  for (int j = lane; j < nnz; j += 32) {
-    float x;
-    if constexpr (kQuant) {
-      const unsigned lv = v[j];
-      x = lv ? (float(lv) - 1.0f) * scale + zero : 0.0f;
-    } else {
-      x = to_float(v[j]);
-    }
-    acc += __ldg(qrow + (int)c[j]) * x;
-  }
-  return warp_sum(acc);
-}
+using seismic::row_dot;
 
 template <typename C, typename V, bool kQuant>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -1,0 +1,142 @@
+"""Wrappers of the fused router kernels (``csrc/router_fused.cu``).
+
+``router_flat_batch``  probed lists [Q, cut] + summary planes [L, nb, S]
+                       -> routed scores r [Q, cut*nb] (dead blocks at
+                       -inf), one launch
+``router_hier_batch``  stage A over the superblock planes [L, ns, S2],
+                       per-query top-m, stage B over the children ->
+                       (rb [Q, m*fanout], flat [Q, m*fanout]), one launch
+
+The signatures are the JAX package's without its ``tile_q`` and
+``interpret``: a kernel here has one warp per summary row and one block
+per query, so there is no tile to choose. CPU tensors take the plain
+versions (``ref.py``); CUDA tensors launch the kernels or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.kernels.router_fused.ref import (router_flat_ref,
+                                                  router_hier_ref)
+from repro_torch.kernels.runtime import require
+
+_ready = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _ready
+    lib = runtime.library("router_fused")
+    if not _ready:
+        v, i = ctypes.c_void_p, ctypes.c_int
+        lib.router_flat_launch.argtypes = [v] * 8 + [i] * 6 + [v]
+        lib.router_flat_launch.restype = i
+        lib.router_hier_launch.argtypes = [v] * 13 + [i] * 10 + [v]
+        lib.router_hier_launch.restype = i
+        _ready = True
+    return lib
+
+
+def _check_tier(name, coords, levels, scale, zero, l) -> None:
+    """One summary tier: coords i32 [L, n, S], levels u8 of the same
+    shape, scale and zero f32 [L, n]."""
+    require(coords.dim() == 3 and coords.shape[0] == l,
+            f"{name}: summary coords must be [L={l}, n, S], got "
+            f"{tuple(coords.shape)}")
+    require(coords.dtype == torch.int32,
+            f"{name}: summary coords must be int32")
+    require(levels.shape == coords.shape and levels.dtype == torch.uint8,
+            f"{name}: summary levels must be uint8 {tuple(coords.shape)}")
+    require(scale.shape == coords.shape[:2] and zero.shape == scale.shape
+            and scale.dtype == torch.float32 and zero.dtype == torch.float32,
+            f"{name}: scale and zero must be f32 {tuple(coords.shape[:2])}")
+
+
+def _check_common(name, lists, q_dense, sum_coords, sum_q, sum_scale,
+                  sum_zero, block_len) -> None:
+    require(lists.dim() == 2 and lists.dtype == torch.int32,
+            f"{name}: lists must be int32 [Q, cut]")
+    require(q_dense.dim() == 2 and q_dense.shape[0] == lists.shape[0]
+            and q_dense.dtype == torch.float32,
+            f"{name}: q_dense must be f32 [Q={lists.shape[0]}, d], got "
+            f"{tuple(q_dense.shape)} {q_dense.dtype}")
+    l = block_len.shape[0]
+    _check_tier(name, sum_coords, sum_q, sum_scale, sum_zero, l)
+    require(block_len.shape == sum_coords.shape[:2]
+            and block_len.dtype == torch.int32,
+            f"{name}: block_len must be int32 {tuple(sum_coords.shape[:2])}")
+
+
+def _contiguous(name, *ts) -> None:
+    require(all(t.is_contiguous() for t in ts),
+            f"{name}: inputs must be contiguous")
+
+
+def router_flat_batch(lists: torch.Tensor, q_dense: torch.Tensor,
+                      sum_coords: torch.Tensor, sum_q: torch.Tensor,
+                      sum_scale: torch.Tensor, sum_zero: torch.Tensor,
+                      block_len: torch.Tensor) -> torch.Tensor:
+    """Fused flat route -> r [Q, cut*nb] (-inf dead blocks)."""
+    args = (lists, q_dense, sum_coords, sum_q, sum_scale, sum_zero,
+            block_len)
+    _check_common("router_flat", *args)
+    if runtime.use_plain(*args):
+        return router_flat_ref(*args)
+    _contiguous("router_flat", *args)
+    qn, cut = lists.shape
+    l, nb, s = sum_coords.shape
+    out = torch.empty((qn, cut * nb), dtype=torch.float32,
+                      device=q_dense.device)
+    if out.numel() == 0:
+        return out
+    err = _lib().router_flat_launch(
+        *map(runtime.ptr, args), runtime.ptr(out), qn, cut, l, nb, s,
+        q_dense.shape[1], runtime.stream_of(q_dense))
+    runtime.check_launch(err, "router_flat")
+    runtime.count_launch("router_flat")
+    return out
+
+
+def router_hier_batch(lists: torch.Tensor, q_dense: torch.Tensor,
+                      sup_coords: torch.Tensor, sup_q: torch.Tensor,
+                      sup_scale: torch.Tensor, sup_zero: torch.Tensor,
+                      sum_coords: torch.Tensor, sum_q: torch.Tensor,
+                      sum_scale: torch.Tensor, sum_zero: torch.Tensor,
+                      block_len: torch.Tensor, *, m: int, fanout: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused two-stage route -> (rb [Q, m*fanout], flat [Q, m*fanout])."""
+    _check_common("router_hier", lists, q_dense, sum_coords, sum_q,
+                  sum_scale, sum_zero, block_len)
+    _check_tier("router_hier", sup_coords, sup_q, sup_scale, sup_zero,
+                block_len.shape[0])
+    qn, cut = lists.shape
+    l, ns, s2 = sup_coords.shape
+    nb, s = sum_coords.shape[1], sum_coords.shape[2]
+    require(fanout > 0 and ns == -(-nb // fanout),
+            f"router_hier: {ns} superblocks do not group {nb} blocks by "
+            f"fanout {fanout}")
+    require(0 < m <= cut * ns,
+            f"router_hier: m={m} must lie in [1, cut * ns = {cut * ns}]")
+    args = (lists, q_dense, sup_coords, sup_q, sup_scale, sup_zero,
+            sum_coords, sum_q, sum_scale, sum_zero, block_len)
+    if runtime.use_plain(*args):
+        return router_hier_ref(*args, m=m, fanout=fanout)
+    _contiguous("router_hier", *args)
+    dev = q_dense.device
+    rb = torch.empty((qn, m * fanout), dtype=torch.float32, device=dev)
+    flat = torch.empty((qn, m * fanout), dtype=torch.int32, device=dev)
+    if qn == 0:
+        return rb, flat
+    err = _lib().router_hier_launch(
+        *map(runtime.ptr, args), runtime.ptr(rb), runtime.ptr(flat), qn,
+        cut, l, ns, s2, nb, s, m, fanout, q_dense.shape[1],
+        runtime.stream_of(q_dense))
+    runtime.check_launch(err, "router_hier")
+    runtime.count_launch("router_hier")
+    return rb, flat
+
+
+__all__ = ["router_flat_batch", "router_hier_batch", "router_flat_ref",
+           "router_hier_ref"]

@@ -4,12 +4,15 @@
   PyTorch version (``ref.py``). A call on CUDA tensors launches the
   hand-written kernel or raises; it never falls back.
 * Kernel sources are ``kernels/<family>/csrc/<family>.cu`` with a plain C
-  interface. On first use each is compiled with
-  ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
-  -fPIC`` into ``build/kernels/`` at the repository root and loaded with
-  ``ctypes``. The library's file name carries a hash of its source, so
-  an edited source is rebuilt. :func:`build_kernels` compiles several
-  sources in parallel (one ``nvcc`` each) and returns ptxas' report.
+  interface; headers they share (the row dot every kernel uses) are
+  ``kernels/common/csrc/*.cuh``. On first use each source is compiled
+  with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+  -Xcompiler -fPIC -I kernels/common/csrc`` into ``build/kernels/`` at
+  the repository root and loaded with ``ctypes``. The library's file
+  name carries a hash of its source, every shared header and the flags,
+  so an edited source or header is rebuilt. :func:`build_kernels`
+  compiles several sources in parallel (one ``nvcc`` each) and returns
+  ptxas' report.
 * Every wrapper adds one to its kernel's count in ``LAUNCHES`` where it
   launches the kernel, and nowhere else.
 """
@@ -28,14 +31,17 @@ import torch
 _PKG = Path(__file__).resolve().parent
 ROOT = _PKG.parents[2]
 BUILD_DIR = ROOT / "build" / "kernels"
+INCLUDE_DIR = _PKG / "common" / "csrc"
 SOURCES = {
-    "summary_dot": _PKG / "summary_dot" / "csrc" / "summary_dot.cu",
-    "gather_dot": _PKG / "gather_dot" / "csrc" / "gather_dot.cu",
+    name: _PKG / name / "csrc" / f"{name}.cu"
+    for name in ("summary_dot", "gather_dot", "router_fused", "refine_fused")
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(INCLUDE_DIR))
 
-LAUNCHES = {"summary_dot": 0, "gather_dot": 0, "gather_dot_cand": 0}
+LAUNCHES = {"summary_dot": 0, "gather_dot": 0, "gather_dot_cand": 0,
+            "router_flat": 0, "router_hier": 0, "refine_round": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -76,9 +82,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where source ``name`` builds to: the file name hashes the source,
+    every shared header (sorted by name) and the flags."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_kernels(names=None) -> dict[str, str]:
@@ -146,4 +156,4 @@ def require(cond: bool, msg: str) -> None:
 
 __all__ = ["LAUNCHES", "reset_launches", "count_launch", "use_plain",
            "build_kernels", "library", "library_path", "stream_of", "ptr",
-           "check_launch", "require", "SOURCES", "BUILD_DIR"]
+           "check_launch", "require", "SOURCES", "BUILD_DIR", "INCLUDE_DIR"]

@@ -21,21 +21,19 @@
 // 31 MB at Q = 256, inside the 50 MB L2). The TPU kernel kept a
 // [tile_q, d] query tile resident in VMEM; one f32 row at d = 30522 is
 // 122 KB, so no useful query tile fits in shared memory and q is not
-// staged here. A warp-shuffle tree reduces the lane sums; lane 0 stores.
-// The launch allocates nothing and runs on the caller's stream; the C entry
-// point returns cudaGetLastError().
+// staged here. The row dot is the shared one of row_dot.cuh (lane-strided
+// sums, a warp-shuffle tree), so the fused routers score a summary row
+// bitwise as this kernel does; lane 0 stores. The launch allocates
+// nothing and runs on the caller's stream; the C entry point returns
+// cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_dot.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;  // output elements per 256-thread block
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 summary_dot_kernel(const float* __restrict__ q,
@@ -47,18 +45,9 @@ summary_dot_kernel(const float* __restrict__ q,
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const float* qrow = q + (row / L) * (long long)d;
-  const int32_t* c = coords + row * S;
-  const uint8_t* u = levels + row * S;
-  const float sc = scale[row];
-  const float z = zero[row];
-  float acc = 0.0f;
-  for (int j = lane; j < S; j += 32) {
-    const unsigned lv = u[j];
-    const float deq = lv ? (float(lv) - 1.0f) * sc + z : 0.0f;
-    acc += __ldg(qrow + c[j]) * deq;
-  }
-  acc = warp_sum(acc);
+  const float acc = seismic::row_dot<int32_t, uint8_t, true>(
+      q + (row / L) * (long long)d, coords + row * S, levels + row * S, S,
+      scale[row], zero[row], lane);
   if (lane == 0) out[row] = acc;
 }
 

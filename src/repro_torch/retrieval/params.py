@@ -27,13 +27,23 @@ class SearchParams:
     use_kernel: bool = True       # summary_dot / gather_dot kernels on the
     #                               unfused stages
     fuse_level: int = 1           # 0 = unfused; 1 = candidate compaction +
-    #                               the candidate-driven gather_dot kernel
-    #                               (ids and docs_evaluated equal at both);
-    #                               2 = fused router/refine (not ported)
-    superblock_fanout: int = 0    # hierarchical routing (not ported)
-    superblock_budget: int = 16
-    graph_degree: int = 0         # kNN-graph refinement (not ported)
-    refine_rounds: int = 0
+    #                               the candidate-driven gather_dot kernel;
+    #                               2 = level 1 + the fused router
+    #                               (router_flat / router_hier) and the
+    #                               fused refine round (refine_round), one
+    #                               launch each. Results are equal at every
+    #                               level; use_kernel governs the unfused
+    #                               stages.
+    superblock_fanout: int = 0    # 0 = flat route; > 0 = two-stage route
+    #                               over the superblock tier (must equal
+    #                               the index's SeismicConfig fanout)
+    superblock_budget: int = 16   # superblocks kept per query after the
+    #                               coarse stage
+    graph_degree: int = 0         # kNN-graph refine: neighbours expanded
+    #                               per merged top-k doc (<= built degree;
+    #                               0 = refine is the identity)
+    refine_rounds: int = 0        # refine rounds (0 = refine is the
+    #                               identity)
 
     def __post_init__(self):
         if self.fuse_level not in (0, 1, 2):

@@ -4,10 +4,9 @@
 ``run_pipeline`` is the batch-first core; ``search_pipeline`` its front
 door on a ``PaddedSparse`` batch. ``stage_fns`` / ``run_pipeline_staged``
 run the same stages one at a time with a device synchronize between
-them, for per-stage wall time. Refine (kNN-graph expansion) is not
-ported: the stage is the identity, as in the JAX package with
-``graph_degree`` or ``refine_rounds`` at 0. Settings the port does not
-cover raise ``NotImplementedError`` (:func:`validate_params`).
+them, for per-stage wall time. The sixth stage (refine, kNN-graph
+expansion, ``repro_torch.graph``) is the identity when ``graph_degree``
+or ``refine_rounds`` is 0.
 """
 from __future__ import annotations
 
@@ -16,10 +15,12 @@ from typing import TYPE_CHECKING, Callable
 
 import torch
 
+from repro_torch.graph.refine import (refine_batch, refine_one_round,
+                                      scored_init, validate_refine_params)
 from repro_torch.retrieval.merge import merge_topk
 from repro_torch.retrieval.params import SearchParams
 from repro_torch.retrieval.prep import prep_queries
-from repro_torch.retrieval.router import route_batch
+from repro_torch.retrieval.router import check_route, route_batch
 from repro_torch.retrieval.scorer import score_selection
 from repro_torch.retrieval.selector import get_selector
 from repro_torch.sparse.ops import PaddedSparse
@@ -29,22 +30,11 @@ if TYPE_CHECKING:
 
 
 def validate_params(index: "SeismicIndex", p: SearchParams) -> None:
-    """Raise ``NotImplementedError`` for what this port does not cover
-    yet, naming its ROADMAP item, instead of silently degrading."""
-    if p.fuse_level >= 2:
-        raise NotImplementedError(
-            "fuse_level=2 needs the fused router and refine kernels, not "
-            "ported yet (ROADMAP Queue 1, kernels d, e and f)")
-    if p.superblock_fanout > 0 or index.sup_coords is not None:
-        raise NotImplementedError(
-            "hierarchical routing and the superblock tier are not ported "
-            "yet (ROADMAP Queue 1, hierarchical routing and the superblock "
-            "build)")
-    if (p.graph_degree > 0 and p.refine_rounds > 0) \
-            or index.knn_ids is not None:
-        raise NotImplementedError(
-            "kNN-graph refinement is not ported yet (ROADMAP Queue 1, "
-            "graph refine)")
+    """Raise ``ValueError`` before any launch when ``p`` does not fit the
+    index: a hierarchical route without a matching superblock tier, or
+    graph refinement beyond the index's kNN graph."""
+    check_route(index, p)
+    validate_refine_params(index, p)
 
 
 def run_pipeline(index: "SeismicIndex", q_coords: torch.Tensor,
@@ -53,7 +43,8 @@ def run_pipeline(index: "SeismicIndex", q_coords: torch.Tensor,
     """Batched staged search over padded-sparse queries [Q, nnz].
 
     Returns (scores [Q, k], ids int32 [Q, k] with -1 padding,
-    docs_evaluated int32 [Q]); the queries move to the index's device."""
+    docs_evaluated int32 [Q]); the queries move to the index's device.
+    Params that do not fit the index raise before the first launch."""
     validate_params(index, p)
     select = get_selector(p.policy)
     q_dense, lists, _ = prep_queries(q_coords.to(index.device),
@@ -63,7 +54,8 @@ def run_pipeline(index: "SeismicIndex", q_coords: torch.Tensor,
     sel = select(index, batch, p)
     cand, scores = score_selection(index, batch, sel, p.use_kernel,
                                    fuse_level=p.fuse_level)
-    return merge_topk(cand, scores, p.k, index.n_docs)
+    top_s, top_ids, ev = merge_topk(cand, scores, p.k, index.n_docs)
+    return refine_batch(index, q_dense, top_s, top_ids, ev, p)
 
 
 def search_pipeline(index: "SeismicIndex", queries: PaddedSparse,
@@ -80,7 +72,8 @@ STAGES = ("prep", "router", "selector", "scorer", "merge", "refine")
 def stage_fns(index: "SeismicIndex", p: SearchParams
               ) -> dict[str, Callable]:
     """Stage functions (index and params closed over), keyed by
-    ``STAGES`` name."""
+    ``STAGES`` name, plus ``refine_round``: one refine round, for the
+    per-round spans of ``run_pipeline_staged(split_refine=True)``."""
     validate_params(index, p)
     select = get_selector(p.policy)
     return {
@@ -90,7 +83,9 @@ def stage_fns(index: "SeismicIndex", p: SearchParams
         "scorer": lambda b, s: score_selection(index, b, s, p.use_kernel,
                                                fuse_level=p.fuse_level),
         "merge": lambda c, s: merge_topk(c, s, p.k, index.n_docs),
-        "refine": lambda qd, s, i, e: (s, i, e),
+        "refine": lambda qd, s, i, e: refine_batch(index, qd, s, i, e, p),
+        "refine_round": lambda qd, s, i, e, sc: refine_one_round(
+            index, qd, s, i, e, sc, p),
     }
 
 
@@ -99,15 +94,19 @@ def run_pipeline_staged(index: "SeismicIndex", q_coords: torch.Tensor,
                         record: Callable[[str, float], None] | None = None,
                         span_cb: Callable[[str, float, float], None]
                         | None = None,
-                        probe: Callable[[str, object], None] | None = None
+                        probe: Callable[[str, object], None] | None = None,
+                        split_refine: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage-by-stage pipeline with per-stage wall-time reporting.
 
     ``record(stage, seconds)`` gets each stage's wall time, measured up
     to a device synchronize; ``span_cb(stage, t0, t1)`` the
-    ``time.monotonic`` stamps. ``probe(name, value)`` sees the scorer's
-    candidate ids (``"cand"``), the probed ``lists``, the router scores
-    ``router_r`` and the merged ``merge_ids``. Output matches
+    ``time.monotonic`` stamps. With ``split_refine`` the refine stage
+    runs round by round and each round is also reported as
+    ``refine_round_<j>`` (inside the ``refine`` interval), with equal
+    results. ``probe(name, value)`` sees the scorer's candidate ids
+    (``"cand"``), the probed ``lists``, the router scores ``router_r``
+    and the merged ``merge_ids`` (before refine). Output matches
     :func:`search_pipeline`."""
     fns = stage_fns(index, p)
     cuda = index.device.type == "cuda"
@@ -136,4 +135,17 @@ def run_pipeline_staged(index: "SeismicIndex", q_coords: torch.Tensor,
     top_s, top_ids, ev = timed("merge", fns["merge"], cand, scores)
     if probe is not None:
         probe("merge_ids", top_ids)
-    return timed("refine", fns["refine"], q_dense, top_s, top_ids, ev)
+    if not (split_refine and p.refine_rounds > 0 and p.graph_degree > 0):
+        return timed("refine", fns["refine"], q_dense, top_s, top_ids, ev)
+    t0 = time.monotonic()
+    scored = scored_init(top_ids, index.n_docs)
+    s, i, e = top_s, top_ids, ev
+    for j in range(p.refine_rounds):
+        s, i, e, scored = timed(f"refine_round_{j}", fns["refine_round"],
+                                q_dense, s, i, e, scored)
+    t1 = time.monotonic()
+    if record is not None:
+        record("refine", t1 - t0)
+    if span_cb is not None:
+        span_cb("refine", t0, t1)
+    return s, i, e

@@ -1,6 +1,9 @@
 """Synchronous retrieval serving facade (port of the ``SeismicServer``
 part of ``repro.serve.engine``; telemetry, observability, auditing and
-index mutation are not ported yet)."""
+index mutation are not ported yet).
+
+Params are checked against the index (route, refine) before the first
+launch."""
 from __future__ import annotations
 
 import dataclasses

@@ -168,9 +168,3 @@ def test_default_representatives_are_seeded(small_collection):
                                   if k != "total")
     assert a.sum_coords.shape == (docs_np.dim, cfg.n_blocks, 32)
 
-
-def test_superblock_build_is_not_ported(small_collection):
-    _, _, docs_np, _, _ = small_collection
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_index(port_docs(docs_np),
-                    SeismicConfig(**BASE, superblock_fanout=2))

@@ -2,10 +2,12 @@
 
 On the CPU a wrapper takes its kernel's plain version; those are held
 against the JAX package's Pallas kernels in interpret mode
-(``summary_dot_batch``, ``gather_dot_batch``, ``gather_dot_cand_batch``)
-at odd shapes, with all-padding rows, sentinels and all-sentinel tiles.
-Scores are ``allclose(rtol=1e-5, atol=1e-6)`` (summation order differs);
--inf positions are equal.
+(``summary_dot_batch``, ``gather_dot_batch``, ``gather_dot_cand_batch``,
+``router_flat_batch``, ``router_hier_batch``, ``refine_round_batch``)
+at odd shapes, with all-padding rows, dead blocks and lists, sentinels
+and all-sentinel tiles. Scores are ``allclose(rtol=1e-5, atol=1e-6)``
+(summation order differs); -inf positions and integer outputs (flat
+positions, frontier ids) are equal.
 
 Tests marked ``gpu`` hold each CUDA kernel against its plain version on
 the card and skip here (``python -m pytest -q -m gpu
@@ -24,6 +26,9 @@ try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
         cand_tiles_processed as jax_tiles
     from repro.kernels.gather_dot.ops import gather_dot_batch as jax_gather_dot
     from repro.kernels.gather_dot.ops import gather_dot_cand_batch as jax_cand
+    from repro.kernels.refine_fused import refine_round_batch as jax_refine
+    from repro.kernels.router_fused import router_flat_batch as jax_flat
+    from repro.kernels.router_fused import router_hier_batch as jax_hier
     from repro.kernels.summary_dot.ops import summary_dot_batch as jax_summary
 except ModuleNotFoundError:
     jnp = None
@@ -34,6 +39,12 @@ from repro_torch.kernels.gather_dot.ops import (CAND_TILE_N, CAND_TILE_Q,
                                                 gather_dot_cand_batch)
 from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
                                                 gather_dot_cand_ref)
+from repro_torch.kernels.refine_fused.ops import refine_round_batch
+from repro_torch.kernels.refine_fused.ref import refine_round_ref
+from repro_torch.kernels.router_fused.ops import (router_flat_batch,
+                                                  router_hier_batch)
+from repro_torch.kernels.router_fused.ref import (router_flat_ref,
+                                                  router_hier_ref)
 from repro_torch.kernels.summary_dot.ops import summary_dot_batch
 from repro_torch.kernels.summary_dot.ref import summary_dot_batch_ref
 from repro_torch.sparse.ops import take_rows
@@ -196,7 +207,8 @@ def test_plain_path_counts_no_launch():
     q, coords, u8, scale, zero = summary_inputs(2, 9, 8, 50)
     summary_dot_batch(_t(q), _t(coords), _t(u8), _t(scale), _t(zero))
     assert runtime.LAUNCHES == {"summary_dot": 0, "gather_dot": 0,
-                                "gather_dot_cand": 0}
+                                "gather_dot_cand": 0, "router_flat": 0,
+                                "router_hier": 0, "refine_round": 0}
 
 
 def test_kernel_sources_are_registered_and_hashed():
@@ -204,6 +216,159 @@ def test_kernel_sources_are_registered_and_hashed():
         assert src.exists(), src
         assert runtime.library_path(name).parent == runtime.BUILD_DIR
         assert src.read_text().count("Replaces") == 1
+
+
+def tier_planes(l, n, s, d, seed):
+    """Random quantized summary planes [L, n, S] (coords, u8, scale,
+    zero) as numpy; about a third of the entries are padding."""
+    rng = np.random.default_rng(seed)
+    vals = rng.lognormal(0, 1, (l, n, s)).astype(np.float32)
+    vals[rng.random((l, n, s)) < 0.3] = 0.0
+    return (rng.integers(0, d, (l, n, s)).astype(np.int32),) \
+        + _quantize(vals)
+
+
+def router_inputs(qn, cut, l, nb, s, d, seed, ns=None, s2=None):
+    """(lists, q, block planes..., block_len[, superblock planes]) with
+    dead blocks, a dead list (0) and repeated probes."""
+    rng = np.random.default_rng(seed)
+    q = rng.lognormal(0, 1, (qn, d)).astype(np.float32)
+    q[rng.random((qn, d)) < 0.5] = 0.0
+    lists = rng.integers(0, l, (qn, cut)).astype(np.int32)
+    lists[0, :] = 0                                  # every probe dead
+    lists[-1, 1] = lists[-1, 0]                      # a repeated probe
+    block_len = rng.integers(0, 3, (l, nb)).astype(np.int32)
+    block_len[0] = 0
+    out = (lists, q) + tier_planes(l, nb, s, d, seed + 1) + (block_len,)
+    if ns is not None:
+        out += tier_planes(l, ns, s2, d, seed + 2)
+    return out
+
+
+FLAT_SHAPES = [(4, 3, 9, 7, 16, 300), (1, 8, 20, 33, 5, 64),
+               (6, 2, 5, 12, 40, 1000)]
+
+
+@pytest.mark.parametrize("qn,cut,l,nb,s,d", FLAT_SHAPES)
+def test_router_flat_plain_matches_pallas(qn, cut, l, nb, s, d):
+    lists, q, sc, sq, ss, sz, bl = router_inputs(qn, cut, l, nb, s, d, nb)
+    want = jax_flat(*map(jnp.asarray, (lists, q, sc, sq, ss, sz, bl)))
+    got = router_flat_batch(*map(_t, (lists, q, sc, sq, ss, sz, bl)))
+    assert got.shape == (qn, cut * nb)
+    assert_scores(got.numpy(), np.asarray(want))
+    assert np.isneginf(got.numpy()[0]).all()
+
+
+HIER_SHAPES = [(4, 3, 9, 7, 16, 300, 3, 2), (2, 5, 20, 33, 5, 64, 17, 4),
+               (5, 2, 6, 16, 24, 500, 8, 1), (3, 4, 11, 9, 8, 200, 1, 9)]
+
+
+@pytest.mark.parametrize("qn,cut,l,nb,s,d,m,f", HIER_SHAPES)
+def test_router_hier_plain_matches_pallas(qn, cut, l, nb, s, d, m, f):
+    ns = -(-nb // f)
+    args = router_inputs(qn, cut, l, nb, s, d, nb + f, ns=ns, s2=2 * s)
+    lists, q, sc, sq, ss, sz, bl, pc, pq, ps, pz = args
+    order = (lists, q, pc, pq, ps, pz, sc, sq, ss, sz, bl)
+    want_rb, want_flat = jax_hier(*map(jnp.asarray, order), m=m, fanout=f)
+    rb, flat = router_hier_batch(*map(_t, order), m=m, fanout=f)
+    assert rb.shape == flat.shape == (qn, m * f)
+    assert flat.dtype == torch.int32
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(want_flat))
+    assert_scores(rb.numpy(), np.asarray(want_rb))
+    assert np.isneginf(rb.numpy()[0]).all()
+
+
+def refine_inputs(qn, k, w, n_docs, deg, nnz, d, kind, seed):
+    """(ids, scored, q, knn, fwd_coords, fwd_vals, fwd_scale, fwd_zero):
+    -1 padded ids, repeated ids, sentinel edges, and a seen set that
+    holds some of the neighbours."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n_docs, (qn, k)).astype(np.int32)
+    ids[0, k // 2:] = -1
+    if qn > 1:
+        ids[-1, :] = -1
+        ids[1 % (qn - 1), 1] = ids[1 % (qn - 1), 0]
+    knn = rng.integers(0, n_docs, (n_docs, deg)).astype(np.int32)
+    knn[rng.random((n_docs, deg)) < 0.1] = n_docs     # missing edges
+    scored = np.full((qn, w), n_docs, np.int32)
+    scored[:, :k] = np.where(ids >= 0, ids, n_docs)
+    scored[:, k:] = rng.integers(0, n_docs, (qn, w - k))
+    if w - k >= deg:
+        scored[0, k:k + deg] = knn[max(ids[0, 0], 0), :deg]
+    q = rng.lognormal(0, 1, (qn, d)).astype(np.float32)
+    return (ids, scored, q, knn) + row_inputs((n_docs, nnz), d, kind,
+                                              seed=seed + 1)
+
+
+REFINE_SHAPES = [(5, 4, 20, 60, 3, 2, 16, 300), (3, 10, 10, 200, 8, 8, 24,
+                                                 500),
+                 (1, 3, 7, 9, 5, 5, 8, 64)]
+
+
+@pytest.mark.parametrize("kind", VAL_KINDS)
+@pytest.mark.parametrize("qn,k,w,n_docs,deg,degree,nnz,d", REFINE_SHAPES)
+def test_refine_round_plain_matches_pallas(qn, k, w, n_docs, deg, degree,
+                                           nnz, d, kind):
+    ids, scored, q, knn, *plane = refine_inputs(qn, k, w, n_docs, deg, nnz,
+                                                d, kind, seed=n_docs + k)
+    jplane = as_jax(*plane)
+    want_c, want_s = jax_refine(*map(jnp.asarray, (ids, scored, q, knn)),
+                                *jplane, n_docs=n_docs, degree=degree)
+    tplane = as_torch(*plane)
+    cand, scores = refine_round_batch(*map(_t, (ids, scored, q, knn)),
+                                      *tplane, n_docs=n_docs, degree=degree)
+    assert cand.dtype == torch.int32 and cand.shape == (qn, k * degree)
+    np.testing.assert_array_equal(cand.numpy(), np.asarray(want_c))
+    assert_scores(scores.numpy(), np.asarray(want_s))
+    c = cand.numpy()
+    assert (np.diff(c, axis=1) >= 0).all()            # sorted prefix
+    assert np.isneginf(scores.numpy()[c >= n_docs]).all()
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take():
+    lists, q, sc, sq, ss, sz, bl = map(_t, router_inputs(2, 3, 5, 4, 8, 50,
+                                                         1))
+    with pytest.raises(ValueError, match="lists must be int32"):
+        router_flat_batch(lists.long(), q, sc, sq, ss, sz, bl)
+    with pytest.raises(ValueError, match="block_len"):
+        router_flat_batch(lists, q, sc, sq, ss, sz, bl[:, :2])
+    with pytest.raises(ValueError, match=r"m=7 must lie"):
+        router_hier_batch(lists, q, sc[:, :2], sq[:, :2], ss[:, :2],
+                          sz[:, :2], sc, sq, ss, sz, bl, m=7, fanout=2)
+    with pytest.raises(ValueError, match="do not group"):
+        router_hier_batch(lists, q, sc[:, :3], sq[:, :3], ss[:, :3],
+                          sz[:, :3], sc, sq, ss, sz, bl, m=2, fanout=2)
+    ids, scored, qq, knn, *plane = map(
+        lambda x: x if x is None or isinstance(x, str) else _t(x),
+        refine_inputs(2, 3, 5, 20, 4, 8, 50, "f32", 0))
+    fc, fv = plane[0], plane[1]
+    with pytest.raises(ValueError, match="degree 5"):
+        refine_round_batch(ids, scored, qq, knn, fc, fv, n_docs=20,
+                           degree=5)
+    with pytest.raises(ValueError, match="int32"):
+        refine_round_batch(ids.long(), scored, qq, knn, fc, fv, n_docs=20,
+                           degree=2)
+    with pytest.raises(ValueError, match="knn_ids"):
+        refine_round_batch(ids, scored, qq, knn[:5], fc, fv, n_docs=20,
+                           degree=2)
+
+
+def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """Every source includes the shared row dot; editing a shared header
+    changes every library's file name, so each source rebuilds."""
+    assert "-I" in runtime.NVCC_FLAGS
+    assert str(runtime.INCLUDE_DIR) in runtime.NVCC_FLAGS
+    for src in runtime.SOURCES.values():
+        assert '#include "row_dot.cuh"' in src.read_text(), src
+    for h in runtime.INCLUDE_DIR.glob("*.cuh"):
+        (tmp_path / h.name).write_bytes(h.read_bytes())
+    monkeypatch.setattr(runtime, "INCLUDE_DIR", tmp_path)
+    before = {n: runtime.library_path(n) for n in runtime.SOURCES}
+    header = tmp_path / "row_dot.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: runtime.library_path(n) for n in runtime.SOURCES}
+    assert all(before[n] != after[n] for n in runtime.SOURCES)
+    assert len(set(after.values())) == len(runtime.SOURCES)
 
 
 # ----------------------------------------------------------- on the card
@@ -260,3 +425,63 @@ def test_gather_dot_cand_kernel_matches_plain_on_card(kind):
                              None if fz is None else fz[idx])
     live = cand < n_docs
     assert torch.equal(got[live], batch[live])
+
+
+@pytest.mark.gpu
+def test_router_flat_kernel_matches_plain_and_summary_dot_on_card():
+    dev = _cuda()
+    args = [_t(x).to(dev) for x in router_inputs(16, 8, 300, 494, 96,
+                                                  30522, 5)]
+    before = runtime.LAUNCHES["router_flat"]
+    got = router_flat_batch(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["router_flat"] == before + 1
+    assert_scores(got.cpu().numpy(), router_flat_ref(*args).cpu())
+    # the same row dot as summary_dot: bitwise equal live scores
+    lists, q, sc, sq, ss, sz, bl = args
+    li = lists.long()
+    qn = lists.shape[0]
+    unfused = summary_dot_batch(q, sc[li].reshape(qn, -1, 96),
+                                sq[li].reshape(qn, -1, 96),
+                                ss[li].reshape(qn, -1), sz[li].reshape(qn, -1))
+    live = torch.isfinite(got)
+    assert torch.equal(got[live], unfused[live])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f", [(32, 8), (5, 3)])
+def test_router_hier_kernel_matches_plain_on_card(m, f):
+    dev = _cuda()
+    nb = 494
+    ns = -(-nb // f)
+    args = [_t(x).to(dev) for x in router_inputs(
+        16, 8, 300, nb, 96, 30522, 6, ns=ns, s2=96 * f)]
+    lists, q, sc, sq, ss, sz, bl, pc, pq, ps, pz = args
+    order = (lists, q, pc, pq, ps, pz, sc, sq, ss, sz, bl)
+    before = runtime.LAUNCHES["router_hier"]
+    rb, flat = router_hier_batch(*order, m=m, fanout=f)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["router_hier"] == before + 1
+    want_rb, want_flat = router_hier_ref(*order, m=m, fanout=f)
+    assert torch.equal(flat, want_flat)
+    assert_scores(rb.cpu().numpy(), want_rb.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", VAL_KINDS)
+def test_refine_round_kernel_matches_plain_on_card(kind):
+    dev = _cuda()
+    ids, scored, q, knn, *plane = refine_inputs(64, 10, 90, 5000, 12,
+                                                128, 30522, kind, 3)
+    args = [_t(x).to(dev) for x in (ids, scored, q, knn)]
+    tplane = [None if x is None else x.to(dev) for x in as_torch(*plane)]
+    before = runtime.LAUNCHES["refine_round"]
+    cand, scores = refine_round_batch(*args, *tplane, n_docs=5000, degree=8)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["refine_round"] == before + 1
+    want_c, want_s = refine_round_ref(*args, *tplane, 5000, 8)
+    assert torch.equal(cand, want_c)
+    assert_scores(scores.cpu().numpy(), want_s.cpu())
+    # the same row dot as gather_dot_cand: bitwise equal scores
+    assert torch.equal(scores, gather_dot_cand_batch(
+        args[2], cand, *tplane, n_docs=5000))

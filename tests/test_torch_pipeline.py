@@ -287,29 +287,6 @@ def test_kernel_wrappers_take_plain_path_on_cpu(small_collection, carried):
     assert all(v == 0 for v in runtime.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("bad", [
-    dict(fuse_level=2),
-    dict(superblock_fanout=2),
-    dict(graph_degree=4, refine_rounds=1),
-])
-def test_unported_settings_raise(small_collection, carried, bad):
-    _, queries, *_ = small_collection
-    p = SearchParams(**{**BASE, **bad})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_pipeline(carried[1], port_queries(queries), p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SeismicServer(carried[1], p)
-
-
-@pytest.mark.parametrize("plane", ["sup_coords", "knn_ids"])
-def test_unported_index_planes_raise(small_collection, carried, plane):
-    _, queries, *_ = small_collection
-    index = dataclasses.replace(carried[1],
-                                **{plane: torch.zeros((4, 2), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_pipeline(index, port_queries(queries), SearchParams(**BASE))
-
-
 def test_default_params_use_the_kernels():
     p = SearchParams()
     assert p.use_kernel and p.fuse_level == 1

@@ -42,26 +42,70 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    refine_rounds 0, 1 and 2, per-stage and per-round times;
 8. each kernel timed on its main path's own inputs with CUDA events
    (L2 flushed before every launch) beside its bound, its plain version
-   and one PyTorch library call where one computes the same function.
+   and one PyTorch library call where one computes the same function;
+   then the index and the graph are freed;
+9. flash_attention against its plain version on seeded inputs: the
+   llama3-8b prefill shape (B 1, Hq 32, Hkv 8, S 8192, D 128, bf16,
+   causal), float32 at a ragged S = 200, a window of 64, causal=False,
+   D 16 and 64; its time at the prefill shape beside its bound, the
+   plain version and ``scaled_dot_product_attention`` (which only this
+   script calls), and once at 32768 tokens (prefill_32k of
+   ``lm_shapes``) without the plain version;
+10. llama3-8b (``configs/llama3_8b.CONFIG``: 32 layers, bf16, drawn on
+   the card from the seed) prefills [1, 8192] tokens with the kernel
+   (``use_kernel=True``; launch counts set to 0 just before and read
+   just after: 32 flash_attention launches) and on the plain chunked
+   path; logits compared; two known-wrong attention paths (non-causal,
+   a window of half the sequence) must fall outside the logit bound;
+   three timed runs;
+11. ``LMDecoder(batch=8, max_seq=128)`` answers 8 requests of 32-token
+   prompts with 32 greedy tokens each; the decode logits over the
+   generated sequences against ``forward(use_kernel=True)``'s.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; nothing falls back to the CPU or the plain versions.
 
-Tolerance, kernel against plain: ``|k - p| <= 2e-5 * |p| + 1e-6``. Every
-score a kernel returns sums at most 128 nonnegative float32 products
-(96-entry summaries, 128-entry forward rows), in another order than the
-plain version (the kernel also fuses the dequant multiply-add); each
-order is within 128 * 2^-24 ~ 7.6e-6 relative of the exact sum, so two
-orders differ by less than 1.6e-5. Integer outputs (router_hier's flat
-positions, which its 768-entry stage-A scores choose; refine_round's
-frontier ids) are equal. Kernel paths against each other (fuse levels
-0, 1, 2): bitwise equal ids, ``docs_evaluated`` and scores, since every
-kernel scores a row with one shared row dot.
+Tolerance, retrieval kernel against plain: ``|k - p| <= 2e-5 * |p| +
+1e-6``. Every score a kernel returns sums at most 128 nonnegative
+float32 products (96-entry summaries, 128-entry forward rows), in
+another order than the plain version (the kernel also fuses the
+dequant multiply-add); each order is within 128 * 2^-24 ~ 7.6e-6
+relative of the exact sum, so two orders differ by less than 1.6e-5.
+Integer outputs (router_hier's flat positions, which its 768-entry
+stage-A scores choose; refine_round's frontier ids) are equal. Kernel
+paths against each other (fuse levels 0, 1, 2): bitwise equal ids,
+``docs_evaluated`` and scores, since every retrieval kernel scores a row
+with one shared row dot.
+
+flash_attention against plain: float32, ``rtol = atol = 2e-5`` (FMA
+dots of at most 128 terms and the online softmax in another order; the
+JAX package's own tolerance for its kernel). bf16, element by element,
+``|k - p| <= 2**-7 * |p| + 2 * r`` with ``r = 2**-9 * sum_j p_j |v_j| /
+sum_j p_j``, the plain version run on ``|v|`` in float32: the kernel
+feeds P to P V in bf16, which moves each term ``p_j v_j`` by at most
+``2**-9`` of itself, so the output by at most ``r`` (the factor 2 keeps
+room for the float32 sums), and both outputs round to bf16, one ulp
+apart at most (``2**-7`` relative). ``r`` shrinks with the row's values,
+not with the tensor's largest, so a long row that loses one key tile
+fails (a planted fault, PERF.md).
+
+llama3-8b logits, two bf16 paths (prefill with the kernel against the
+plain path; decode against forward): relative L2 distance at most
+``2**-4``. The paths round to bf16 at different places (attention's P,
+GEMMs of other shapes); each such rounding moves a value by at most
+``2**-9`` relative, and about ten per layer over 32 layers add up as a
+random walk to ``sqrt(320) * 2**-9 ~ 3.5 %``; top-1 agreement, the max
+abs gap and the plain path's top-1/top-2 logit gap where the argmax
+flips are printed beside it. The bound must reject a wrong path: the
+prefill with attention called non-causal, or windowed to half the
+sequence, is held to it and has to fail (phase 10).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -107,7 +151,19 @@ SOURCES = {
     "refine_round": (
         "src/repro_torch/kernels/refine_fused/csrc/refine_fused.cu",
         "src/repro/kernels/refine_fused/refine_fused.py:118"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:84"),
 }
+RETRIEVAL = tuple(n for n in SOURCES if n != "flash_attention")
+# the LM slice: llama3-8b (configs/llama3_8b.py) at full width and depth;
+# prefill at 8192 tokens and once at prefill_32k's 32768 (lm_shapes),
+# serving 8 requests of 32-token prompts with 32 new tokens each
+LM_SEQ, LM_LONG_SEQ = 8192, 32768
+SERVE_BATCH, SERVE_MAX_SEQ, PROMPT_LEN, NEW_TOKENS = 8, 128, 32, 32
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+ATTN_F32_TOL = 2e-5            # flash_attention, float32: rtol = atol
+LM_REL_L2 = 2 ** -4            # llama3-8b logits, two bf16 paths
 
 
 def log(*parts) -> None:
@@ -415,22 +471,305 @@ def staged_ms(index, p, qs, run_pipeline_staged, split_refine=False) -> str:
     return ", ".join(f"{k} {v * 1e3:.2f}" for k, v in stages.items())
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n-docs", type=int, default=1 << 20,
-                    help="collection size (MS MARCO has 8,841,823)")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+def compare_attention(torch, name, got, want,
+                      row=None) -> tuple[float, float]:
+    """flash_attention against its plain version -> (max abs error, the
+    worst element's share of its tolerance); raises beyond the stated
+    tolerance (float32: rtol = atol = 2e-5; bf16: ``2**-7 * |p| + 2 *
+    2**-9 * row``, ``row`` the plain version on ``|v|`` in float32)."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.float32:
+        tol = ATTN_F32_TOL * w.abs() + ATTN_F32_TOL
+    else:
+        tol = 2 ** -7 * w.abs() + 2 * 2 ** -9 * row
+    worst = float((err / tol.clamp_min(1e-30)).max())
+    if bool((err > tol).any()) or not bool(torch.isfinite(g).all()):
+        bad = (err > tol).any(-1).nonzero()[:, 2]   # q positions
+        raise AssertionError(
+            f"{name}: {bad.numel()} rows beyond tolerance, q positions "
+            f"{int(bad.min()) if bad.numel() else '-'} to "
+            f"{int(bad.max()) if bad.numel() else '-'} (worst element at "
+            f"{worst:.2f}x it); max abs err {float(err.max()):.3e}, max|p| "
+            f"{float(w.abs().max()):.3e}")
+    return float(err.max()), worst
 
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run from a checkout of the repository "
-              "(src/repro_torch not found)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+
+def attention_inputs(torch, dev, gen, b, hq, hkv, s, d, dtype):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+
+
+def flash_check(torch, dev, gen) -> float:
+    """Phase 9, the check: flash_attention against its plain version on
+    seeded inputs -> max abs error at the model's shape."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_ref)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # label, B, Hq, Hkv, S, D, dtype, causal, window
+        ("llama3-8b prefill", 1, 32, 8, LM_SEQ, 128, bf16, True, None),
+        ("f32 ragged", 2, 4, 2, 200, 128, f32, True, None),
+        ("window 64", 1, 8, 2, 1000, 128, bf16, True, 64),
+        ("non-causal", 1, 8, 2, 1000, 128, bf16, False, None),
+        ("D 16", 2, 4, 1, 333, 16, bf16, True, None),
+        ("D 64", 2, 8, 2, 333, 64, bf16, True, None),
+    ]
+    model_err = None
+    for label, b, hq, hkv, s, d, dt, causal, window in cases:
+        q, k, v = attention_inputs(torch, dev, gen, b, hq, hkv, s, d, dt)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        err = worst = 0.0
+        g = hq // hkv
+        for h0 in range(0, hq, 8):   # the plain scores, 8 heads at a time
+            h1 = min(h0 + 8, hq)
+            kh, vh = (x[:, h0 // g:(h1 - 1) // g + 1] for x in (k, v))
+            qh = q[:, h0:h1]
+            want = flash_attention_ref(qh, kh, vh, causal=causal,
+                                       window=window)
+            row = None if dt == f32 else flash_attention_ref(
+                qh.float(), kh.float(), vh.float().abs(), causal=causal,
+                window=window)
+            e, w = compare_attention(
+                torch, f"flash_attention {label} (max|v| "
+                f"{float(vh.float().abs().max()):.3f})", got[:, h0:h1], want,
+                row)
+            err, worst = max(err, e), max(worst, w)
+            del want, row
+        model_err = err if model_err is None else model_err
+        log(f"  flash_attention {label}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+            f"{str(dt).split('.')[1]} causal={causal} window={window}: max "
+            f"abs err {err:.3e}, worst element at {worst:.3f} of its "
+            "tolerance")
+    return model_err
+
+
+def flash_phase(torch, dev, gen, bench) -> dict:
+    """Phase 9: flash_attention against its plain version (``flash_check``),
+    then its times at the prefill's shape (and once at 32768 tokens)
+    beside its bound, the plain version and
+    ``scaled_dot_product_attention``, which only this script calls."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_ref)
+    bf16 = torch.bfloat16
+    model_err = flash_check(torch, dev, gen)
+    b, hq, hkv, s, d = 1, 32, 8, LM_SEQ, 128
+    q, k, v = attention_inputs(torch, dev, gen, b, hq, hkv, s, d, bf16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def row(s, q, k, v, plain: bool):
+        kern = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        lib = lambda: sdpa(q, k, v, is_causal=True,           # noqa: E731
+                           enable_gqa=True)
+        iters = 10 if s == LM_SEQ else 3
+        ms, lib_ms = bench.ms(kern, iters=iters), bench.ms(lib, iters=iters)
+        plain_ms = bench.ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                            iters=2, warmup=1) if plain else None
+        gap = float((kern().float() - lib().float()).abs().max())
+        pairs = s * (s + 1) // 2                 # causal (q, k) pairs
+        ops = 4 * d * hq * b * pairs             # Q K^T and P V
+        nbytes = 2 * b * s * d * 2 * (hq + hkv)  # q, o, k, v in bf16
+        t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        bms = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"[9 flash_attention] [{b}, {hq}, {s}, {d}] bf16 causal, Hkv "
+            f"{hkv}: {ms:.4f} ms (bound {bms:.4f} ms by {by}: "
+            f"{ops / 1e12:.3f} TFLOP at 989 TFLOP/s, {nbytes / 1e6:.1f} MB "
+            f"at 3.35 TB/s; {bms / ms:.1%} of it, {ops / ms / 1e9:.1f} "
+            f"TFLOP/s), plain "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}, "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms (max abs gap to "
+            f"the kernel {gap:.3e})")
+        return ms, plain_ms, bms, by, lib_ms
+
+    ms, plain_ms, bms, by, lib_ms = row(s, q, k, v, plain=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    s_long = LM_LONG_SEQ
+    row(s_long, *attention_inputs(torch, dev, gen, b, hq, hkv, s_long, d,
+                                  bf16), plain=False)
+    src, rep = SOURCES["flash_attention"]
+    return dict(name="flash_attention", route="cuda", source=src,
+                replaces=rep, launches=None, max_abs_err=model_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def logit_distance(torch, label, got, want) -> tuple[float, str]:
+    """Two bf16 paths' logits: finite and of one shape -> (relative L2
+    distance, text with the max abs gap, the top-1 agreement and the
+    ``want`` path's top-1/top-2 gap where the argmax flips)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shapes {tuple(got.shape)} and "
+                             f"{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
+        raise AssertionError(f"{label}: non-finite logits")
+    rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    flip = g.argmax(-1) != w.argmax(-1)
+    top2 = w.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    at_flip = (f"median {float(gap[flip].median()):.4f}, max "
+               f"{float(gap[flip].max()):.4f}" if bool(flip.any())
+               else "no flips")
+    text = (f"relative L2 {rel:.3e}, max abs {float((g - w).abs().max()):.3e}"
+            f" (logits' max abs {float(w.abs().max()):.2f}), top-1 "
+            f"agreement {1 - float(flip.float().mean()):.4f}; top-1/top-2 "
+            f"gap of the reference where the argmax flips: {at_flip} "
+            f"(median over all positions {float(gap.median()):.4f})")
+    return rel, text
+
+
+def lm_agreement(torch, label, got, want) -> str:
+    """``logit_distance``'s text; raises beyond LM_REL_L2."""
+    rel, text = logit_distance(torch, label, got, want)
+    if rel > LM_REL_L2:
+        raise AssertionError(f"{label}: {text}; beyond {LM_REL_L2}")
+    return text
+
+
+@contextlib.contextmanager
+def wrong_attention(attention, **override):
+    """The model's flash_attention calls take ``override`` inside: a
+    known-wrong path for the logit bound to reject."""
+    kernel = attention.flash_attention
+    attention.flash_attention = lambda q, k, v, **kw: kernel(
+        q, k, v, **{**kw, **override})
+    try:
+        yield
+    finally:
+        attention.flash_attention = kernel
+
+
+def lm_phases(torch, dev, seed, runtime) -> dict:
+    """Phases 9-11: flash_attention against plain and timed; llama3-8b
+    prefill at [1, 8192] with the kernel against the plain chunked path;
+    ``LMDecoder`` serving 8 requests, its decode logits against the
+    forward's. Returns flash_attention's record."""
+    from repro_torch.configs import llama3_8b
+    from repro_torch.models.transformer import attention, lm
+    from repro_torch.serve import LMDecoder
+    t_lm = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bench = Bench(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = flash_phase(torch, dev, gen, bench)
+    log(f"  phase 9 in {time.perf_counter() - t_lm:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del bench
+    torch.cuda.empty_cache()
+
+    # ---- 10. llama3-8b prefill, kernel path against the plain path
+    cfg = llama3_8b.CONFIG
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_norm = sum(p.numel() for p in params.parameters()
+                 if p.dtype == torch.float32)
+    log(f"[10 llama3-8b prefill] {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{cfg.param_count()} parameters, {nbytes} bytes ({n_norm} float32 "
+        f"norm gains as in the JAX package; {2 * cfg.param_count()} at 2 "
+        f"bytes each)")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    logits_k, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+    torch.cuda.synchronize()
+    prefill_launches = dict(runtime.LAUNCHES)
+    log(f"  launches of one forward [1, {LM_SEQ}], use_kernel=True: "
+        f"{prefill_launches}")
+    if prefill_launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{prefill_launches['flash_attention']} times "
+                             f"in one forward, not {cfg.n_layers}")
+    rec["launches"] = prefill_launches["flash_attention"]
+    t0 = time.perf_counter()
+    logits_p, _ = lm.forward(params, tokens, cfg, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    log(f"  logits {tuple(logits_k.shape)} {logits_k.dtype}, kernel path vs "
+        f"plain path ({plain_s:.2f} s): "
+        + lm_agreement(torch, "prefill kernel vs plain", logits_k, logits_p))
+    del logits_k
+    # the bound must reject a wrong path: attention non-causal, or
+    # windowed to half the sequence
+    for label, override in (("non-causal", dict(causal=False)),
+                            (f"window {LM_SEQ // 2}",
+                             dict(window=LM_SEQ // 2))):
+        with wrong_attention(attention, **override):
+            logits_w, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+        rel, text = logit_distance(torch, label, logits_w, logits_p)
+        del logits_w
+        log(f"  known-wrong path, attention {label}, vs plain path: {text}")
+        if rel <= LM_REL_L2:
+            raise AssertionError(f"the logit bound {LM_REL_L2} does not "
+                                 f"reject attention {label}")
+    del logits_p
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lm.forward(params, tokens, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"  prefill [1, {LM_SEQ}], use_kernel=True, 3 runs: "
+        + ", ".join(f"{t:.1f} ms ({LM_SEQ / t * 1e3:.0f} tokens/s)"
+                    for t in times)
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    # ---- 11. serving: LMDecoder, greedy; decode logits against forward
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN),
+                            generator=gen, device=dev)
+    steps = PROMPT_LEN + NEW_TOKENS
+    dec = LMDecoder(params, cfg, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    runtime.reset_launches()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        toks = dec.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    serve_launches = dict(runtime.LAUNCHES)
+    log(f"[11 serving] LMDecoder(batch={SERVE_BATCH}, max_seq="
+        f"{SERVE_MAX_SEQ}): {SERVE_BATCH} requests of {PROMPT_LEN}-token "
+        f"prompts, {NEW_TOKENS} greedy tokens each ({steps} decode steps, "
+        f"prefill by stepping): " + ", ".join(
+            f"{r:.0f} ms ({r / steps:.2f} ms per decode step)" for r in runs)
+        + f"; kernel launches {sum(serve_launches.values())} (decode "
+        "attention is plain, as in the JAX package)")
+    if toks.shape != (SERVE_BATCH, steps) or not bool(
+            torch.equal(toks[:, :PROMPT_LEN], prompts.to(torch.int32))):
+        raise AssertionError("LMDecoder: tokens of the wrong shape or "
+                             "prompts not kept")
+    cache = lm.init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ, device=dev)
+    dec_logits = torch.stack(
+        [lm.decode_step(params, cache, toks[:, i:i + 1], i, cfg)[0]
+         for i in range(steps)], dim=1)
+    fwd, _ = lm.forward(params, toks, cfg, use_kernel=True)
+    chosen = dec_logits[:, PROMPT_LEN - 1:-1].argmax(-1)
+    greedy = toks[:, PROMPT_LEN:] == chosen
+    log(f"  decode logits [{SERVE_BATCH}, {steps}, V] vs forward(use_kernel="
+        "True) over the generated sequences: "
+        + lm_agreement(torch, "decode vs forward", dec_logits, fwd)
+        + f"; generated tokens equal to the argmax of the decode logits: "
+        f"{float(greedy.float().mean()):.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"  LM phases 9-11 in {time.perf_counter() - t_lm:.1f} s")
+    return rec
+
+
+def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
+    """Phases 5-8 (the index, the flat and the hierarchical, refined
+    paths, kernels a-f timed) -> the six retrieval kernels' records. The
+    index and the graph are freed when this returns."""
     from repro_torch.core.build import build_index, live_blocks, \
         suggest_fanout
     from repro_torch.core.oracle import exact_topk, mean_recall_at_k
@@ -438,7 +777,6 @@ def main() -> int:
     from repro_torch.data import SyntheticSparseConfig, make_collection
     from repro_torch.graph import build_doc_graph
     from repro_torch.graph.refine import scored_init
-    from repro_torch.kernels import runtime
     from repro_torch.kernels.gather_dot.ops import (
         cand_tiles_processed, gather_dot_batch, gather_dot_batch_ref,
         gather_dot_cand_batch, gather_dot_cand_ref)
@@ -456,43 +794,6 @@ def main() -> int:
     from repro_torch.serve import SeismicServer
     from repro_torch.sparse.ops import take_rows
     from repro_torch.sparse.quant import dequantize_u8
-
-    # ---- 1. device
-    t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = nvidia_smi_name_power()
-    log(f"[1 device] {kind} x{count}; nvidia-smi: {smi}; torch "
-        f"{torch.__version__} cuda {torch.version.cuda}; TF32 off "
-        "(matmul and cudnn)")
-
-    # ---- 2. build the kernels
-    t0 = time.perf_counter()
-    reports = runtime.build_kernels()
-    log(f"[2 build] {len(reports)} kernel sources built in "
-        f"{time.perf_counter() - t0:.1f} s into {runtime.BUILD_DIR}")
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if any(w in line for w in ("registers", "smem", "spill",
-                                       "Compiling")):
-                log(f"  {name}: {line.strip()}")
-
-    # ---- 3. kernels against plain, synthetic inputs at the slices' shapes
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    t0 = time.perf_counter()
-    synthetic_phase(torch, dev, gen)
-    fused_synthetic_phase(torch, dev, gen)
-    log(f"[3 kernels vs plain] all variants within rtol={RTOL} atol={ATOL} "
-        f"in {time.perf_counter() - t0:.1f} s")
-
-    # ---- 4. run to run: collection and index made twice from one seed
-    t0 = time.perf_counter()
-    log(f"[4 run to run] {RUN_TO_RUN_DOCS} docs, seed {args.seed}:")
-    run_to_run_phase(torch, dev, args.seed)
-    log(f"  in {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. collection and index at the MS MARCO widths, superblock tier
     torch.cuda.reset_peak_memory_stats(dev)
@@ -610,7 +911,7 @@ def main() -> int:
                             split_refine=True))
 
     # ---- 8. kernels on the main paths' inputs: errors and times
-    launches = {n: flat_launches[n] + hier_launches[n] for n in SOURCES}
+    launches = {n: flat_launches[n] + hier_launches[n] for n in RETRIEVAL}
     bench = Bench(torch, dev)
     p0 = levels[0]
     q_dense, lists, _ = prep_queries(q256.coords, q256.vals, index.dim, p0.cut)
@@ -807,6 +1108,70 @@ def main() -> int:
         "documents")
     log("  q bytes in the bounds, per kernel (distinct (query, coordinate) "
         "reads): " + ", ".join(f"{n} {b}" for n, b in q_read.items()))
+    return record
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n-docs", type=int, default=1 << 20,
+                    help="collection size (MS MARCO has 8,841,823)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import runtime
+
+    # ---- 1. device
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = nvidia_smi_name_power()
+    log(f"[1 device] {kind} x{count}; nvidia-smi: {smi}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}; TF32 off "
+        "(matmul and cudnn)")
+
+    # ---- 2. build the kernels
+    t0 = time.perf_counter()
+    reports = runtime.build_kernels()
+    log(f"[2 build] {len(reports)} kernel sources built in "
+        f"{time.perf_counter() - t0:.1f} s into {runtime.BUILD_DIR}")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if any(w in line for w in ("registers", "smem", "spill",
+                                       "Compiling")):
+                log(f"  {name}: {line.strip()}")
+
+    # ---- 3. kernels against plain, synthetic inputs at the slices' shapes
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    synthetic_phase(torch, dev, gen)
+    fused_synthetic_phase(torch, dev, gen)
+    log(f"[3 kernels vs plain] all variants within rtol={RTOL} atol={ATOL} "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4. run to run: collection and index made twice from one seed
+    t0 = time.perf_counter()
+    log(f"[4 run to run] {RUN_TO_RUN_DOCS} docs, seed {args.seed}:")
+    run_to_run_phase(torch, dev, args.seed)
+    log(f"  in {time.perf_counter() - t0:.1f} s")
+
+    record = retrieval_phases(torch, dev, args, runtime)
+    gc.collect()                  # the index and the graph go here
+    torch.cuda.empty_cache()
+
+    # ---- 9. the LM path: flash_attention against plain, prefill, serving
+    record.append(lm_phases(torch, dev, args.seed, runtime))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the query path and their wrappers.
+"""Hand-written CUDA kernels of the query path and the LM, and their
+wrappers.
 
 ``summary_dot``       router: quantized summary dots ``[Q, L, S] -> [Q, L]``
 ``gather_dot``        scorer: sparse·dense dots over gathered rows
@@ -13,7 +14,11 @@
 ``refine_fused``      fuse level 2 refine: one kNN-graph round (expand,
                       dedupe, seen-mask, compact, rescore) per launch
 
-All of them score a row with the shared row dot of
+``flash_attention``   the LM's prefill attention: online softmax over key
+                      tiles with causal, window and key-existence masks,
+                      bf16 on the tensor cores (``mma.sync``) or float32
+
+The retrieval kernels score a row with the shared row dot of
 ``common/csrc/row_dot.cuh``, so their scores agree to the bit.
 
 See :mod:`repro_torch.kernels.runtime` for the build and the CPU/CUDA

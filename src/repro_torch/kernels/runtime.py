@@ -4,8 +4,8 @@
   PyTorch version (``ref.py``). A call on CUDA tensors launches the
   hand-written kernel or raises; it never falls back.
 * Kernel sources are ``kernels/<family>/csrc/<family>.cu`` with a plain C
-  interface; headers they share (the row dot every kernel uses) are
-  ``kernels/common/csrc/*.cuh``. On first use each source is compiled
+  interface; headers they share (the row dot of the retrieval kernels)
+  are ``kernels/common/csrc/*.cuh``. On first use each source is compiled
   with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
   -Xcompiler -fPIC -I kernels/common/csrc`` into ``build/kernels/`` at
   the repository root and loaded with ``ctypes``. The library's file
@@ -34,14 +34,16 @@ BUILD_DIR = ROOT / "build" / "kernels"
 INCLUDE_DIR = _PKG / "common" / "csrc"
 SOURCES = {
     name: _PKG / name / "csrc" / f"{name}.cu"
-    for name in ("summary_dot", "gather_dot", "router_fused", "refine_fused")
+    for name in ("summary_dot", "gather_dot", "router_fused", "refine_fused",
+                 "flash_attention")
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-I", str(INCLUDE_DIR))
 
 LAUNCHES = {"summary_dot": 0, "gather_dot": 0, "gather_dot_cand": 0,
-            "router_flat": 0, "router_hier": 0, "refine_round": 0}
+            "router_flat": 0, "router_hier": 0, "refine_round": 0,
+            "flash_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,3 +1,4 @@
-from repro_torch.serve.engine import RetrievalResult, SeismicServer
+from repro_torch.serve.engine import (LMDecoder, RetrievalResult,
+                                      SeismicServer)
 
-__all__ = ["RetrievalResult", "SeismicServer"]
+__all__ = ["LMDecoder", "RetrievalResult", "SeismicServer"]

@@ -1,19 +1,71 @@
-"""Synchronous retrieval serving facade (port of the ``SeismicServer``
-part of ``repro.serve.engine``; telemetry, observability, auditing and
-index mutation are not ported yet).
+"""Synchronous serving facades (port of ``repro.serve.engine``;
+telemetry, observability, auditing and index mutation are not ported
+yet).
 
-Params are checked against the index (route, refine) before the first
-launch."""
+``LMDecoder``      KV-cache decode loop around ``lm.decode_step`` (greedy
+                   or sampling) over a batch of requests.
+``SeismicServer``  fixed-batch retrieval; params are checked against the
+                   index (route, refine) before the first launch.
+"""
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.types import SeismicIndex
+from repro_torch.models.transformer import lm
 from repro_torch.retrieval import SearchParams, search_pipeline
 from repro_torch.retrieval.pipeline import validate_params
 from repro_torch.sparse.ops import PaddedSparse
+
+
+class LMDecoder:
+    """Greedy or sampled generation for a batch of requests over one KV
+    cache on the parameters' device."""
+
+    def __init__(self, params: lm.LM, cfg: TransformerConfig, batch: int,
+                 max_seq: int):
+        self.params = params
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.device = params.embed.device
+        self.cache = lm.init_cache(cfg, batch, max_seq, device=self.device)
+
+    def generate(self, prompts: torch.Tensor | np.ndarray, n_steps: int, *,
+                 greedy: bool = True, seed: int = 0) -> torch.Tensor:
+        """prompts [B, P] -> tokens int32 [B, P + n_steps] on the device.
+
+        Prefills by stepping, as the JAX package does. Greedy takes the
+        first maximum (``torch.argmax``, as ``jnp.argmax``); sampling draws
+        from softmax(logits) with a ``torch.Generator`` seeded with
+        ``seed`` (other draws than ``jax.random.categorical``)."""
+        prompts = torch.as_tensor(prompts, device=self.device).to(torch.int32)
+        b, plen = prompts.shape
+        if b != self.cache["k"].shape[1]:
+            raise ValueError(f"generate: {b} prompts for a decoder of batch "
+                             f"{self.cache['k'].shape[1]}")
+        if plen == 0 or plen + n_steps > self.max_seq:
+            raise ValueError(f"generate: prompt length {plen} plus {n_steps} "
+                             f"steps must lie in 1..max_seq {self.max_seq}")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        toks = [prompts[:, i] for i in range(plen)]
+        for i in range(plen):
+            logits, self.cache = lm.decode_step(
+                self.params, self.cache, toks[i][:, None], i, self.cfg)
+        for j in range(n_steps):
+            if greedy:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                probs = torch.softmax(logits.float(), dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            toks.append(nxt.to(torch.int32))
+            logits, self.cache = lm.decode_step(
+                self.params, self.cache, toks[-1][:, None], plen + j,
+                self.cfg)
+        return torch.stack(toks, dim=1)
 
 
 @dataclasses.dataclass

@@ -7,7 +7,11 @@ against the JAX package's Pallas kernels in interpret mode
 at odd shapes, with all-padding rows, dead blocks and lists, sentinels
 and all-sentinel tiles. Scores are ``allclose(rtol=1e-5, atol=1e-6)``
 (summation order differs); -inf positions and integer outputs (flat
-positions, frontier ids) are equal.
+positions, frontier ids) are equal. ``flash_attention``'s plain version
+is held against the JAX kernel over the JAX package's own sweep
+(tests/test_kernels.py) at ``rtol=atol=2e-5`` in float32, the JAX
+test's tolerance; in bf16 both compute in float32 and round the output
+once, so they differ by at most one bf16 ulp (``rtol=2**-7``).
 
 Tests marked ``gpu`` hold each CUDA kernel against its plain version on
 the card and skip here (``python -m pytest -q -m gpu
@@ -22,6 +26,7 @@ import torch
 try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
     import jax.numpy as jnp
 
+    from repro.kernels.flash_attention import flash_attention as jax_flash
     from repro.kernels.gather_dot.ops import \
         cand_tiles_processed as jax_tiles
     from repro.kernels.gather_dot.ops import gather_dot_batch as jax_gather_dot
@@ -33,6 +38,8 @@ try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
 except ModuleNotFoundError:
     jnp = None
 from repro_torch.kernels import runtime
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_ref)
 from repro_torch.kernels.gather_dot.ops import (CAND_TILE_N, CAND_TILE_Q,
                                                 cand_tiles_processed,
                                                 gather_dot_batch,
@@ -206,9 +213,12 @@ def test_plain_path_counts_no_launch():
     runtime.reset_launches()
     q, coords, u8, scale, zero = summary_inputs(2, 9, 8, 50)
     summary_dot_batch(_t(q), _t(coords), _t(u8), _t(scale), _t(zero))
+    q, k, v = attention_inputs(1, 2, 1, 9, 16)
+    flash_attention(_t(q), _t(k), _t(v))
     assert runtime.LAUNCHES == {"summary_dot": 0, "gather_dot": 0,
                                 "gather_dot_cand": 0, "router_flat": 0,
-                                "router_hier": 0, "refine_round": 0}
+                                "router_hier": 0, "refine_round": 0,
+                                "flash_attention": 0}
 
 
 def test_kernel_sources_are_registered_and_hashed():
@@ -354,12 +364,14 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
-    """Every source includes the shared row dot; editing a shared header
-    changes every library's file name, so each source rebuilds."""
+    """Every retrieval source includes the shared row dot; editing a
+    shared header changes every library's file name, so each source
+    rebuilds."""
     assert "-I" in runtime.NVCC_FLAGS
     assert str(runtime.INCLUDE_DIR) in runtime.NVCC_FLAGS
-    for src in runtime.SOURCES.values():
-        assert '#include "row_dot.cuh"' in src.read_text(), src
+    for name, src in runtime.SOURCES.items():
+        if name != "flash_attention":       # no row dot in attention
+            assert '#include "row_dot.cuh"' in src.read_text(), src
     for h in runtime.INCLUDE_DIR.glob("*.cuh"):
         (tmp_path / h.name).write_bytes(h.read_bytes())
     monkeypatch.setattr(runtime, "INCLUDE_DIR", tmp_path)
@@ -369,6 +381,82 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     after = {n: runtime.library_path(n) for n in runtime.SOURCES}
     assert all(before[n] != after[n] for n in runtime.SOURCES)
     assert len(set(after.values())) == len(runtime.SOURCES)
+
+
+# ------------------------------------------------------ flash_attention
+
+def attention_inputs(b, h, hkv, s, dh, seed=0, sk=None):
+    """q [b, h, s, dh], k/v [b, hkv, sk, dh], float32 standard normal."""
+    rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
+    return (rng.standard_normal((b, h, s, dh)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, dh)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", [(1, 4, 4, 128, 64),
+                                          (2, 8, 2, 256, 64),
+                                          (1, 2, 1, 200, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_pallas(b, h, hkv, s, dh, causal):
+    q, k, v = attention_inputs(b, h, hkv, s, dh, seed=s + h)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_plain_matches_pallas_window():
+    q, k, v = attention_inputs(1, 2, 2, 256, 64, seed=5)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, window=64)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True, window=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_plain_matches_pallas_bf16():
+    q, k, v = (jnp.asarray(x, jnp.bfloat16)
+               for x in attention_inputs(1, 4, 2, 128, 64, seed=9))
+    want = np.asarray(jax_flash(q, k, v, causal=True), np.float32)
+    tq, tk, tv = (_t(np.asarray(x, np.float32)).bfloat16()
+                  for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-6)
+
+
+def test_flash_attention_plain_zeroes_rows_without_a_live_key():
+    """Without causality, a window leaves rows q >= Sk + window - 1 with no
+    live key: they are 0 (the kernel's l == 0 guard), the rest is the
+    softmax over the live keys."""
+    q, k, v = (_t(x) for x in attention_inputs(1, 2, 1, 20, 16, sk=8))
+    out = flash_attention(q, k, v, causal=False, window=4)
+    assert torch.count_nonzero(out[:, :, 11:]) == 0
+    s = (q[0, 0, 5] @ k[0, 0].T) * 16 ** -0.5
+    live = torch.arange(8) > 5 - 4
+    p = torch.softmax(s.masked_fill(~live, float("-inf")), -1)
+    torch.testing.assert_close(out[0, 0, 5], p @ v[0, 0], rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (_t(x) for x in attention_inputs(1, 4, 2, 8, 16))
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="shapes differ"):
+        flash_attention(q, k, v[:, :, :5])
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q, k.double(), v.double())
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        flash_attention(q, k.to("meta"), v)
+    # D outside the kernel's set is refused only on CUDA tensors
+    q5, k5, v5 = (_t(x) for x in attention_inputs(1, 2, 2, 8, 24))
+    assert flash_attention(q5, k5, v5).shape == (1, 2, 8, 24)
 
 
 # ----------------------------------------------------------- on the card
@@ -485,3 +573,67 @@ def test_refine_round_kernel_matches_plain_on_card(kind):
     # the same row dot as gather_dot_cand: bitwise equal scores
     assert torch.equal(scores, gather_dot_cand_batch(
         args[2], cand, *tplane, n_docs=5000))
+
+
+def assert_attention_close(got, want, q, k, v, *, causal, window=None):
+    """bf16 kernel against plain, element by element: P enters P V in
+    bf16, which moves each term p_j v_j by at most 2^-9 of itself, so an
+    output by at most r = 2^-9 sum_j p_j |v_j| / sum_j p_j (the plain
+    version on |v| in float32; twice r leaves room for the float32
+    sums), and both outputs round to bf16, one ulp (2^-7 relative)
+    apart: |k - p| <= 2^-7 |p| + 2 r."""
+    r = 2 ** -9 * flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                      causal=causal, window=window)
+    err = (got.float() - want.float()).abs()
+    tol = 2 ** -7 * want.float().abs() + 2 * r
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol).all()), (
+        f"{int((err > tol).sum())} elements beyond tolerance, worst at "
+        f"{float((err / tol.clamp_min(1e-30)).max()):.2f}x it")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", ["causal-gqa", "window", "noncausal",
+                                  "ragged-sk"])
+def test_flash_attention_kernel_matches_plain_on_card(dtype, dh, case):
+    """Kernel against plain on the card. float32: rtol=atol=2e-5 (FMA in
+    another order). bf16: ``assert_attention_close``."""
+    dev = _cuda()
+    b, h, hkv, s, sk, causal, window = {
+        "causal-gqa": (2, 8, 2, 200, None, True, None),
+        "window": (1, 4, 4, 300, None, True, 64),
+        "noncausal": (1, 4, 1, 130, None, False, None),
+        "ragged-sk": (1, 2, 2, 77, 45, False, 16)}[case]
+    tdt = getattr(torch, dtype)
+    q, k, v = (_t(x).to(dev, tdt) for x in attention_inputs(
+        b, h, hkv, s, dh, seed=dh, sk=sk))
+    before = runtime.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert_attention_close(got, want, q, k, v, causal=causal,
+                               window=window)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_projections_on_card():
+    """[B, S, H, D] projections passed as [B, H, S, D] views are read in
+    place; a 24-wide head is refused."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, 100, 8, 64, generator=g, device=dev).bfloat16()
+    kv = torch.randn(2, 100, 2, 64, generator=g, device=dev).bfloat16()
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    got = flash_attention(q, k, k, causal=True)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(),
+                               k.contiguous(), causal=True)
+    assert_attention_close(got, want, q, k, k, causal=True)
+    bad = torch.zeros(1, 2, 8, 24, device=dev)
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_attention(bad, bad, bad)

@@ -8,7 +8,10 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off for
    float32 matmuls and convolutions, so every reference is full float32;
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
-   ``nvcc`` each, in parallel) and print ptxas' register/spill report;
+   ``nvcc`` each, in parallel) and print ptxas' register/spill report,
+   and for the redesigned kernels (flash_attention's TMA + wgmma kernel,
+   gather_dot_cand) one line per variant with registers, shared memory
+   (static, and the dynamic amount the launch requests) and spills;
 3. each kernel against its plain PyTorch version at the slices' shapes,
    on seeded inputs: summary_dot (Q = 256, L = 4940, S = 96), gather_dot
    (N = 4096 and 512, nnz = 128) and gather_dot_cand in f32, bf16 and
@@ -41,8 +44,9 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    before and read just after, the plain reference at 256, recall@10 at
    refine_rounds 0, 1 and 2, per-stage and per-round times;
 8. each kernel timed on its main path's own inputs with CUDA events
-   (L2 flushed before every launch) beside its bound, its plain version
-   and one PyTorch library call where one computes the same function;
+   (L2 flushed before every launch) beside its bound, the rate it
+   reaches on the bytes the bound counts, its plain version and one
+   PyTorch library call where one computes the same function;
    then the index and the graph are freed;
 9. flash_attention against its plain version on seeded inputs: the
    llama3-8b prefill shape (B 1, Hq 32, Hkv 8, S 8192, D 128, bf16,
@@ -107,6 +111,7 @@ import argparse
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -201,6 +206,43 @@ class Bench:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """One line per variant of the redesigned kernels (flash_attention's
+    TMA + wgmma kernel, gather_dot_cand's kernel) from ptxas' report:
+    registers at launch, static shared memory, spill stores and loads."""
+    lines, name, info = [], None, {}
+    types = {"i": "int32", "t": "uint16", "f": "f32", "h": "u8",
+             "13__nv_bfloat16": "bf16"}
+    for line in report.splitlines() + ["Compiling entry function 'end'"]:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            if name and info:
+                lines.append(f"{name}: {info.get('regs', '?')} registers, "
+                             f"{info.get('smem', 0)} B static shared "
+                             f"memory, spill stores {info.get('st', '?')} B, "
+                             f"loads {info.get('ld', '?')} B")
+            mangled, name, info = m.group(1), None, {}
+            fa = re.search(r"fa_wgmma_kernelILi(\d+)E", mangled)
+            cand = re.search(r"gather_dot_cand_kernelI(i|t)"
+                             r"(f|h|13__nv_bfloat16)Lb\dE", mangled)
+            if fa:
+                name = f"fa_wgmma_kernel<D {fa.group(1)}>"
+            elif cand:
+                name = (f"gather_dot_cand_kernel<{types[cand.group(1)]} "
+                        f"coords, {types[cand.group(2)]} values>")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info["st"], info["ld"] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info["regs"] = m.group(1)
+            sm = re.search(r"(\d+) bytes smem", line)
+            info["smem"] = sm.group(1) if sm else 0
+    return lines
 
 
 def compare(torch, name, got, want) -> tuple[float, float]:
@@ -996,11 +1038,17 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
         return take_rows(index.fwd.coords,
                          ids.long().clamp(0, index.n_docs - 1))
 
+    cand_coords = fwd_coords(cand1)
+    # the share of gather_dot_cand's q lookups that hit a non-zero of the
+    # query (a set bit of its bitmap; the rest cost no L2 read)
+    q_nz = (q_dense.view(torch.int32) != 0).to(torch.uint8)
+    hits = q_nz.gather(1, cand_coords.long().reshape(qn, -1))
+    q_hit = float(hits.reshape(cand_coords.shape)[cand1 < index.n_docs]
+                  .float().mean())
     q_read = {
         "summary_dot": q_bytes((a_in[1], None)),
         "gather_dot": q_bytes((b_in[1], None)),
-        "gather_dot_cand": q_bytes((fwd_coords(cand1),
-                                    cand1 < index.n_docs)),
+        "gather_dot_cand": q_bytes((cand_coords, cand1 < index.n_docs)),
         "router_flat": q_bytes((index.sum_coords[li],
                                 index.block_len[li] > 0)),
         "router_hier": q_bytes((index.sup_coords[lh], sup_alive[lh]),
@@ -1008,28 +1056,29 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
                                 live_b)),
         "refine_round": q_bytes((fwd_coords(cand_f), cand_f < index.n_docs)),
     }
-    # a summary entry costs 4 operations (dequant and multiply-add, two
-    # FMAs), a forward entry 2 (one multiply-add)
-    bounds = {
-        "summary_dot": bound(qn * l_ * s * 5 + qn * l_ * 8 + qn * l_ * 4
-                             + q_read["summary_dot"], 4 * qn * l_ * s),
-        "gather_dot": bound(qn * n_ * nnz * (vb + cb) + qn * n_ * 4
-                            + q_read["gather_dot"], 2 * qn * n_ * nnz),
-        "gather_dot_cand": bound(n_rows * row_b + cand1.nbytes + qn * n_ * 4
-                                 + q_read["gather_dot_cand"],
-                                 2 * n_live * nnz),
-        "router_flat": bound(
+    # (bytes, operations) each kernel must move and do: a summary entry
+    # costs 4 operations (dequant and multiply-add, two FMAs), a forward
+    # entry 2 (one multiply-add)
+    work = {
+        "summary_dot": (qn * l_ * s * 5 + qn * l_ * 8 + qn * l_ * 4
+                        + q_read["summary_dot"], 4 * qn * l_ * s),
+        "gather_dot": (qn * n_ * nnz * (vb + cb) + qn * n_ * 4
+                       + q_read["gather_dot"], 2 * qn * n_ * nnz),
+        "gather_dot_cand": (n_rows * row_b + cand1.nbytes + qn * n_ * 4
+                            + q_read["gather_dot_cand"], 2 * n_live * nnz),
+        "router_flat": (
             lists.nbytes + lists_d.numel() * nb * 4 + rows_d * (s * 5 + 8)
             + qn * CUT * nb * 4 + q_read["router_flat"], 4 * alive_d * s),
-        "router_hier": bound(
+        "router_hier": (
             lists_h.nbytes + lists_e.numel() * nb * 4 + rows_e * (s2 * 5 + 8)
             + n_child * (s * 5 + 8) + qn * m * f * 8 + q_read["router_hier"],
             4 * (alive_e * s2 + int(live_b.sum()) * s)),
-        "refine_round": bound(
+        "refine_round": (
             qn * (k_f + w_f) * 4 + n_top * ph.graph_degree * 4
             + n_front * row_b + qn * k_f * ph.graph_degree * 8
             + q_read["refine_round"], 2 * live_f.numel() * nnz),
     }
+    bounds = {name: bound(*w) for name, w in work.items()}
 
     def library_bag(coords, weights):
         """One ``F.embedding_bag`` (mode="sum", per-sample weights) over
@@ -1088,14 +1137,17 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib_ms))
         log(f"[8 {name}] {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
-            f"{bms / ms:.1%} of it), plain {plain_ms:.3f} ms, library "
+            f"{bms / ms:.1%} of it; {work[name][0] / ms / 1e6:.1f} GB/s of "
+            f"the {work[name][0]} bytes it must move), plain "
+            f"{plain_ms:.3f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; max abs "
             f"err {abs_err:.3e}, rel {rel_err:.3e}; launches flat path "
             f"{flat_launches[name]}, hierarchical path {hier_launches[name]}")
     log(f"  gather_dot_cand: {n_live} live (query, candidate) pairs of "
         f"{cand1.numel()} over {n_rows} distinct documents (the rows its "
         f"bound counts), {int(tiles.sum())} of {tiles.numel()} tiles "
-        "processed")
+        f"processed; {q_hit:.4f} of its q lookups hit a non-zero of the "
+        "query")
     log(f"  router_flat: {lists_d.numel()} distinct probed lists with "
         f"{rows_d} live block summaries (the rows its bound counts), "
         f"{alive_d} live (query, block) rows of {qn * CUT * nb}; "
@@ -1151,6 +1203,14 @@ def main() -> int:
             if any(w in line for w in ("registers", "smem", "spill",
                                        "Compiling")):
                 log(f"  {name}: {line.strip()}")
+    from repro_torch.kernels.flash_attention.ops import wgmma_config
+    for line in ptxas_lines("\n".join(reports.values())):
+        log(f"  [redesigned] {line}")
+    for d in (128, 64):
+        log(f"  [redesigned] fa_wgmma_kernel<D {d}> as built: "
+            + ", ".join(f"{k} {v}" for k, v in wgmma_config(d).items()))
+    log("  [redesigned] gather_dot_cand dynamic shared memory (the q "
+        f"bitmap): {-(-DIM // 32) * 4} B at d = {DIM}")
 
     # ---- 3. kernels against plain, synthetic inputs at the slices' shapes
     gen = torch.Generator(device=dev).manual_seed(args.seed)

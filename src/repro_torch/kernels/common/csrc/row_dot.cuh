@@ -12,8 +12,7 @@
 // a summary or document row scores bitwise the same in each of them: the
 // unfused stages (fuse level 0), the candidate-driven scorer (level 1)
 // and the fused router and refine kernels (level 2) agree to the bit.
-// The q gather goes through the read-only path (__ldg); q_dense lives in
-// L2 at the query path's shapes.
+// The q lookup goes through the read-only path (__ldg).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,25 +32,82 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// <q_row, row> for one row of n entries; every lane of the warp returns
-// the sum. C is int32_t or uint16_t, V float, __nv_bfloat16 or uint8_t.
+// q_row[c] read from L2 (q_dense lives there at the query path's shapes).
+struct QRow {
+  const float* __restrict__ q;
+  __device__ __forceinline__ float operator()(int c) const {
+    return __ldg(q + c);
+  }
+};
+
+// <q_row, row_r> for R rows of n entries each, into out[r]; every lane of
+// the warp returns the sums. C is int32_t or uint16_t, V float,
+// __nv_bfloat16 or uint8_t; qv(c) returns q_row[c] (QRow, or a lookup
+// that returns exactly q_row[c] in another way). The loop takes the
+// entries in batches of K per lane: the batch's coords and values of all
+// R rows are loaded, then their q lookups issued, then summed, so a warp
+// keeps K * R loads in flight (the candidate scorer runs R = 2, K = 4);
+// each row is still summed in the one order above, whatever R and the
+// lookup are.
+template <int R, int K, typename C, typename V, bool kQuant, typename Q>
+__device__ __forceinline__ void row_dots(const Q& qv, const C* const* c,
+                                         const V* const* v, int n,
+                                         const float* scale,
+                                         const float* zero, int lane,
+                                         float* out) {
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+  for (int j0 = lane; j0 < n; j0 += 32 * K) {
+    // the batch's coords and values of all R rows, then their q lookups,
+    // then the sums in entry order
+    int col[K][R];
+    float x[K][R], qx[K][R];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = j0 + 32 * k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        col[k][r] = 0;
+        x[k][r] = 0.0f;
+        if (j < n) {
+          col[k][r] = (int)c[r][j];
+          if constexpr (kQuant) {
+            const unsigned lv = v[r][j];
+            x[k][r] = lv ? (float(lv) - 1.0f) * scale[r] + zero[r] : 0.0f;
+          } else {
+            x[k][r] = to_float(v[r][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        qx[k][r] = j0 + 32 * k < n ? qv(col[k][r]) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (j0 + 32 * k < n)
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] += qx[k][r] * x[k][r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = warp_sum(acc[r]);
+}
+
+// <q_row, row> for one row of n entries (row_dots with R = K = 1, QRow).
 template <typename C, typename V, bool kQuant>
 __device__ __forceinline__ float row_dot(const float* __restrict__ qrow,
                                          const C* __restrict__ c,
                                          const V* __restrict__ v, int n,
                                          float scale, float zero, int lane) {
-  float acc = 0.0f;
-  for (int j = lane; j < n; j += 32) {
-    float x;
-    if constexpr (kQuant) {
-      const unsigned lv = v[j];
-      x = lv ? (float(lv) - 1.0f) * scale + zero : 0.0f;
-    } else {
-      x = to_float(v[j]);
-    }
-    acc += __ldg(qrow + (int)c[j]) * x;
-  }
-  return warp_sum(acc);
+  const C* cs[1] = {c};
+  const V* vs[1] = {v};
+  float out[1];
+  row_dots<1, 1, C, V, kQuant>(QRow{qrow}, cs, vs, n, &scale, &zero, lane,
+                               out);
+  return out[0];
 }
 
 }  // namespace seismic

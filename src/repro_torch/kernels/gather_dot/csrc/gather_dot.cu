@@ -21,17 +21,27 @@
 // distinct live document (a document that several queries share is read
 // once), plus the ids, q and the output.
 //
-// Design, simple and right first: one warp per output element, lanes
-// striding nnz (coalesced coords and values), q gathered through __ldg from
-// L2 (q_dense is 31 MB at Q = 256), a warp-shuffle tree, lane 0 stores.
-// Both kernels use the shared row dot of row_dot.cuh, as the fused refine
-// kernel does, so for the same row they give bitwise the same score: the
-// fused and unfused scorer and refine paths agree exactly.
-// The candidate kernel's block is one tile of tile_n candidates of one
-// query (tile_n = ops.CAND_TILE_N = 32: 8 warps, 4 candidates each);
-// __syncthreads_or over the tile's ids is the skip predicate that
-// cand_tiles_processed (ops.py) mirrors. No launch allocates; each runs on
-// the caller's stream and its C entry point returns cudaGetLastError().
+// Design. The batch kernel: one warp per output element, lanes striding
+// nnz (coalesced coords and values), q gathered through __ldg from L2
+// (q_dense is 31 MB at Q = 256), a warp-shuffle tree, lane 0 stores.
+// The candidate kernel is latency-bound if each warp walks its rows one
+// after another (id, then the row, then q at the row's coordinates in
+// L2, then the shuffles, then the next row: 24 % of the byte bound). Its
+// block is one tile of tile_n candidates of one query (ops.CAND_TILE_N =
+// 768), the blocks ordered tile index first: the 256 threads read the
+// tile's ids into shared memory at once, __syncthreads_or over them is
+// the skip predicate that cand_tiles_processed (ops.py) mirrors, and the
+// block then marks the query's non-zeros in a shared-memory bitmap (one
+// coalesced pass over q_dense's row; d / 8 bytes), so that a coordinate
+// the query lacks (89 % of the lookups at the MS MARCO shapes) costs no
+// L2 sector: it contributes q_dense's own +0.0. Each warp scores R = 2
+// candidates at once, their coords and values loaded 4 entries per lane
+// ahead of the lookups (row_dots). Both kernels use the shared row dot
+// of row_dot.cuh, as the fused router and refine kernels do, so for the
+// same row they give bitwise the same score: the fused and unfused
+// scorer and refine paths agree exactly. No launch allocates; each runs
+// on the caller's stream and its C entry point returns
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,8 +52,12 @@
 namespace {
 
 constexpr int kWarps = 8;       // warps per 256-thread block
+constexpr int kCandMaxTile = 1024;    // candidate ids a block holds
+constexpr int kCandRows = 2;          // candidate rows per warp at once
+constexpr int kCandBatch = 4;         // entries per lane and row per batch
 
 using seismic::row_dot;
+using seismic::row_dots;
 
 template <typename C, typename V, bool kQuant>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -68,6 +82,16 @@ gather_dot_batch_kernel(const float* __restrict__ q,
   if (lane == 0) out[row] = r;
 }
 
+// q_row[c] for a row whose non-zeros (any bit pattern but +0.0) bits
+// marks: a miss is exactly q_dense's +0.0, without a trip to L2.
+struct QMasked {
+  const float* __restrict__ q;
+  const uint32_t* bits;           // shared memory, one bit per coordinate
+  __device__ __forceinline__ float operator()(int c) const {
+    return (bits[c >> 5] >> (c & 31)) & 1u ? __ldg(q + c) : 0.0f;
+  }
+};
+
 template <typename C, typename V, bool kQuant>
 __global__ void __launch_bounds__(kWarps * 32)
 gather_dot_cand_kernel(const float* __restrict__ q,
@@ -78,32 +102,76 @@ gather_dot_cand_kernel(const float* __restrict__ q,
                        const float* __restrict__ fwd_zero,
                        float* __restrict__ out, int n_cand, int tile_n,
                        int tiles_per_row, int n_docs, int nnz, int d) {
-  const int qi = blockIdx.x / tiles_per_row;
-  const int n0 = (blockIdx.x % tiles_per_row) * tile_n;
+  __shared__ int ids[kCandMaxTile];
+  extern __shared__ uint32_t bits[];      // ceil(d / 32) words
+  // tile index major: the blocks that run together hold one tile of
+  // many queries, whose sorted ids span similar documents
+  const int n_q = gridDim.x / tiles_per_row;
+  const int qi = blockIdx.x % n_q;
+  const int n0 = (blockIdx.x / n_q) * tile_n;
   const long long base = (long long)qi * n_cand;
-  const int t = threadIdx.x;
-  const bool mine = t < tile_n && n0 + t < n_cand;
-  const int live = mine && cand[base + n0 + t] < n_docs;
-  if (!__syncthreads_or(live)) {         // all-sentinel tile: skip
-    if (mine) out[base + n0 + t] = -INFINITY;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int tile = min(tile_n, n_cand - n0);
+  int any = 0;
+  for (int i = t; i < tile_n; i += kWarps * 32) {
+    const int id = i < tile ? cand[base + n0 + i] : n_docs;
+    ids[i] = id;
+    any |= id < n_docs;
+  }
+  if (!__syncthreads_or(any)) {           // all-sentinel tile: skip
+    for (int i = t; i < tile; i += kWarps * 32) out[base + n0 + i] = -INFINITY;
     return;
   }
-  const int lane = t & 31;
   const float* qrow = q + (long long)qi * d;
-  for (int k = t >> 5; k < tile_n && n0 + k < n_cand; k += kWarps) {
-    const int id = cand[base + n0 + k];
-    float r = -INFINITY;
-    if (id < n_docs) {
-      const long long doc = id < 0 ? 0 : id;
-      float sc = 0.0f, z = 0.0f;
-      if constexpr (kQuant) {
-        sc = fwd_scale[doc];
-        z = fwd_zero[doc];
-      }
-      r = row_dot<C, V, kQuant>(qrow, fwd_coords + doc * nnz,
-                                fwd_vals + doc * nnz, nnz, sc, z, lane);
+  constexpr int U = 16;    // q_row's non-zeros, U words per warp at once
+  for (int w0 = warp * U; w0 * 32 < d; w0 += kWarps * U) {
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = (w0 + u) * 32 + lane;
+      x[u] = c < d ? __ldg(qrow + c) : 0.0f;
     }
-    if (lane == 0) out[base + n0 + k] = r;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint32_t m =
+          __ballot_sync(0xffffffffu, __float_as_uint(x[u]) != 0u);
+      if (lane == 0 && (w0 + u) * 32 < d) bits[w0 + u] = m;
+    }
+  }
+  __syncthreads();
+  // warp w scores candidates w R .. w R + R - 1 of each kWarps R (a
+  // group) together, a sentinel's score -inf; a group with no live
+  // candidate reads nothing
+  constexpr int R = kCandRows;
+  const int first = warp * R, step = kWarps * R;
+  const int n_groups = first < tile ? (tile - first + step - 1) / step : 0;
+  float sc[R], z[R], r[R];
+  for (int g = 0; g < n_groups; ++g) {
+    const int k0 = first + g * step;
+    const C* c[R];
+    const V* v[R];
+    bool alive[R], live_any = false;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int id = k0 + i < tile ? ids[k0 + i] : n_docs;
+      alive[i] = id < n_docs;
+      live_any |= alive[i];
+      const long long doc = alive[i] && id > 0 ? id : 0;
+      c[i] = fwd_coords + doc * nnz;
+      v[i] = fwd_vals + doc * nnz;
+      sc[i] = z[i] = 0.0f;
+      if constexpr (kQuant) {
+        sc[i] = fwd_scale[doc];
+        z[i] = fwd_zero[doc];
+      }
+    }
+    if (live_any)
+      row_dots<R, kCandBatch, C, V, kQuant>(QMasked{qrow, bits}, c, v, nnz,
+                                            sc, z, lane, r);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (lane == i && k0 + i < tile)
+        out[base + n0 + k0 + i] = alive[i] ? r[i] : -INFINITY;
   }
 }
 
@@ -127,8 +195,15 @@ int launch_cand(const float* q, const int32_t* cand, const void* fwd_coords,
                 int tile_n, int n_docs, int nnz, int d, cudaStream_t stream) {
   const int tiles = (n_cand + tile_n - 1) / tile_n;
   const long long blocks = (long long)Q * tiles;
-  gather_dot_cand_kernel<C, V, kQuant><<<(unsigned)blocks, kWarps * 32, 0,
-                                         stream>>>(
+  const int smem = (d + 31) / 32 * 4;     // the q bitmap
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gather_dot_cand_kernel<C, V, kQuant>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  gather_dot_cand_kernel<C, V, kQuant><<<(unsigned)blocks, kWarps * 32,
+                                         smem, stream>>>(
       q, cand, static_cast<const C*>(fwd_coords),
       static_cast<const V*>(fwd_vals), fwd_scale, fwd_zero, out, n_cand,
       tile_n, tiles, n_docs, nnz, d);
@@ -171,8 +246,8 @@ extern "C" int gather_dot_cand_launch(const float* q, const int32_t* cand,
                                       int n_docs, int nnz, int d,
                                       int coord_kind, int val_kind,
                                       cudaStream_t stream) {
-  // tile_n in [1, 256]: one thread of the block reads each tile id
-  if (tile_n < 1 || tile_n > kWarps * 32) return (int)cudaErrorInvalidValue;
+  // tile_n in [1, kCandMaxTile]: the block holds the tile's ids
+  if (tile_n < 1 || tile_n > kCandMaxTile) return (int)cudaErrorInvalidValue;
   GATHER_DOT_DISPATCH(launch_cand, q, cand, fwd_coords, fwd_vals, fwd_scale,
                       fwd_zero, out, Q, n_cand, tile_n, n_docs, nnz, d,
                       stream)

@@ -25,10 +25,15 @@ from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
 from repro_torch.kernels.runtime import require
 
 # The candidate kernel's tile, defined here only: one thread block (256
-# threads) scores CAND_TILE_N <= 256 candidates of CAND_TILE_Q query, and
-# skips them all when every id is a sentinel.
+# threads) scores CAND_TILE_N <= 1024 candidates of CAND_TILE_Q query, and
+# skips them all when every id is a sentinel. Larger tiles amortise the
+# block's pass over its query's row of q_dense, smaller ones balance the
+# tail (768 was the fastest of 256-1024 on an H100, PERF.md).
 CAND_TILE_Q = 1
-CAND_TILE_N = 32
+CAND_TILE_N = 768
+# The block's bitmap of its query's non-zeros, d / 8 bytes of shared
+# memory beside the tile's ids, caps the dimension the kernel takes.
+CAND_MAX_DIM = 220 * 1024 * 8
 
 _COORD_KIND = {torch.int32: 0, torch.uint16: 1}
 _VAL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -126,6 +131,9 @@ def gather_dot_cand_batch(q_dense: torch.Tensor, cand: torch.Tensor,
         return gather_dot_cand_ref(q_dense, cand, fwd_coords, fwd_vals,
                                    fwd_scale, fwd_zero, n_docs)
     require(cand.dtype == torch.int32, "gather_dot_cand: cand must be int32")
+    require(q_dense.shape[1] <= CAND_MAX_DIM,
+            f"gather_dot_cand: dimension {q_dense.shape[1]} beyond the "
+            f"kernel's {CAND_MAX_DIM}")
     _contiguous("gather_dot_cand", q_dense, cand, fwd_coords, fwd_vals,
                 fwd_scale, fwd_zero)
     out = torch.empty((qn, c), dtype=torch.float32, device=q_dense.device)

@@ -19,6 +19,8 @@ the card and skip here (``python -m pytest -q -m gpu
 conftest and the JAX reference are not needed there, and JAX may be
 absent, in which case only the ``gpu`` tests can run).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -38,8 +40,11 @@ try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
 except ModuleNotFoundError:
     jnp = None
 from repro_torch.kernels import runtime
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                     flash_attention_ref)
+from repro_torch.kernels.flash_attention.ops import (TMA_BOX_COLS, TMA_ROWS,
+                                                     flash_attention,
+                                                     flash_attention_ref,
+                                                     route, tma_geometry,
+                                                     wgmma_config)
 from repro_torch.kernels.gather_dot.ops import (CAND_TILE_N, CAND_TILE_Q,
                                                 cand_tiles_processed,
                                                 gather_dot_batch,
@@ -130,6 +135,23 @@ def cand_inputs(qn, c, n_docs, seed=0):
         live = 0 if q % 3 == 0 else int(rng.integers(1, min(c, n_docs) + 1))
         cand[q, :live] = np.sort(rng.choice(n_docs, live, replace=False))
     return cand
+
+
+def sparse_queries(qn, d, seed=0):
+    """(q_dense [qn, d], pool): queries of 48 non-zeros each, as
+    prep_queries makes them, drawn from a pool of 512 coordinates that
+    holds the whole last partial 32-coordinate word of d; one non-zero of
+    each query is -0.0. Rows over the pool hit about one lookup in ten."""
+    rng = np.random.default_rng(seed)
+    tail = np.arange(d - d % 32, d)
+    pool = np.concatenate([np.sort(rng.choice(d - d % 32, 512 - tail.size,
+                                              replace=False)), tail])
+    q = np.zeros((qn, d), np.float32)
+    for i in range(qn):
+        cols = rng.choice(pool, 48, replace=False)
+        q[i, cols] = rng.lognormal(0, 1, cols.size)
+        q[i, cols[0]] = -0.0
+    return q, pool.astype(np.int32)
 
 
 @pytest.mark.parametrize("qn,l,s,d", [
@@ -459,6 +481,59 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
     assert flash_attention(q5, k5, v5).shape == (1, 2, 8, 24)
 
 
+def test_flash_attention_route_and_tiles():
+    """bf16 heads of 64 and 128 take the TMA + wgmma kernel in 128-row q
+    tiles; bf16 16/32 the mma.sync kernel and float32 the FMA kernel, in
+    64-row tiles."""
+    assert route(torch.bfloat16, 128) == ("wgmma", 128)
+    assert route(torch.bfloat16, 64) == ("wgmma", 128)
+    assert route(torch.bfloat16, 32) == ("mma_sync", 64)
+    assert route(torch.bfloat16, 16) == ("mma_sync", 64)
+    assert route(torch.float32, 128) == ("fma", 64)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 100, 8, 128), (1, 8192, 32, 128),
+                                     (3, 77, 2, 64)])
+def test_tma_geometry_reads_projection_views_in_place(b, s, h, d):
+    """A [B, S, H, D] projection viewed as [B, H, S, D]: dims (D, S, H, B),
+    byte strides of S (H D 2), H (D 2) and B (S H D 2), boxes of 64
+    columns x 128 rows; a contiguous copy has the dense strides."""
+    x = torch.zeros(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    geo = tma_geometry(x)
+    assert geo == (d, s, h, b, h * d * 2, d * 2, s * h * d * 2, 64, 128, 1, 1)
+    assert tma_geometry(x.contiguous()) == (
+        d, s, h, b, d * 2, s * d * 2, h * s * d * 2, 64, 128, 1, 1)
+
+
+def test_tma_geometry_replaces_a_size_one_dims_stride():
+    """A size-1 dim addresses nothing: its stride (here 1 element, not a
+    multiple of 16 bytes) is replaced by the dense one, here and in the
+    wrapper's in-place check."""
+    x = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16).transpose(0, 2)
+    assert x.shape == (1, 4, 1, 64) and x.stride(0) == 64
+    weird = torch.zeros(4, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 4, 1, 64), (1, 64, 1, 1))
+    assert tma_geometry(weird)[4:7] == (128, 128, 512)
+
+
+def test_tma_geometry_raises_on_strides_tma_cannot_take():
+    base = torch.zeros(2, 4, 100, 136, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tma_geometry(base[..., :72])                 # D 72
+    assert tma_geometry(base[..., 8:72])[4] == 272   # 272-byte rows: ok
+    rows = torch.zeros(2, 4, 100, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="byte strides"):
+        tma_geometry(rows)                           # 136-byte rows
+    with pytest.raises(ValueError, match="contiguous"):
+        tma_geometry(torch.zeros(2, 4, 64, 100,
+                                 dtype=torch.bfloat16).transpose(2, 3))
+    flat = torch.zeros(2 * 4 * 100 * 64 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tma_geometry(flat[1:1 + 2 * 4 * 100 * 64].view(2, 4, 100, 64))
+    with pytest.raises(ValueError, match="bf16"):
+        tma_geometry(torch.zeros(2, 4, 100, 64))
+
+
 # ----------------------------------------------------------- on the card
 
 def _cuda():
@@ -637,3 +712,125 @@ def test_flash_attention_kernel_reads_strided_projections_on_card():
     bad = torch.zeros(1, 2, 8, 24, device=dev)
     with pytest.raises(ValueError, match="head dim 24"):
         flash_attention(bad, bad, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_wgmma_build_and_box_on_card(dh):
+    """The kernel as built: its tiles and box are the wrapper's, its
+    dynamic shared memory fits a block of this card; a launch with any
+    other box is refused (it would never complete its barriers) and
+    counts nothing."""
+    from repro_torch.kernels.flash_attention import ops
+    dev = _cuda()
+    cfg = wgmma_config(dh)
+    assert (cfg["block_q"], cfg["block_k"], cfg["box_cols"]) == (
+        TMA_ROWS, TMA_ROWS, TMA_BOX_COLS)
+    assert cfg["threads"] == 3 * 128
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert 0 < cfg["smem_bytes"] <= optin
+    q = torch.zeros(1, 2, 200, dh, device=dev, dtype=torch.bfloat16)
+    o = torch.empty_like(q)
+    for rows in (64, 256):
+        geo = [x for _ in range(3) for x in tma_geometry(q)]
+        for t in range(3):
+            geo[11 * t + 8] = rows
+        geometry = (ctypes.c_longlong * 33)(*geo)
+        o_strides = (ctypes.c_longlong * 3)(*q.stride()[:3])
+        err = ops._lib().flash_attention_wgmma_launch(
+            *(runtime.ptr(t) for t in (q, q, q, o)), 1, 2, 2, 200, 200, dh,
+            ctypes.cast(geometry, ctypes.c_void_p),
+            ctypes.cast(o_strides, ctypes.c_void_p), dh ** -0.5, 1, 0,
+            runtime.stream_of(q))
+        assert err == 1                     # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+
+
+WGMMA_CASES = {  # B, Hq, Hkv, Sq, Sk, causal, window
+    # full, diagonal and (for the second warpgroup of a block) empty key
+    # tiles in one launch; Sq not a multiple of the 128-row tiles
+    "causal-long": (1, 8, 2, 1000, 1000, True, None),
+    # a window that starts and ends inside a key tile, narrower than a
+    # consumer warpgroup's 64 rows (its first tile is empty for one of them)
+    "window-40": (2, 4, 4, 700, 700, True, 40),
+    "window-200": (1, 4, 1, 517, 517, True, 200),
+    # Sq != Sk, both ragged
+    "sq-lt-sk": (1, 4, 1, 300, 520, False, None),
+    "sq-gt-sk-causal": (2, 4, 4, 333, 150, True, None),
+    # rows q >= Sk + window - 1 have no live key: they are 0
+    "no-live-key": (1, 4, 4, 300, 100, False, 60),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_flash_attention_wgmma_kernel_edges_on_card(dh, case):
+    """The TMA + wgmma kernel (bf16, D 64 and 128) against plain at the
+    edges of its 128-row q tiles and 128-key tiles, group sizes 1 and 4,
+    on [B, S, H, D] projections read in place as [B, H, S, D] views
+    (``assert_attention_close``)."""
+    dev = _cuda()
+    b, hq, hkv, sq, sk, causal, window = WGMMA_CASES[case]
+    assert route(torch.bfloat16, dh)[0] == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(dh + sq)
+    q = torch.randn(b, sq, hq, dh, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, sk, hkv, dh, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, sk, hkv, dh, generator=g, device=dev).bfloat16()
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    before = runtime.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["flash_attention"] == before + 1
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    want = flash_attention_ref(qc, kc, vc, causal=causal, window=window)
+    assert_attention_close(got, want, qc, kc, vc, causal=causal,
+                           window=window)
+    if case == "no-live-key":
+        assert torch.count_nonzero(got[:, :, sk + window - 1:]) == 0
+        assert bool((got[:, :, :sk + window - 1].abs().sum(-1) > 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coord", ["int32", "uint16"])
+@pytest.mark.parametrize("kind", VAL_KINDS)
+def test_gather_dot_cand_bitwise_equals_gather_dot_on_card(kind, coord):
+    """gather_dot_cand scores a candidate's row bitwise as gather_dot scores
+    the same row gathered: C = 1000 is not a multiple of the tile, every
+    third query is all sentinels (whole tiles skipped), and the live
+    prefixes end inside tiles. The queries are sparse (``sparse_queries``),
+    so most lookups miss the kernel's bitmap, some hit it in the last
+    partial word of d = 30522, and a -0.0 is read as the non-zero bit
+    pattern it is."""
+    dev = _cuda()
+    n_docs, d = 5000, 30522
+    q, pool = sparse_queries(12, d, seed=4)
+    q = _t(q).to(dev)
+    plane = [None if x is None else x.to(dev)
+             for x in as_torch(*row_inputs((n_docs, 128), pool.size, kind,
+                                           5))]
+    plane[0] = _t(pool).to(dev)[plane[0].long()]    # rows over the pool
+    c16 = plane[0].to(torch.int32).to(torch.int16).view(torch.uint16)
+    plane[0] = c16 if coord == "uint16" else c16.to(torch.int32)
+    cand = _t(cand_inputs(12, 1000, n_docs, seed=6)).to(dev)
+    before = runtime.LAUNCHES["gather_dot_cand"]
+    got = gather_dot_cand_batch(q, cand, *plane, n_docs=n_docs)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["gather_dot_cand"] == before + 1
+    live = cand < n_docs
+    assert bool(torch.isneginf(got[~live]).all())
+    idx = cand.long().clamp(max=n_docs - 1)
+    fs, fz = plane[2:]
+    batch = gather_dot_batch(q, take_rows(plane[0], idx), plane[1][idx],
+                             None if fs is None else fs[idx],
+                             None if fz is None else fz[idx])
+    assert torch.equal(got[live], batch[live])
+    assert_scores(got.cpu().numpy(),
+                  gather_dot_cand_ref(q, cand, *plane, n_docs).cpu())
+    # the bitmap's hits, its misses and its last word all occur
+    c = plane[0].long()[cand.long().clamp(max=n_docs - 1)][live]
+    qi = live.nonzero()[:, 0]
+    hit = q[qi[:, None], c] != 0
+    assert 0.02 < float(hit.float().mean()) < 0.5
+    assert bool(hit[c >= d - d % 32].any())
+    assert bool((torch.signbit(q) & (q == 0))[qi[:, None], c].any())

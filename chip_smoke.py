@@ -10,8 +10,10 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` each, in parallel) and print ptxas' register/spill report,
    and for the redesigned kernels (flash_attention's TMA + wgmma kernel,
-   gather_dot_cand) one line per variant with registers, shared memory
-   (static, and the dynamic amount the launch requests) and spills;
+   gather_dot_cand, summary_dot's and router_hier's bulk-copy kernels)
+   one line per variant with registers, static shared memory and spills,
+   and the dynamic shared memory each launch requests at the main path's
+   shapes;
 3. each kernel against its plain PyTorch version at the slices' shapes,
    on seeded inputs: summary_dot (Q = 256, L = 4940, S = 96), gather_dot
    (N = 4096 and 512, nnz = 128) and gather_dot_cand in f32, bf16 and
@@ -46,8 +48,11 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
 8. each kernel timed on its main path's own inputs with CUDA events
    (L2 flushed before every launch) beside its bound, the rate it
    reaches on the bytes the bound counts, its plain version and one
-   PyTorch library call where one computes the same function;
-   then the index and the graph are freed;
+   PyTorch library call where one computes the same function; the share
+   of summary_dot's, gather_dot_cand's and router_hier's q lookups that
+   hit a non-zero of the query (the rest their bitmaps answer);
+   router_hier at 1, 2, 4 and 8 blocks per query (cluster sizes), at 256
+   and 32 queries; then the index and the graph are freed;
 9. flash_attention against its plain version on seeded inputs: the
    llama3-8b prefill shape (B 1, Hq 32, Hkv 8, S 8192, D 128, bf16,
    causal), float32 at a ragged S = 200, a window of 64, causal=False,
@@ -123,6 +128,11 @@ RTOL, ATOL = 2e-5, 1e-6
 # its two query batches; router L = cut * n_blocks = 10 * 494
 DIM, DOC_NNZ, QUERY_NNZ = 30522, 128, 48
 Q_ONLINE, Q_BATCH, CUT, BLOCK_BUDGET = 256, 4096, 10, 64
+# an online server that answers each request as it arrives, one query
+# padded to a batch of 8, as the serving benchmark of the JAX package
+# (benchmarks/serving_load.py, its closed-loop and replica rows) serves;
+# router_hier then runs a cluster of blocks per query
+ONLINE_BATCH, ONLINE_REQUESTS = 8, 16
 INDEX = dict(lam=6000, beta=400, alpha=0.4, block_cap=64, summary_nnz=96,
              fwd_dtype="bfloat16")
 ROUTER_L, SUMMARY_S, SCORER_N, STAGE1_N = 4940, 96, 4096, 512
@@ -210,8 +220,9 @@ class Bench:
 
 def ptxas_lines(report: str) -> list[str]:
     """One line per variant of the redesigned kernels (flash_attention's
-    TMA + wgmma kernel, gather_dot_cand's kernel) from ptxas' report:
-    registers at launch, static shared memory, spill stores and loads."""
+    TMA + wgmma kernel, gather_dot_cand's, summary_dot's and
+    router_hier's kernels) from ptxas' report: registers at launch,
+    static shared memory, spill stores and loads."""
     lines, name, info = [], None, {}
     types = {"i": "int32", "t": "uint16", "f": "f32", "h": "u8",
              "13__nv_bfloat16": "bf16"}
@@ -227,11 +238,21 @@ def ptxas_lines(report: str) -> list[str]:
             fa = re.search(r"fa_wgmma_kernelILi(\d+)E", mangled)
             cand = re.search(r"gather_dot_cand_kernelI(i|t)"
                              r"(f|h|13__nv_bfloat16)Lb\dE", mangled)
+            summ = re.search(r"summary_dot_kernelILi(\d+)ELi(\d+)E", mangled)
+            hier = re.search(r"router_hier_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                             r"ELi(\d+)E", mangled)
             if fa:
                 name = f"fa_wgmma_kernel<D {fa.group(1)}>"
             elif cand:
                 name = (f"gather_dot_cand_kernel<{types[cand.group(1)]} "
                         f"coords, {types[cand.group(2)]} values>")
+            elif summ:
+                name = (f"summary_dot_kernel<{summ.group(1)} rows per warp, "
+                        f"{summ.group(2)} entries per lane ahead>")
+            elif hier:
+                name = (f"router_hier_kernel<stage A {hier.group(1)} rows "
+                        f"per warp, {hier.group(2)} entries ahead; stage B "
+                        f"{hier.group(3)} rows, {hier.group(4)} entries>")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -257,9 +278,11 @@ def compare(torch, name, got, want) -> tuple[float, float]:
     abs_err = float(err.max()) if err.numel() else 0.0
     rel_err = float((err / w.abs().clamp_min(1e-30)).max()) \
         if err.numel() else 0.0
-    if bool((err > RTOL * w.abs() + ATOL).any()):
+    beyond = int((err > RTOL * w.abs() + ATOL).sum())
+    if beyond:
         raise AssertionError(f"{name}: max abs err {abs_err:.3e}, max rel "
-                             f"err {rel_err:.3e} beyond rtol={RTOL} "
+                             f"err {rel_err:.3e}; {beyond} of {err.numel()} "
+                             f"finite elements beyond rtol={RTOL} "
                              f"atol={ATOL}")
     return abs_err, rel_err
 
@@ -298,6 +321,22 @@ def synthetic_phase(torch, dev, gen) -> None:
     e = compare(torch, "summary_dot", summary_dot_batch(*args),
                 summary_dot_batch_ref(*args))
     log(f"  summary_dot  Q={qn} L={ln} S={s}: max abs {e[0]:.3e} "
+        f"rel {e[1]:.3e}")
+    # the superblock tier's shape (the long-row variant), from a generator
+    # of its own so the other checks keep their inputs
+    g2 = torch.Generator(device=dev).manual_seed(gen.initial_seed() + 1)
+    ls, s2 = TUNED["cut"] * N_SUPER, SUPER_S
+    lv = torch.randint(0, 256, (qn, ls, s2), generator=g2, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    lv[0, :ls // 5] = 0                                   # all-padding rows
+    lv[1:, ls - 3:] = 0
+    sargs = (q, torch.randint(0, d, (qn, ls, s2), generator=g2, device=dev,
+                              dtype=torch.int32), lv,
+             torch.rand((qn, ls), generator=g2, device=dev) * 0.01,
+             torch.rand((qn, ls), generator=g2, device=dev))
+    e = compare(torch, "summary_dot superblock tier",
+                summary_dot_batch(*sargs), summary_dot_batch_ref(*sargs))
+    log(f"  summary_dot  Q={qn} L={ls} S={s2}: max abs {e[0]:.3e} "
         f"rel {e[1]:.3e}")
 
     def planes(shape, kind):
@@ -371,8 +410,11 @@ def fused_synthetic_phase(torch, dev, gen) -> None:
     rb, flat = router_hier_batch(*hargs, m=m, fanout=FANOUT)
     want_rb, want_flat = router_hier_ref(*hargs, m=m, fanout=FANOUT)
     if not torch.equal(flat, want_flat):
-        raise AssertionError("router_hier: flat positions differ from the "
-                             "plain version")
+        diff = flat != want_flat
+        raise AssertionError(
+            f"router_hier: flat positions differ from the plain version at "
+            f"{int(diff.sum())} of {diff.numel()} positions in "
+            f"{int(diff.any(1).sum())} of {qn} queries")
     e = compare(torch, "router_hier", rb, want_rb)
     log(f"  router_hier  Q={qn} cut={TUNED['cut']} ns={N_SUPER} "
         f"S2={SUPER_S} m={m} f={FANOUT}: flat positions equal, max abs "
@@ -466,14 +508,28 @@ def check_against_plain(torch, label, got, ref, k) -> int:
     return int(diff.any(dim=1).sum())
 
 
+ONLINE = f"online {ONLINE_BATCH}"
+LABELS = ("server 256", ONLINE, "pipeline 4096")
+
+
 def drive(torch, SeismicServer, search_pipeline, index, levels, q256,
           q4096):
-    """Every level's server (256 queries) and pipeline (4096) run three
-    times each -> (last results, ms per run), keyed (level, label)."""
+    """Every level's server (256 queries), online server (ONLINE_REQUESTS
+    requests of one query each, batches of ONLINE_BATCH) and pipeline
+    (4096) run three times each -> (last results, ms per run), keyed
+    (level, label)."""
     results, batch_ms = {}, {}
     for fuse, p in levels.items():
         server = SeismicServer(index, p, max_batch=Q_ONLINE)
+        online = SeismicServer(index, p, max_batch=ONLINE_BATCH)
+
+        def per_request():
+            outs = [online.search(q256[i:i + 1])
+                    for i in range(ONLINE_REQUESTS)]
+            return tuple(torch.cat(parts) for parts in
+                         zip(*map(as_triple, outs)))
         for label, run in (("server 256", lambda: server.search(q256)),
+                           (ONLINE, per_request),
                            ("pipeline 4096",
                             lambda: search_pipeline(index, q4096, p))):
             times = []
@@ -488,8 +544,9 @@ def drive(torch, SeismicServer, search_pipeline, index, levels, q256,
 
 
 def check_levels(torch, name, results, batch_ms, levels) -> None:
-    """Ids, docs_evaluated and scores bitwise equal across the levels."""
-    for label in ("server 256", "pipeline 4096"):
+    """Ids, docs_evaluated and scores bitwise equal across the levels, and
+    the online server's answers bitwise the 256-query server's."""
+    for label in LABELS:
         base = results[0, label]
         for fuse in levels:
             if not same_results(torch, results[fuse, label], base):
@@ -502,6 +559,12 @@ def check_levels(torch, name, results, batch_ms, levels) -> None:
         log(f"  {name} {label}: {times}"
             + f"; ids, docs_evaluated and scores bitwise equal across levels;"
             f" mean docs_evaluated {float(base[2].float().mean()):.1f}")
+    batched = [x[:ONLINE_REQUESTS] for x in results[0, "server 256"]]
+    if not same_results(torch, results[0, ONLINE], batched):
+        raise AssertionError(f"{name}: the online server's answers differ "
+                             "from the 256-query server's")
+    log(f"  {name} {ONLINE}: the {ONLINE_REQUESTS} answers bitwise equal "
+        "to the 256-query server's")
 
 
 def staged_ms(index, p, qs, run_pipeline_staged, split_refine=False) -> str:
@@ -824,7 +887,9 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
         gather_dot_cand_batch, gather_dot_cand_ref)
     from repro_torch.kernels.refine_fused.ops import (refine_round_batch,
                                                       refine_round_ref)
-    from repro_torch.kernels.router_fused.ops import (router_flat_batch,
+    from repro_torch.kernels import row_tiles
+    from repro_torch.kernels.router_fused.ops import (CLUSTER_LAUNCHES,
+                                                      router_flat_batch,
                                                       router_flat_ref,
                                                       router_hier_batch,
                                                       router_hier_ref)
@@ -920,10 +985,18 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     ref_h = search_pipeline(index, q256, plain_h)
     torch.cuda.synchronize()
     runtime.reset_launches()
+    CLUSTER_LAUNCHES.clear()
     results_h, batch_ms_h = drive(torch, SeismicServer, search_pipeline,
                                   index, tuned, q256, q4096)
     hier_launches = dict(runtime.LAUNCHES)
-    log(f"  params {TUNED}; launches {hier_launches}")
+    clusters = dict(sorted(CLUSTER_LAUNCHES.items()))
+    log(f"  params {TUNED}; launches {hier_launches}; router_hier launches "
+        f"by blocks per query {clusters}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c_online = row_tiles.cluster_size(ONLINE_BATCH, sms)
+    if c_online < 2 or not clusters.get(c_online):
+        raise AssertionError(f"router_hier never ran as a cluster of "
+                             f"{c_online} blocks for the online batch")
     for name in ("summary_dot", "gather_dot", "gather_dot_cand",
                  "router_hier", "refine_round"):
         if hier_launches[name] <= 0:
@@ -1039,12 +1112,30 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
                          ids.long().clamp(0, index.n_docs - 1))
 
     cand_coords = fwd_coords(cand1)
-    # the share of gather_dot_cand's q lookups that hit a non-zero of the
-    # query (a set bit of its bitmap; the rest cost no L2 read)
-    q_nz = (q_dense.view(torch.int32) != 0).to(torch.uint8)
-    hits = q_nz.gather(1, cand_coords.long().reshape(qn, -1))
-    q_hit = float(hits.reshape(cand_coords.shape)[cand1 < index.n_docs]
-                  .float().mean())
+
+    def q_hits(qd, *reads) -> float:
+        """The share of a kernel's q lookups (the entries of the rows it
+        reads; reads as in q_bytes) that hit a non-zero of the query, a set
+        bit of its bitmap; the bitmap answers the rest without an L2
+        read."""
+        nz = (qd.view(torch.int32) != 0).to(torch.uint8)
+        n_hit = n = 0
+        for coords, live in reads:
+            c = coords.long().reshape(qn, -1, coords.shape[-1])
+            h = nz.gather(1, c.reshape(qn, -1)).reshape(c.shape)
+            if live is not None:
+                h = h[live.reshape(qn, -1)]
+            n_hit, n = n_hit + int(h.sum()), n + h.numel()
+        return n_hit / n
+
+    q_hit = {
+        "summary_dot": q_hits(q_dense, (a_in[1], None)),
+        "gather_dot_cand": q_hits(q_dense, (cand_coords,
+                                            cand1 < index.n_docs)),
+        "router_hier": q_hits(qh, (index.sup_coords[lh], sup_alive[lh]),
+                              (index.sum_coords.reshape(-1, s)[child.long()],
+                               live_b)),
+    }
     q_read = {
         "summary_dot": q_bytes((a_in[1], None)),
         "gather_dot": q_bytes((b_in[1], None)),
@@ -1117,6 +1208,21 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
         "refine_round": (lambda: refine_kernel()[1],
                          lambda: refine_plain()[1], None),
     }
+    # summary_dot on the hierarchical path's fuse-0 inputs: the superblock
+    # tier [Q, cut * ns, S2] and the children [Q, m * f, S] that
+    # router_hier_ref hands it
+    unfused: list[tuple] = []
+
+    def capture(*a):
+        unfused.append(a)
+        return summary_dot_batch_ref(*a)
+    router_hier_ref(*e_in, m=m, fanout=f, dot=capture)
+    for a, what in zip(unfused, ("superblock tier", "children")):
+        e = compare(torch, f"summary_dot, hierarchical fuse 0 {what}",
+                    summary_dot_batch(*a), summary_dot_batch_ref(*a))
+        log(f"  summary_dot on the hierarchical fuse-0 {what} "
+            f"{list(a[1].shape)}: max abs {e[0]:.3e} rel {e[1]:.3e}")
+    del unfused, a             # 0.5 GB of gathered rows, before the timing
     if not torch.equal(hier_kernel()[1], hier_plain()[1]):
         raise AssertionError("router_hier: flat positions differ from the "
                              "plain version on the main path's inputs")
@@ -1146,8 +1252,10 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     log(f"  gather_dot_cand: {n_live} live (query, candidate) pairs of "
         f"{cand1.numel()} over {n_rows} distinct documents (the rows its "
         f"bound counts), {int(tiles.sum())} of {tiles.numel()} tiles "
-        f"processed; {q_hit:.4f} of its q lookups hit a non-zero of the "
-        "query")
+        "processed")
+    log("  share of q lookups that hit a non-zero of the query (the rest "
+        "the kernel's bitmap answers): " + ", ".join(
+            f"{n} {h:.4f}" for n, h in q_hit.items()))
     log(f"  router_flat: {lists_d.numel()} distinct probed lists with "
         f"{rows_d} live block summaries (the rows its bound counts), "
         f"{alive_d} live (query, block) rows of {qn * CUT * nb}; "
@@ -1160,6 +1268,23 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
         "documents")
     log("  q bytes in the bounds, per kernel (distinct (query, coordinate) "
         "reads): " + ", ".join(f"{n} {b}" for n, b in q_read.items()))
+    # router_hier at every cluster size, at the servers' two batches and
+    # one between them: the wrapper takes the most blocks per query that
+    # still have an SM each (row_tiles.cluster_size)
+    chosen, sweep = row_tiles.cluster_size, []
+    try:
+        for nq in (qn, 32, ONLINE_BATCH):
+            ins = (lists_h[:nq].contiguous(), qh[:nq].contiguous()) + e_in[2:]
+            for c in (1, 2, 4, 8):
+                row_tiles.cluster_size = lambda *_, c=c: c
+                t = bench.ms(lambda: router_hier_batch(*ins, m=m, fanout=f),
+                             iters=10)
+                star = "*" if c == chosen(nq, sms) else ""
+                sweep.append(f"Q {nq} C {c}{star} {t:.4f} ms")
+    finally:
+        row_tiles.cluster_size = chosen
+    log("  router_hier by blocks per query (* the wrapper's choice on "
+        f"{sms} SMs): " + ", ".join(sweep))
     return record
 
 
@@ -1211,6 +1336,31 @@ def main() -> int:
             + ", ".join(f"{k} {v}" for k, v in wgmma_config(d).items()))
     log("  [redesigned] gather_dot_cand dynamic shared memory (the q "
         f"bitmap): {-(-DIM // 32) * 4} B at d = {DIM}")
+    from repro_torch.kernels import row_tiles
+    from repro_torch.kernels.router_fused.ops import hier_geometry
+    from repro_torch.kernels.summary_dot.ops import geometry
+    for what, (ln, s) in (("flat router", (ROUTER_L, SUMMARY_S)),
+                          ("superblock tier", (TUNED["cut"] * N_SUPER,
+                                               SUPER_S)),
+                          ("children", (TUNED["superblock_budget"] * FANOUT,
+                                        SUMMARY_S))):
+        g = geometry(ln, s, DIM)
+        log(f"  [redesigned] summary_dot, {what} (L {ln}, S {s}): dynamic "
+            f"shared memory {g['smem']} B (ring {g['stages']} x "
+            f"{g['stage_bytes']} B of {g['tile_rows']} rows, bitmap "
+            f"{-(-DIM // 32) * 4} B), {g['chunk_rows']} rows a block, "
+            f"{g['rows_per_warp']} rows per warp")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for qn in (ONLINE_BATCH, Q_ONLINE, Q_BATCH):
+        g = hier_geometry(TUNED["cut"], N_SUPER, SUPER_S, SUMMARY_S, FANOUT,
+                          TUNED["superblock_budget"], DIM,
+                          row_tiles.cluster_size(qn, sms))
+        log(f"  [redesigned] router_hier (Q {qn}, cut {TUNED['cut']}, ns "
+            f"{N_SUPER}, S2 {SUPER_S}, S {SUMMARY_S}, fanout {FANOUT}): "
+            f"dynamic shared memory {g['smem']} B (ring {g['stages']} "
+            f"x {g['stage_bytes']} B: {g['tile_a']} superblock rows or "
+            f"{g['segs_b']} superblocks' children), a cluster of "
+            f"{g['cluster']} blocks per query on {sms} SMs")
 
     # ---- 3. kernels against plain, synthetic inputs at the slices' shapes
     gen = torch.Generator(device=dev).manual_seed(args.seed)

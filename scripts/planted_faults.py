@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Check that chip_smoke.py's flash_attention check rejects known faults.
+"""Check that chip_smoke.py's kernel checks reject known faults.
 
     python3 scripts/planted_faults.py
 
 Run from the repository root on a machine with one CUDA device and
 ``nvcc``. For each fault below the script copies ``chip_smoke.py`` and
 ``src/`` into a temporary directory (outside the checkout), plants the
-fault in the copy's bf16 TMA + wgmma kernel, builds it there and runs
-``chip_smoke.flash_check`` (phase 9's check, unchanged). Each fault must
-raise; the script prints the check's message (rows beyond tolerance and
-the worst element's share of its tolerance) and exits non-zero if a
-fault passes.
+fault in the copy's kernel source, builds it there and runs the smoke's
+check of that kernel, unchanged: phase 9's ``chip_smoke.flash_check``
+for flash_attention, phase 3 (``synthetic_phase`` then
+``fused_synthetic_phase``) for the retrieval kernels. Each fault must
+raise; the script prints the check's message (which check, and by how
+much: elements or positions beyond tolerance, the worst error) and
+exits non-zero if a fault passes.
 
-* tile-skip: key tile 16 (keys 2048-2175) is left out in every block
-  with more than 32 key tiles of 128, i.e. for q rows 4096 and up at the
-  8192-token prefill shape;
-* denominator: the softmax denominator is taken 1.1x too large in the
-  same blocks.
+* tile-skip: flash_attention leaves key tile 16 (keys 2048-2175) out in
+  every block with more than 32 key tiles of 128, i.e. for q rows 4096
+  and up at the 8192-token prefill shape;
+* denominator: flash_attention takes the softmax denominator 1.1x too
+  large in the same blocks;
+* bitmap-last-word: summary_dot's q bitmap leaves its last partial word
+  (coordinates 30496-30521 at d = 30522) unset, so those lookups read
+  +0.0;
+* tie-order: router_hier's top-m breaks stage-A score ties by the higher
+  index (lax.top_k takes the lower).
 """
 from __future__ import annotations
 
@@ -27,14 +34,32 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNEL = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+KERNELS = "src/repro_torch/kernels"
+FLASH = f"{KERNELS}/flash_attention/csrc/flash_attention.cu"
+# fault: (source, line to replace, replacement, check)
 FAULTS = {
-    "tile-skip": ("      if (kind != kEmpty) {",
+    "tile-skip": (FLASH, "      if (kind != kEmpty) {",
                   "      if (kind != kEmpty && "
-                  "!(n_tiles > 32 && it == 16)) {"),
-    "denominator": ("      den[r] = l[r] == 0.f ? 1.f : l[r];",
+                  "!(n_tiles > 32 && it == 16)) {", "flash"),
+    "denominator": (FLASH, "      den[r] = l[r] == 0.f ? 1.f : l[r];",
                     "      den[r] = (l[r] == 0.f ? 1.f : l[r]) * "
-                    "(n_tiles > 32 ? 1.1f : 1.f);"),
+                    "(n_tiles > 32 ? 1.1f : 1.f);", "flash"),
+    "bitmap-last-word": (
+        f"{KERNELS}/summary_dot/csrc/summary_dot.cu",
+        "lane, [&](int w, uint32_t m) { bits[w] = m; });",
+        "lane, [&](int w, uint32_t m) { bits[w] = (w + 1) * 32 <= d ? m "
+        ": 0u; });", "phase3"),
+    "tie-order": (f"{KERNELS}/router_fused/csrc/router_fused.cu",
+                  "  return sa > sb || (sa == sb && ia < ib);",
+                  "  return sa > sb || (sa == sb && ia > ib);", "phase3"),
+}
+CHECKS = {
+    "flash": ("['flash_attention']",
+              "chip_smoke.flash_check(torch, dev, gen)"),
+    "phase3": ("['summary_dot', 'gather_dot', 'router_fused', "
+               "'refine_fused']",
+               "chip_smoke.synthetic_phase(torch, dev, gen)\n"
+               "    chip_smoke.fused_synthetic_phase(torch, dev, gen)"),
 }
 CHECK = """
 import sys
@@ -42,13 +67,13 @@ import torch
 sys.path.insert(0, "src")
 import chip_smoke
 from repro_torch.kernels import runtime
-runtime.build_kernels(["flash_attention"])
+runtime.build_kernels({build})
 dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
 try:
-    chip_smoke.flash_check(torch, dev,
-                           torch.Generator(device=dev).manual_seed(0))
+    {check}
 except AssertionError as e:
-    print(f"rejected: {e}")
+    print(f"rejected: {{e}}")
     sys.exit(0)
 print("passed the check")
 sys.exit(1)
@@ -57,20 +82,22 @@ sys.exit(1)
 
 def main() -> int:
     failed = []
-    for name, (old, new) in FAULTS.items():
+    for name, (source, old, new, check) in FAULTS.items():
         with tempfile.TemporaryDirectory(prefix=f"fault-{name}-") as tmp:
             work = Path(tmp)
             shutil.copy(ROOT / "chip_smoke.py", work)
             shutil.copytree(ROOT / "src", work / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
-            kernel = work / KERNEL
+            kernel = work / source
             text = kernel.read_text()
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: the line to change is not in "
-                                   f"{KERNEL} exactly once")
+                                   f"{source} exactly once")
             kernel.write_text(text.replace(old, new))
-            r = subprocess.run([sys.executable, "-c", CHECK], cwd=work,
-                               text=True, capture_output=True, timeout=900)
+            build, call = CHECKS[check]
+            r = subprocess.run(
+                [sys.executable, "-c", CHECK.format(build=build, check=call)],
+                cwd=work, text=True, capture_output=True, timeout=900)
         last = (r.stdout.strip().splitlines() or [r.stderr[-2000:]])[-1]
         print(f"{name}: {last}", flush=True)
         if r.returncode != 0:

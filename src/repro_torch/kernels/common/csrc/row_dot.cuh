@@ -12,7 +12,8 @@
 // a summary or document row scores bitwise the same in each of them: the
 // unfused stages (fuse level 0), the candidate-driven scorer (level 1)
 // and the fused router and refine kernels (level 2) agree to the bit.
-// The q lookup goes through the read-only path (__ldg).
+// The q lookup goes through the read-only path (__ldg); QMasked answers a
+// coordinate the query lacks from a shared-memory bitmap instead.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,6 +40,43 @@ struct QRow {
     return __ldg(q + c);
   }
 };
+
+// q_row[c] for a row whose non-zeros (any bit pattern but +0.0) bits
+// marks: a miss is exactly q_dense's +0.0, without a trip to L2, so a
+// row dot with QMasked is bitwise the one with QRow.
+struct QMasked {
+  const float* __restrict__ q;
+  const uint32_t* bits;           // shared memory, one bit per coordinate
+  __device__ __forceinline__ float operator()(int c) const {
+    return (bits[c >> 5] >> (c & 31)) & 1u ? __ldg(q + c) : 0.0f;
+  }
+};
+
+// Marks q_row's non-zeros in the 32-coordinate words [w_begin, w_end) of
+// a bitmap: put(w, mask) stores word w. n_warps warps (this one is
+// `warp`) read the row coalesced, U words per warp at once, and one
+// ballot makes each word.
+template <typename Put>
+__device__ __forceinline__ void mark_nonzeros(const float* __restrict__ qrow,
+                                              int d, int w_begin, int w_end,
+                                              int warp, int n_warps, int lane,
+                                              Put put) {
+  constexpr int U = 16;
+  for (int w0 = w_begin + warp * U; w0 < w_end; w0 += n_warps * U) {
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = (w0 + u) * 32 + lane;
+      x[u] = w0 + u < w_end && c < d ? __ldg(qrow + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint32_t m =
+          __ballot_sync(0xffffffffu, __float_as_uint(x[u]) != 0u);
+      if (lane == 0 && w0 + u < w_end) put(w0 + u, m);
+    }
+  }
+}
 
 // <q_row, row_r> for R rows of n entries each, into out[r]; every lane of
 // the warp returns the sums. C is int32_t or uint16_t, V float,

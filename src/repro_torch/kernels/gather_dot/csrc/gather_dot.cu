@@ -56,6 +56,7 @@ constexpr int kCandMaxTile = 1024;    // candidate ids a block holds
 constexpr int kCandRows = 2;          // candidate rows per warp at once
 constexpr int kCandBatch = 4;         // entries per lane and row per batch
 
+using seismic::QMasked;
 using seismic::row_dot;
 using seismic::row_dots;
 
@@ -81,16 +82,6 @@ gather_dot_batch_kernel(const float* __restrict__ q,
                                         nnz, sc, z, lane);
   if (lane == 0) out[row] = r;
 }
-
-// q_row[c] for a row whose non-zeros (any bit pattern but +0.0) bits
-// marks: a miss is exactly q_dense's +0.0, without a trip to L2.
-struct QMasked {
-  const float* __restrict__ q;
-  const uint32_t* bits;           // shared memory, one bit per coordinate
-  __device__ __forceinline__ float operator()(int c) const {
-    return (bits[c >> 5] >> (c & 31)) & 1u ? __ldg(q + c) : 0.0f;
-  }
-};
 
 template <typename C, typename V, bool kQuant>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -123,7 +114,11 @@ gather_dot_cand_kernel(const float* __restrict__ q,
     return;
   }
   const float* qrow = q + (long long)qi * d;
-  constexpr int U = 16;    // q_row's non-zeros, U words per warp at once
+  // q_row's non-zeros, U words per warp at once: the words row_dot.cuh's
+  // mark_nonzeros makes, written out because through that helper the f32
+  // and bf16 variants compile to more than 48 registers and lose
+  // occupancy
+  constexpr int U = 16;
   for (int w0 = warp * U; w0 * 32 < d; w0 += kWarps * U) {
     float x[U];
 #pragma unroll

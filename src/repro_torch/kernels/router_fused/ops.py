@@ -8,22 +8,35 @@
                        (rb [Q, m*fanout], flat [Q, m*fanout]), one launch
 
 The signatures are the JAX package's without its ``tile_q`` and
-``interpret``: a kernel here has one warp per summary row and one block
-per query, so there is no tile to choose. CPU tensors take the plain
-versions (``ref.py``); CUDA tensors launch the kernels or raise.
+``interpret``: router_flat has one warp per summary row; router_hier
+runs a cluster of blocks per query (``row_tiles.cluster_size``, by the
+batch and the card's SMs), and its C entry point sizes the tiles and
+shared memory from the shapes (``hier_geometry`` reports them). The
+wrapper raises where d is beyond ``row_tiles.MAX_DIM`` or a block's
+shared memory would not hold them. CPU tensors take the plain versions
+(``ref.py``); CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels import runtime
+from repro_torch.kernels import row_tiles, runtime
 from repro_torch.kernels.router_fused.ref import (router_flat_ref,
                                                   router_hier_ref)
 from repro_torch.kernels.runtime import require
 
 _ready = False
+# router_hier launches by blocks per query (its cluster size)
+CLUSTER_LAUNCHES: collections.Counter = collections.Counter()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,10 +46,25 @@ def _lib() -> ctypes.CDLL:
         v, i = ctypes.c_void_p, ctypes.c_int
         lib.router_flat_launch.argtypes = [v] * 8 + [i] * 6 + [v]
         lib.router_flat_launch.restype = i
-        lib.router_hier_launch.argtypes = [v] * 13 + [i] * 10 + [v]
+        lib.router_hier_launch.argtypes = [v] * 13 + [i] * 11 + [v]
         lib.router_hier_launch.restype = i
+        lib.router_hier_geometry.argtypes = [i] * 8 + [v]
+        lib.router_hier_geometry.restype = i
         _ready = True
     return lib
+
+
+def hier_geometry(cut: int, ns: int, s2: int, s: int, fanout: int, m: int,
+                  d: int, cluster: int) -> dict:
+    """router_hier's launch geometry as its library computes it: the
+    cluster, rows per warp in stage A and B, stage-A tile rows, stage-B
+    superblocks a tile, a ring stage's bytes, dynamic shared memory, ring
+    stages."""
+    return row_tiles.read_geometry(
+        "router_hier", _lib().router_hier_geometry,
+        ("cluster", "rows_per_warp_a", "rows_per_warp_b", "tile_a",
+         "segs_b", "stage_bytes", "smem", "stages"),
+        cut, ns, s2, s, fanout, m, d, cluster)
 
 
 def _check_tier(name, coords, levels, scale, zero, l) -> None:
@@ -124,6 +152,11 @@ def router_hier_batch(lists: torch.Tensor, q_dense: torch.Tensor,
     if runtime.use_plain(*args):
         return router_hier_ref(*args, m=m, fanout=fanout)
     _contiguous("router_hier", *args)
+    d = q_dense.shape[1]
+    row_tiles.check_dim("router_hier", d)
+    cluster = row_tiles.cluster_size(qn, _sm_count(q_dense.device))
+    row_tiles.check_smem("router_hier", hier_geometry(
+        cut, ns, s2, s, fanout, m, d, cluster)["smem"])
     dev = q_dense.device
     rb = torch.empty((qn, m * fanout), dtype=torch.float32, device=dev)
     flat = torch.empty((qn, m * fanout), dtype=torch.int32, device=dev)
@@ -131,12 +164,13 @@ def router_hier_batch(lists: torch.Tensor, q_dense: torch.Tensor,
         return rb, flat
     err = _lib().router_hier_launch(
         *map(runtime.ptr, args), runtime.ptr(rb), runtime.ptr(flat), qn,
-        cut, l, ns, s2, nb, s, m, fanout, q_dense.shape[1],
+        cut, l, ns, s2, nb, s, m, fanout, d, cluster,
         runtime.stream_of(q_dense))
     runtime.check_launch(err, "router_hier")
     runtime.count_launch("router_hier")
+    CLUSTER_LAUNCHES[cluster] += 1
     return rb, flat
 
 
-__all__ = ["router_flat_batch", "router_hier_batch", "router_flat_ref",
-           "router_hier_ref"]
+__all__ = ["router_flat_batch", "router_hier_batch", "hier_geometry",
+           "router_flat_ref", "router_hier_ref", "CLUSTER_LAUNCHES"]

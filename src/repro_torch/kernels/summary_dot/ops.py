@@ -5,7 +5,10 @@
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
 kernel or raise. The TPU wrapper's padding to (8, 128) tiles is gone:
-the kernel masks nothing because it has one warp per output element.
+the kernel takes any L and S. The C entry point sizes its tiles, rows per
+block and shared memory from the shapes (``geometry`` reports them); the
+wrapper raises where d is beyond ``row_tiles.MAX_DIM`` or the block's
+shared memory would not hold the ring and the q bitmap.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import runtime
+from repro_torch.kernels import row_tiles, runtime
 from repro_torch.kernels.runtime import require
 from repro_torch.kernels.summary_dot.ref import summary_dot_batch_ref
 
@@ -28,8 +31,20 @@ def _lib() -> ctypes.CDLL:
         lib.summary_dot_launch.argtypes = [v, v, v, v, v, v] \
             + [ctypes.c_int] * 4 + [v]
         lib.summary_dot_launch.restype = ctypes.c_int
+        lib.summary_dot_geometry.argtypes = [ctypes.c_int] * 3 + [v]
+        lib.summary_dot_geometry.restype = ctypes.c_int
         _ready = True
     return lib
+
+
+def geometry(l: int, s: int, d: int) -> dict:
+    """The kernel's launch geometry for [Q, L, S] summaries at dimension
+    d, as its library computes it: rows per warp, rows per tile, rows per
+    block, a ring stage's bytes, dynamic shared memory, ring stages."""
+    return row_tiles.read_geometry(
+        "summary_dot", _lib().summary_dot_geometry,
+        ("rows_per_warp", "tile_rows", "chunk_rows", "stage_bytes", "smem",
+         "stages"), l, s, d)
 
 
 def _check(q_dense, sum_coords, sum_q, sum_scale, sum_zero) -> None:
@@ -63,15 +78,19 @@ def summary_dot_batch(q_dense: torch.Tensor, sum_coords: torch.Tensor,
     require(all(t.is_contiguous() for t in args),
             "summary_dot: inputs must be contiguous")
     qn, l, s = sum_coords.shape
+    d = q_dense.shape[1]
+    row_tiles.check_dim("summary_dot", d)
     out = torch.empty((qn, l), dtype=torch.float32, device=q_dense.device)
     if out.numel() == 0:
         return out
+    require(s >= 1, "summary_dot: summaries need at least one entry")
+    row_tiles.check_smem("summary_dot", geometry(l, s, d)["smem"])
     err = _lib().summary_dot_launch(
-        *map(runtime.ptr, args), runtime.ptr(out), qn, l, s,
-        q_dense.shape[1], runtime.stream_of(q_dense))
+        *map(runtime.ptr, args), runtime.ptr(out), qn, l, s, d,
+        runtime.stream_of(q_dense))
     runtime.check_launch(err, "summary_dot")
     runtime.count_launch("summary_dot")
     return out
 
 
-__all__ = ["summary_dot_batch", "summary_dot_batch_ref"]
+__all__ = ["summary_dot_batch", "summary_dot_batch_ref", "geometry"]

@@ -39,7 +39,7 @@ try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
     from repro.kernels.summary_dot.ops import summary_dot_batch as jax_summary
 except ModuleNotFoundError:
     jnp = None
-from repro_torch.kernels import runtime
+from repro_torch.kernels import row_tiles, runtime
 from repro_torch.kernels.flash_attention.ops import (TMA_BOX_COLS, TMA_ROWS,
                                                      flash_attention,
                                                      flash_attention_ref,
@@ -53,10 +53,12 @@ from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
                                                 gather_dot_cand_ref)
 from repro_torch.kernels.refine_fused.ops import refine_round_batch
 from repro_torch.kernels.refine_fused.ref import refine_round_ref
-from repro_torch.kernels.router_fused.ops import (router_flat_batch,
+from repro_torch.kernels.router_fused.ops import (hier_geometry,
+                                                  router_flat_batch,
                                                   router_hier_batch)
 from repro_torch.kernels.router_fused.ref import (router_flat_ref,
                                                   router_hier_ref)
+from repro_torch.kernels.summary_dot.ops import geometry as summary_geometry
 from repro_torch.kernels.summary_dot.ops import summary_dot_batch
 from repro_torch.kernels.summary_dot.ref import summary_dot_batch_ref
 from repro_torch.sparse.ops import take_rows
@@ -403,6 +405,49 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     after = {n: runtime.library_path(n) for n in runtime.SOURCES}
     assert all(before[n] != after[n] for n in runtime.SOURCES)
     assert len(set(after.values())) == len(runtime.SOURCES)
+
+
+@pytest.mark.parametrize("qn,sms,c", [(256, 132, 1), (4096, 132, 1),
+                                      (128, 132, 1), (66, 132, 2),
+                                      (64, 132, 2), (67, 132, 1),
+                                      (33, 132, 4), (32, 132, 4),
+                                      (17, 132, 4), (16, 132, 8),
+                                      (8, 132, 8), (1, 132, 8), (8, 16, 2),
+                                      (2, 16, 8), (17, 16, 1)])
+def test_cluster_size_fills_one_wave(qn, sms, c):
+    """router_hier's blocks per query: a power of two up to 8, the most
+    whose qn * C blocks have an SM each (8 for an online batch of 8, 1
+    for a server's 256 on 132 SMs)."""
+    assert row_tiles.cluster_size(qn, sms) == c
+    assert c == 1 or qn * c <= sms
+    assert c == row_tiles.MAX_CLUSTER or qn * 2 * c > sms
+
+
+def test_row_tiles_caps_raise():
+    """d beyond the bitmap's cap, or shapes whose ring and sort overflow a
+    block's shared memory, raise (the wrappers call these before a
+    launch); nothing falls back."""
+    row_tiles.check_dim("k", row_tiles.MAX_DIM)
+    with pytest.raises(ValueError, match="dimension"):
+        row_tiles.check_dim("k", row_tiles.MAX_DIM + 1)
+    row_tiles.check_smem("k", row_tiles.SMEM_MAX)
+    with pytest.raises(ValueError, match="shared memory"):
+        row_tiles.check_smem("k", row_tiles.SMEM_MAX + 1)
+
+
+def test_read_geometry_names_the_exported_values_and_raises_on_error():
+    """A library's geometry export fills an int array in the order of the
+    keys; a non-zero return (shapes it refuses) raises."""
+    def export(l, s, out):
+        if s < 1:
+            return 1
+        out[0], out[1] = l * 2, s + 1
+        return 0
+
+    assert row_tiles.read_geometry("k", export, ("a", "b"), 5, 3) == \
+        {"a": 10, "b": 4}
+    with pytest.raises(ValueError, match="k: the kernel's geometry refuses"):
+        row_tiles.read_geometry("k", export, ("a", "b"), 5, 0)
 
 
 # ------------------------------------------------------ flash_attention
@@ -834,3 +879,229 @@ def test_gather_dot_cand_bitwise_equals_gather_dot_on_card(kind, coord):
     assert 0.02 < float(hit.float().mean()) < 0.5
     assert bool(hit[c >= d - d % 32].any())
     assert bool((torch.signbit(q) & (q == 0))[qi[:, None], c].any())
+
+
+def flat_route_of(q, coords, u8, scale, zero):
+    """router_flat (whose kernel is unchanged) over [Q, L, S] summaries
+    laid out as Q lists of L live blocks, query i probing list i: its
+    scores are the summary dots of the same rows in the same order."""
+    qn, l, _ = coords.shape
+    lists = torch.arange(qn, dtype=torch.int32, device=q.device)[:, None]
+    alive = torch.ones(qn, l, dtype=torch.int32, device=q.device)
+    return router_flat_batch(lists.contiguous(), q, coords, u8, scale, zero,
+                             alive)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [96, 768, 17])
+def test_summary_dot_kernel_on_sparse_queries_on_card(s):
+    """The redesigned summary_dot on sparse queries (``sparse_queries``):
+    L = 3 x 37 rows is not a multiple of the tile (64, 8 or 320 rows),
+    a probed list of all-padding rows scores 0, and the lookups hit and
+    miss the bitmap, hit its last partial word and read a -0.0. Scores
+    are within tolerance of the plain version and bitwise equal to
+    router_flat's, the row dot the fuse levels share."""
+    dev = _cuda()
+    d, qn, nl, nb, cut = 30522, 12, 40, 37, 3
+    q, pool = sparse_queries(qn, d, seed=s)
+    c, u8, sc, z = tier_planes(nl, nb, s, pool.size, seed=s + 1)
+    c = pool[c]
+    u8[0] = 0                                  # list 0: all padding
+    rng = np.random.default_rng(s + 2)
+    lists = rng.integers(0, nl, (qn, cut)).astype(np.int64)
+    lists[0, 1] = 0
+    q = _t(q).to(dev)
+    args = [q] + [_t(x[lists]).reshape((qn, cut * nb) + x.shape[2:])
+                  .contiguous().to(dev) for x in (c, u8, sc, z)]
+    before = runtime.LAUNCHES["summary_dot"]
+    got = summary_dot_batch(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["summary_dot"] == before + 1
+    assert_scores(got.cpu().numpy(), summary_dot_batch_ref(*args).cpu())
+    assert torch.equal(got, flat_route_of(*args))
+    assert bool((got[0, nb:2 * nb] == 0).all())
+    # hits, misses, last-word hits and -0.0 lookups all occur
+    cc = args[1].long()
+    live = args[2] > 0
+    hit = torch.gather(q, 1, cc.reshape(qn, -1)).reshape(cc.shape) != 0
+    assert 0.01 < float(hit[live].float().mean()) < 0.5
+    assert bool((hit & live & (cc >= d - d % 32)).any())
+    negz = torch.signbit(q) & (q == 0)
+    assert bool((torch.gather(negz, 1, cc.reshape(qn, -1))
+                 .reshape(cc.shape) & live).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,s,d", [(2001, 17, 30522), (1000, 96, 300),
+                                   (333, 768, 1000)])
+def test_summary_dot_kernel_tiles_and_chunks_on_card(l, s, d):
+    """Ragged tiles whose byte ranges start off 16-byte boundaries (S = 17,
+    L = 2001: every query's coords, levels, scales and zeros start at
+    another phase), and many blocks per query with a ragged last one (a
+    small d makes short chunks); all-padding rows score 0."""
+    dev = _cuda()
+    args = [_t(x).to(dev) for x in summary_inputs(7, l, s, d, seed=l)]
+    assert l % summary_geometry(l, s, d)["tile_rows"] != 0
+    got = summary_dot_batch(*args)
+    torch.cuda.synchronize()
+    assert_scores(got.cpu().numpy(), summary_dot_batch_ref(*args).cpu())
+    assert torch.equal(got, flat_route_of(*args))
+    assert bool((got[0, :max(l // 3, 1)] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,s,d", [(4940, 96, 30522), (496, 768, 30522),
+                                   (256, 96, 30522), (1000, 96, 300),
+                                   (2001, 17, 30522), (333, 768, 1000),
+                                   (1, 1, 1)])
+def test_summary_dot_geometry_chunks_whole_tiles_on_card(l, s, d):
+    """The geometry summary_dot's library launches with: 4 short rows or 1
+    long row per warp, tiles of whole groups of 8 warps' rows (64 rows of
+    96 entries, 8 of 768), a stage that holds a tile's 5 bytes an entry
+    and 8 a row, rows per block in whole tiles covering L (one block a
+    query at the router's shapes, many at a small d), and shared memory
+    within a block's."""
+    _cuda()
+    g = summary_geometry(l, s, d)
+    t, c = g["tile_rows"], g["chunk_rows"]
+    assert g["rows_per_warp"] == (1 if s >= 256 else 4)
+    assert t >= 1 and c % t == 0 and c >= min(l, t)
+    assert t == 1 or t % (8 * g["rows_per_warp"]) == 0 \
+        or t < 8 * g["rows_per_warp"]
+    assert g["stage_bytes"] % 16 == 0
+    assert g["stage_bytes"] >= t * (5 * s + 8)
+    assert g["smem"] >= g["stages"] * g["stage_bytes"] + 4 * -(-d // 32)
+    assert g["smem"] <= row_tiles.SMEM_MAX and g["stages"] >= 2
+    n_chunks = -(-l // c)
+    if (l, s) in ((4940, 96), (496, 768)):
+        assert (t, n_chunks) == ((64, 1) if s == 96 else (8, 1))
+    if (l, s, d) == (1000, 96, 300):
+        assert n_chunks > 4
+
+
+@pytest.mark.gpu
+def test_router_hier_geometry_holds_both_stages_on_card():
+    """router_hier's library geometry at the main path's shapes (cut 8, 62
+    superblocks of 768 entries, children of 96, fanout 8, m 32): a stage
+    holds a stage-A tile of whole superblock rows and segs_b superblocks'
+    children with their block_len; shared memory holds the ring, the
+    bitmap and the 512-entry sort, and grows with a block's share of the
+    top m; a cluster of 1 takes no less than one of 4."""
+    _cuda()
+    g = hier_geometry(8, 62, 768, 96, 8, 32, 30522, 4)
+    assert g["cluster"] == 4
+    assert (g["rows_per_warp_a"], g["rows_per_warp_b"]) == (1, 4)
+    assert g["tile_a"] == 8 and g["segs_b"] >= 1
+    assert g["stage_bytes"] >= 8 * (5 * 768 + 8)
+    assert g["stage_bytes"] >= g["segs_b"] * 8 * (5 * 96 + 12)
+    assert g["smem"] >= g["stages"] * g["stage_bytes"] + 4 * 954 + 8 * 512
+    assert g["smem"] <= row_tiles.SMEM_MAX
+    big_m = hier_geometry(8, 62, 768, 96, 8, 496, 30522, 4)
+    assert big_m["smem"] > g["smem"]
+    assert hier_geometry(8, 62, 768, 96, 8, 32, 30522, 1)["smem"] \
+        >= g["smem"]
+    with pytest.raises(ValueError, match="geometry refuses"):
+        hier_geometry(8, 62, 768, 96, 8, 497, 30522, 4)     # m > cut * ns
+
+
+@pytest.mark.gpu
+def test_summary_and_hier_wrappers_raise_beyond_their_caps_on_card():
+    """On the card the wrappers raise, before any launch, on d beyond
+    row_tiles.MAX_DIM and on shapes whose shared memory a block cannot
+    hold (a 32,768-superblock sort); they never fall back."""
+    dev = _cuda()
+    big_d = row_tiles.MAX_DIM + 1
+    q = torch.zeros(1, big_d, device=dev)
+    c = torch.zeros(1, 2, 4, dtype=torch.int32, device=dev)
+    u8 = torch.ones(1, 2, 4, dtype=torch.uint8, device=dev)
+    sc = torch.ones(1, 2, device=dev)
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(ValueError, match="dimension"):
+        summary_dot_batch(q, c, u8, sc, sc)
+    cut, ns, f = 64, 512, 8
+    nb = ns * f
+    lists = torch.zeros(1, cut, dtype=torch.int32, device=dev)
+    qd = torch.zeros(1, 64, device=dev)
+    sup = (torch.zeros(1, ns, 16, dtype=torch.int32, device=dev),
+           torch.ones(1, ns, 16, dtype=torch.uint8, device=dev),
+           torch.ones(1, ns, device=dev), torch.ones(1, ns, device=dev))
+    blk = (torch.zeros(1, nb, 4, dtype=torch.int32, device=dev),
+           torch.ones(1, nb, 4, dtype=torch.uint8, device=dev),
+           torch.ones(1, nb, device=dev), torch.ones(1, nb, device=dev))
+    bl = torch.ones(1, nb, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        router_hier_batch(lists, qd, *sup, *blk, bl, m=32, fanout=f)
+    with pytest.raises(ValueError, match="dimension"):
+        router_hier_batch(lists[:, :2].contiguous(), q, *sup, *blk, bl, m=2,
+                          fanout=f)
+    assert dict(runtime.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut,nb,f,m", [(8, 494, 8, 1), (3, 37, 4, 30),
+                                        (5, 20, 3, 7), (8, 494, 8, 32)])
+def test_router_hier_kernel_on_sparse_queries_on_card(cut, nb, f, m):
+    """The cluster router_hier on sparse queries: m = 1, m = cut * ns (3 x
+    10), cut * ns never a power of two (496, 30, 35), a dead list among
+    the probes (its superblocks -inf inside the top m), dead blocks and a
+    repeated probe. Flat positions equal the plain version's and the
+    unfused route's (router_hier_ref over summary_dot, fuse level 0), and
+    the live child scores are bitwise summary_dot's of the same rows."""
+    dev = _cuda()
+    d, qn, nl, s = 30522, 12, 60, 96
+    ns = -(-nb // f)
+    q, pool = sparse_queries(qn, d, seed=nb + m)
+    lists, _, *blocks, block_len = router_inputs(qn, cut, nl, nb, s,
+                                                 pool.size, nb + f)
+    sup = tier_planes(nl, ns, s * f, pool.size, nb + m)
+    blocks[0], sup = pool[blocks[0]], (pool[sup[0]],) + sup[1:]
+    lists[1, 0] = 0                               # a dead list
+    order = [_t(x).to(dev) for x in
+             (lists, q, *sup, *blocks, block_len)]
+    before = runtime.LAUNCHES["router_hier"]
+    rb, flat = router_hier_batch(*order, m=m, fanout=f)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["router_hier"] == before + 1
+    want_rb, want_flat = router_hier_ref(*order, m=m, fanout=f)
+    assert torch.equal(flat, want_flat)
+    assert_scores(rb.cpu().numpy(), want_rb.cpu())
+    un_rb, un_flat = router_hier_ref(*order, m=m, fanout=f,
+                                     dot=summary_dot_batch)
+    assert torch.equal(flat, un_flat) and torch.equal(rb, un_rb)
+    # the live children against summary_dot on the same rows
+    lists_t, q_t = order[0], order[1]
+    sc, sq, ss, sz = order[6:10]
+    rows = (lists_t.long().gather(1, (flat // nb).long()) * nb
+            + flat % nb).long()
+    a = summary_dot_batch(q_t, sc.reshape(-1, s)[rows],
+                          sq.reshape(-1, s)[rows], ss.reshape(-1)[rows],
+                          sz.reshape(-1)[rows])
+    live = torch.isfinite(rb)
+    assert bool(live.any()) and bool((~live).any())
+    assert torch.equal(rb[live], a[live])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_router_hier_kernel_is_the_same_at_every_cluster_size_on_card(
+        cluster, monkeypatch):
+    """The blocks of a cluster share the bitmap and the stage-A scores and
+    split stage A's tiles and the top m among them: 1, 2, 4 or 8 blocks
+    per query give bitwise the same (rb, flat), equal to the plain
+    version's flat positions and the unfused route's scores."""
+    dev = _cuda()
+    qn, cut, nl, nb, s, f, m = 16, 8, 60, 494, 96, 8, 32
+    ns = -(-nb // f)
+    q, pool = sparse_queries(qn, 30522, seed=cluster)
+    lists, _, *blocks, block_len = router_inputs(qn, cut, nl, nb, s,
+                                                 pool.size, 7)
+    sup = tier_planes(nl, ns, s * f, pool.size, 8)
+    blocks[0], sup = pool[blocks[0]], (pool[sup[0]],) + sup[1:]
+    order = [_t(x).to(dev) for x in (lists, q, *sup, *blocks, block_len)]
+    monkeypatch.setattr(row_tiles, "cluster_size", lambda *a: cluster)
+    rb, flat = router_hier_batch(*order, m=m, fanout=f)
+    torch.cuda.synchronize()
+    want_rb, want_flat = router_hier_ref(*order, m=m, fanout=f,
+                                         dot=summary_dot_batch)
+    assert torch.equal(flat, want_flat) and torch.equal(rb, want_rb)
+

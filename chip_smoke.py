@@ -10,16 +10,18 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` each, in parallel) and print ptxas' register/spill report,
    and for the redesigned kernels (flash_attention's TMA + wgmma kernel,
-   gather_dot_cand, summary_dot's and router_hier's bulk-copy kernels)
-   one line per variant with registers, static shared memory and spills,
-   and the dynamic shared memory each launch requests at the main path's
-   shapes;
+   gather_dot_cand, summary_dot's, router_hier's and router_flat's
+   bulk-copy kernels, router_flat's groups and bitmap kernels,
+   refine_round) one line per variant with registers, static shared
+   memory and spills, and the dynamic shared memory each launch requests
+   at the main path's shapes;
 3. each kernel against its plain PyTorch version at the slices' shapes,
    on seeded inputs: summary_dot (Q = 256, L = 4940, S = 96), gather_dot
    (N = 4096 and 512, nnz = 128) and gather_dot_cand in f32, bf16 and
    u8 values with u16 coords, router_flat (cut 10 over 494 blocks of 96
-   entries), router_hier (cut 8 over 62 superblocks of 768 entries,
-   m 32, fanout 8) and refine_round (k 10, degree 8, 90 seen ids, a
+   entries, one list probed by every query), router_hier (cut 8 over 62
+   superblocks of 768 entries, m 32, fanout 8) and refine_round (k 10,
+   degree 8, 90 seen ids, repeated ids and duplicate edges, a
    1,048,576-doc forward plane in the three value kinds), d = 30522;
 4. run to run: a 65,536-doc collection and its index (superblock fanout
    8) made twice from one seed must be bitwise equal, plane by plane (a
@@ -51,6 +53,10 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    PyTorch library call where one computes the same function; the share
    of summary_dot's, gather_dot_cand's and router_hier's q lookups that
    hit a non-zero of the query (the rest their bitmaps answer);
+   router_flat and refine_round also on the 4096-query batch's inputs
+   (held against their plain versions 512 queries at a time), with
+   router_flat's reuse (live (query, block) rows over the distinct live
+   rows) at both batch sizes, and an empty kernel's launch time;
    router_hier at 1, 2, 4 and 8 blocks per query (cluster sizes), at 256
    and 32 queries; then the index and the graph are freed;
 9. flash_attention against its plain version on seeded inputs: the
@@ -220,9 +226,9 @@ class Bench:
 
 def ptxas_lines(report: str) -> list[str]:
     """One line per variant of the redesigned kernels (flash_attention's
-    TMA + wgmma kernel, gather_dot_cand's, summary_dot's and
-    router_hier's kernels) from ptxas' report: registers at launch,
-    static shared memory, spill stores and loads."""
+    TMA + wgmma kernel, gather_dot_cand's, summary_dot's, router_hier's,
+    router_flat's three and refine_round's kernels) from ptxas' report:
+    registers at launch, static shared memory, spill stores and loads."""
     lines, name, info = [], None, {}
     types = {"i": "int32", "t": "uint16", "f": "f32", "h": "u8",
              "13__nv_bfloat16": "bf16"}
@@ -241,6 +247,11 @@ def ptxas_lines(report: str) -> list[str]:
             summ = re.search(r"summary_dot_kernelILi(\d+)ELi(\d+)E", mangled)
             hier = re.search(r"router_hier_kernelILi(\d+)ELi(\d+)ELi(\d+)"
                              r"ELi(\d+)E", mangled)
+            flat = re.search(r"router_flat_kernelILi(\d+)ELi(\d+)E", mangled)
+            helper = re.search(r"router_flat_(groups|records)_kernel",
+                               mangled)
+            refine = re.search(r"refine_round_kernelILi(\d+)E(i|t)"
+                               r"(f|h|13__nv_bfloat16)Lb\dE", mangled)
             if fa:
                 name = f"fa_wgmma_kernel<D {fa.group(1)}>"
             elif cand:
@@ -253,6 +264,15 @@ def ptxas_lines(report: str) -> list[str]:
                 name = (f"router_hier_kernel<stage A {hier.group(1)} rows "
                         f"per warp, {hier.group(2)} entries ahead; stage B "
                         f"{hier.group(3)} rows, {hier.group(4)} entries>")
+            elif flat:
+                name = (f"router_flat_kernel<{flat.group(1)} rows per warp, "
+                        f"{flat.group(2)} entries per lane ahead>")
+            elif helper:
+                name = f"router_flat_{helper.group(1)}_kernel"
+            elif refine:
+                name = (f"refine_round_kernel<{refine.group(1)} ids a lane, "
+                        f"{types[refine.group(2)]} coords, "
+                        f"{types[refine.group(3)]} values>")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -399,6 +419,7 @@ def fused_synthetic_phase(torch, dev, gen) -> None:
     blocks = tier(nb, s)
     lists = ints(0, nl, qn, CUT)
     lists[0] = 0
+    lists[:, 1] = 1                 # probed by every query: 32 full groups
     args = (lists, q) + blocks + (block_len,)
     e = compare(torch, "router_flat", router_flat_batch(*args),
                 router_flat_ref(*args))
@@ -425,6 +446,8 @@ def fused_synthetic_phase(torch, dev, gen) -> None:
     knn[rand(n_docs, degree) < 0.05] = n_docs        # missing edges
     ids = ints(0, n_docs, qn, k)
     ids[::5, k // 2:] = -1
+    ids[1::3, 1] = ids[1::3, 0]      # repeated ids: duplicate neighbours
+    knn[::2, 1] = knn[::2, 0]        # and duplicate edges
     w = k + k * degree               # the seen set of a second round
     scored = torch.cat([torch.where(ids >= 0, ids, n_docs),
                         knn[ids[:, :1].long().clamp(min=0)].reshape(qn, -1),
@@ -885,7 +908,8 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     from repro_torch.kernels.gather_dot.ops import (
         cand_tiles_processed, gather_dot_batch, gather_dot_batch_ref,
         gather_dot_cand_batch, gather_dot_cand_ref)
-    from repro_torch.kernels.refine_fused.ops import (refine_round_batch,
+    from repro_torch.kernels.refine_fused.ops import (empty_launch,
+                                                      refine_round_batch,
                                                       refine_round_ref)
     from repro_torch.kernels import row_tiles
     from repro_torch.kernels.router_fused.ops import (CLUSTER_LAUNCHES,
@@ -942,7 +966,7 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     flat_launches = dict(runtime.LAUNCHES)
     log(f"[6 flat path] launches {flat_launches}")
     for name in ("summary_dot", "gather_dot", "gather_dot_cand",
-                 "router_flat"):
+                 "router_flat", "router_flat_groups", "router_flat_records"):
         if flat_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "flat path")
@@ -1073,11 +1097,6 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     ns, s2 = icfg.n_superblocks, index.sup_coords.shape[-1]
     nbl = torch.nn.functional.pad(index.block_len > 0, (0, (-nb) % f))
     sup_alive = nbl.reshape(nbl.shape[0], ns, f).any(-1)      # [L, ns]
-    # d: block_len rows of the distinct probed lists, their live summary
-    # rows; operations over live (query, block) rows
-    lists_d = torch.unique(lists).long()
-    rows_d = int((index.block_len[lists_d] > 0).sum())
-    alive_d = int((index.block_len[li] > 0).sum())
     # e: block_len rows of the distinct probed lists, their live superblock
     # rows, the distinct scored (list, child) summaries
     lh = lists_h.long()
@@ -1087,25 +1106,27 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     live_b = torch.isfinite(rb)
     child = lh.gather(1, (flat // nb).long()) * nb + flat % nb  # [Q, m*f]
     n_child = torch.unique(child[live_b]).numel()
-    # f: knn rows of the distinct top-k ids, distinct live frontier rows
-    n_top = torch.unique(ids_h[ids_h >= 0]).numel()
-    live_f = cand_f[cand_f < index.n_docs]
-    n_front = torch.unique(live_f).numel()
-    k_f, w_f = ids_h.shape[1], f_in[1].shape[1]
 
-    def q_bytes(*reads) -> int:
+    def q_bytes(qn_, *reads) -> int:
         """Bytes of q a kernel must read: one f32 per distinct (query,
         coordinate) among the entries of the rows it reads. Each read is
-        (coords [Q, rows, width], live [Q, rows] or None for all rows)."""
-        hit = torch.zeros(q256.n, index.dim, dtype=torch.bool, device=dev)
-        for coords, live in reads:
-            c = coords.long().reshape(q256.n, -1, coords.shape[-1])
-            if live is None:
-                hit.scatter_(1, c.reshape(q256.n, -1), True)
-            else:
-                qi, ri = live.reshape(q256.n, -1).nonzero(as_tuple=True)
-                hit[qi[:, None], c[qi, ri]] = True
-        return int(hit.sum()) * 4
+        a function of a query range [a, b) that returns (coords [b - a,
+        rows, width], live [b - a, rows] or None for all rows); ranges of
+        256 queries keep the gathers small at 4096."""
+        n_hit = 0
+        for a in range(0, qn_, Q_ONLINE):
+            b = min(qn_, a + Q_ONLINE)
+            hit = torch.zeros(b - a, index.dim, dtype=torch.bool, device=dev)
+            for read in reads:
+                coords, live = read(a, b)
+                c = coords.long().reshape(b - a, -1, coords.shape[-1])
+                if live is None:
+                    hit.scatter_(1, c.reshape(b - a, -1), True)
+                else:
+                    qi, ri = live.reshape(b - a, -1).nonzero(as_tuple=True)
+                    hit[qi[:, None], c[qi, ri]] = True
+            n_hit += int(hit.sum())
+        return n_hit * 4
 
     def fwd_coords(ids):
         return take_rows(index.fwd.coords,
@@ -1136,16 +1157,58 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
                               (index.sum_coords.reshape(-1, s)[child.long()],
                                live_b)),
     }
+    def rows_of(coords, live=None):
+        """A q_bytes read of [Q, rows, width] coords (live [Q, rows])."""
+        return lambda a, b: (coords[a:b],
+                             None if live is None else live[a:b])
+
+    def flat_route(lists_, qd):
+        """router_flat's work on probed lists [Q, cut]: (bytes, operations,
+        distinct probed lists, their live block rows, live (query, block)
+        rows). It reads the block_len row of each distinct probed list and
+        each of their live block summaries once, q at those rows' entries,
+        and writes r; 4 operations per entry of a live (query, block)
+        row."""
+        lq = lists_.long()
+        distinct = torch.unique(lq)
+        rows_ = int((index.block_len[distinct] > 0).sum())
+        alive_ = int((index.block_len[lq] > 0).sum())
+        qb = q_bytes(lists_.shape[0], lambda a, b: (
+            index.sum_coords[lq[a:b]], index.block_len[lq[a:b]] > 0))
+        nbytes = (lists_.nbytes + distinct.numel() * nb * 4
+                  + rows_ * (s * 5 + 8) + lists_.shape[0] * CUT * nb * 4 + qb)
+        return nbytes, 4 * alive_ * s, distinct.numel(), rows_, alive_
+
+    def refine_work(fin, cand):
+        """refine_round's work on (ids, scored, ...) and its frontier
+        cand: (bytes, operations, distinct top-k ids, live frontier ids,
+        distinct frontier documents). It reads the ids, the seen rows, the
+        knn rows of the distinct top-k ids, one forward row per distinct
+        live frontier document and q at its entries, and writes both
+        outputs; 2 operations per entry of a live frontier row."""
+        ids, seen_rows = fin[:2]
+        n_top_ = torch.unique(ids[ids >= 0]).numel()
+        live = cand[cand < index.n_docs]
+        n_front_ = torch.unique(live).numel()
+        qb = q_bytes(ids.shape[0], lambda a, b: (
+            fwd_coords(cand[a:b]), cand[a:b] < index.n_docs))
+        nbytes = (ids.nbytes + seen_rows.nbytes + n_top_ * ph.graph_degree * 4
+                  + n_front_ * row_b + cand.numel() * 8 + qb)
+        return nbytes, 2 * live.numel() * nnz, n_top_, live.numel(), n_front_
+
+    flat_d = flat_route(lists, q_dense)
+    lists_d, rows_d, alive_d = flat_d[2:]
+    refine_f = refine_work(f_in, cand_f)
+    n_top, n_live_f, n_front = refine_f[2:]
     q_read = {
-        "summary_dot": q_bytes((a_in[1], None)),
-        "gather_dot": q_bytes((b_in[1], None)),
-        "gather_dot_cand": q_bytes((cand_coords, cand1 < index.n_docs)),
-        "router_flat": q_bytes((index.sum_coords[li],
-                                index.block_len[li] > 0)),
-        "router_hier": q_bytes((index.sup_coords[lh], sup_alive[lh]),
-                               (index.sum_coords.reshape(-1, s)[child.long()],
-                                live_b)),
-        "refine_round": q_bytes((fwd_coords(cand_f), cand_f < index.n_docs)),
+        "summary_dot": q_bytes(qn, rows_of(a_in[1])),
+        "gather_dot": q_bytes(qn, rows_of(b_in[1])),
+        "gather_dot_cand": q_bytes(qn, rows_of(cand_coords,
+                                               cand1 < index.n_docs)),
+        "router_hier": q_bytes(qn, rows_of(index.sup_coords[lh],
+                                           sup_alive[lh]),
+                               rows_of(index.sum_coords.reshape(-1, s)[
+                                   child.long()], live_b)),
     }
     # (bytes, operations) each kernel must move and do: a summary entry
     # costs 4 operations (dequant and multiply-add, two FMAs), a forward
@@ -1157,17 +1220,12 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
                        + q_read["gather_dot"], 2 * qn * n_ * nnz),
         "gather_dot_cand": (n_rows * row_b + cand1.nbytes + qn * n_ * 4
                             + q_read["gather_dot_cand"], 2 * n_live * nnz),
-        "router_flat": (
-            lists.nbytes + lists_d.numel() * nb * 4 + rows_d * (s * 5 + 8)
-            + qn * CUT * nb * 4 + q_read["router_flat"], 4 * alive_d * s),
+        "router_flat": flat_d[:2],
         "router_hier": (
             lists_h.nbytes + lists_e.numel() * nb * 4 + rows_e * (s2 * 5 + 8)
             + n_child * (s * 5 + 8) + qn * m * f * 8 + q_read["router_hier"],
             4 * (alive_e * s2 + int(live_b.sum()) * s)),
-        "refine_round": (
-            qn * (k_f + w_f) * 4 + n_top * ph.graph_degree * 4
-            + n_front * row_b + qn * k_f * ph.graph_degree * 8
-            + q_read["refine_round"], 2 * live_f.numel() * nnz),
+        "refine_round": refine_f[:2],
     }
     bounds = {name: bound(*w) for name, w in work.items()}
 
@@ -1256,18 +1314,80 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     log("  share of q lookups that hit a non-zero of the query (the rest "
         "the kernel's bitmap answers): " + ", ".join(
             f"{n} {h:.4f}" for n, h in q_hit.items()))
-    log(f"  router_flat: {lists_d.numel()} distinct probed lists with "
-        f"{rows_d} live block summaries (the rows its bound counts), "
-        f"{alive_d} live (query, block) rows of {qn * CUT * nb}; "
-        f"router_hier: {lists_e.numel()} distinct probed lists with {rows_e} "
-        f"live superblock summaries, {alive_e} live (query, superblock) "
-        f"rows of {qn * ph.cut * ns}, {int(live_b.sum())} scored children "
-        f"over {n_child} distinct (list, block) summaries; refine_round: "
-        f"knn rows of {n_top} distinct top-k ids, {live_f.numel()} live "
-        f"frontier ids of {cand_f.numel()} over {n_front} distinct "
+    log(f"  router_flat: {lists_d} distinct probed lists with {rows_d} live "
+        f"block summaries (the rows its bound counts), {alive_d} live "
+        f"(query, block) rows of {qn * CUT * nb}: reuse {alive_d / rows_d:.3f}"
+        f"; router_hier: {lists_e.numel()} distinct probed lists with "
+        f"{rows_e} live superblock summaries, {alive_e} live (query, "
+        f"superblock) rows of {qn * ph.cut * ns}, {int(live_b.sum())} scored "
+        f"children over {n_child} distinct (list, block) summaries; "
+        f"refine_round: knn rows of {n_top} distinct top-k ids, {n_live_f} "
+        f"live frontier ids of {cand_f.numel()} over {n_front} distinct "
         "documents")
     log("  q bytes in the bounds, per kernel (distinct (query, coordinate) "
         "reads): " + ", ".join(f"{n} {b}" for n, b in q_read.items()))
+    # refine_round looks q up in L2 at every entry of its live rows: the
+    # 32-byte sectors of q_dense those lookups touch, against the 122 KB
+    # pass over each query's row that a bitmap would be built from
+    f_live = cand_f < index.n_docs
+    f_rows = fwd_coords(cand_f).long() // 8                # sector indices
+    f_sect = (torch.arange(qn, device=dev)[:, None, None] * (-(-index.dim
+              // 8)) + f_rows)[f_live]
+    n_sect = torch.unique(f_sect).numel()
+    log(f"  refine_round q lookups: {int(f_live.sum()) * nnz} over "
+        f"{n_sect} distinct 32-byte sectors of q_dense ({n_sect * 32} B, "
+        f"{n_sect * 32 / qn / 1024:.1f} KB a query; a bitmap would read "
+        f"{index.dim * 4 / 1024:.1f} KB a query)")
+    # d and f on the 4096-query batch's inputs, their bounds counted alike;
+    # checked against the plain versions 512 queries at a time
+    qd4, lists4, _ = prep_queries(q4096.coords, q4096.vals, index.dim,
+                                  p0.cut)
+    d4 = (lists4, qd4) + d_in[2:]
+    qh4, _, _ = prep_queries(q4096.coords, q4096.vals, index.dim, ph.cut)
+    seen4: dict[str, object] = {}
+    run_pipeline_staged(index, q4096.coords, q4096.vals, ph,
+                        probe=seen4.__setitem__)
+    ids4 = seen4["merge_ids"]
+    del seen4
+    f4 = (ids4, scored_init(ids4, index.n_docs), qh4, index.knn_ids,
+          index.fwd.coords, index.fwd.vals)
+    cand4, _ = refine_round_batch(*f4, n_docs=index.n_docs,
+                                  degree=ph.graph_degree)
+    flat4, refine4 = flat_route(lists4, qd4), refine_work(f4, cand4)
+    for name, kern, ref, w4 in (
+            ("router_flat", lambda: router_flat_batch(*d4),
+             lambda a, b: router_flat_ref(lists4[a:b], qd4[a:b], *d4[2:]),
+             flat4),
+            ("refine_round",
+             lambda: refine_round_batch(*f4, n_docs=index.n_docs,
+                                        degree=ph.graph_degree),
+             lambda a, b: refine_round_ref(
+                 *(x[a:b] for x in f4[:3]), *f4[3:], None, None,
+                 index.n_docs, ph.graph_degree), refine4)):
+        out = kern()
+        out = out if name == "router_flat" else out[1]
+        err = 0.0
+        for a in range(0, Q_BATCH, 512):
+            want = ref(a, a + 512)
+            want = want if name == "router_flat" else want[1]
+            err = max(err, compare(torch, f"{name} Q={Q_BATCH}",
+                                   out[a:a + 512], want)[0])
+        del out, want
+        ms = bench.ms(kern, iters=10)
+        bms, by = bound(*w4[:2])
+        log(f"[8 {name} Q={Q_BATCH}] {ms:.4f} ms (bound {bms:.4f} ms by "
+            f"{by}, {bms / ms:.1%} of it; {w4[0] / ms / 1e6:.1f} GB/s of the "
+            f"{w4[0]} bytes it must move); max abs err {err:.3e}")
+    log(f"  router_flat Q={Q_BATCH}: {flat4[2]} distinct probed lists with "
+        f"{flat4[3]} live block summaries, {flat4[4]} live (query, block) "
+        f"rows: reuse {flat4[4] / flat4[3]:.3f} (at {qn}: "
+        f"{alive_d / rows_d:.3f}); refine_round Q={Q_BATCH}: knn rows of "
+        f"{refine4[2]} distinct top-k ids, {refine4[3]} live frontier ids "
+        f"over {refine4[4]} distinct documents")
+    del d4, f4, qd4, qh4, cand4
+    empty_ms = bench.ms(lambda: empty_launch(dev), iters=20)
+    log(f"  an empty kernel's launch, timed alike: {empty_ms:.4f} ms (the "
+        f"floor under refine_round's {record[-1]['ms']:.4f} ms)")
     # router_hier at every cluster size, at the servers' two batches and
     # one between them: the wrapper takes the most blocks per query that
     # still have an SM each (row_tiles.cluster_size)
@@ -1337,7 +1457,8 @@ def main() -> int:
     log("  [redesigned] gather_dot_cand dynamic shared memory (the q "
         f"bitmap): {-(-DIM // 32) * 4} B at d = {DIM}")
     from repro_torch.kernels import row_tiles
-    from repro_torch.kernels.router_fused.ops import hier_geometry
+    from repro_torch.kernels.router_fused.ops import (flat_geometry,
+                                                      hier_geometry)
     from repro_torch.kernels.summary_dot.ops import geometry
     for what, (ln, s) in (("flat router", (ROUTER_L, SUMMARY_S)),
                           ("superblock tier", (TUNED["cut"] * N_SUPER,
@@ -1351,6 +1472,18 @@ def main() -> int:
             f"{-(-DIM // 32) * 4} B), {g['chunk_rows']} rows a block, "
             f"{g['rows_per_warp']} rows per warp")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for qn in (ONLINE_BATCH, Q_ONLINE, Q_BATCH):
+        g = flat_geometry(qn, CUT, DIM, ROUTER_L // CUT, SUMMARY_S, DIM, sms)
+        log(f"  [redesigned] router_flat (Q {qn}, cut {CUT}, nb "
+            f"{ROUTER_L // CUT}, S {SUMMARY_S}): dynamic shared memory "
+            f"{g['smem']} B (ring {g['stages']} x {g['stage_bytes']} B of "
+            f"{g['tile_rows']} rows, 2 x {g['group']} query records of "
+            f"{g['record_bytes']} B: up to {g['listed']} non-zeros, a group "
+            f"table of {g['table_bytes']} B for up to "
+            f"{g['union']} union coordinates), groups kernel "
+            f"{g['groups_smem']} B, records kernel {g['records_smem']} B, "
+            f"{g['grid']} persistent blocks, {g['scratch_words'] * 4} B of "
+            "scratch; refine_round: static shared memory only")
     for qn in (ONLINE_BATCH, Q_ONLINE, Q_BATCH):
         g = hier_geometry(TUNED["cut"], N_SUPER, SUPER_S, SUMMARY_S, FANOUT,
                           TUNED["superblock_budget"], DIM,

@@ -23,7 +23,13 @@ exits non-zero if a fault passes.
   (coordinates 30496-30521 at d = 30522) unset, so those lookups read
   +0.0;
 * tie-order: router_hier's top-m breaks stage-A score ties by the higher
-  index (lax.top_k takes the lower).
+  index (lax.top_k takes the lower);
+* group-drops-last: router_flat's consumers store the scores of every
+  query of a group but the last, whose rows keep whatever the output
+  buffer held;
+* dedupe-neighbour: refine_round's dedupe compares an id with the id two
+  places to its left, not one, so some duplicate neighbours stay in the
+  frontier.
 """
 from __future__ import annotations
 
@@ -52,6 +58,15 @@ FAULTS = {
     "tie-order": (f"{KERNELS}/router_fused/csrc/router_fused.cu",
                   "  return sa > sb || (sa == sb && ia < ib);",
                   "  return sa > sb || (sa == sb && ia > ib);", "phase3"),
+    "group-drops-last": (
+        f"{KERNELS}/router_fused/csrc/router_fused.cu",
+        "  const bool mine = (lane & (32 / V - 1)) == 0 && gq < n;",
+        "  const bool mine = (lane & (32 / V - 1)) == 0 && gq + 1 < n;",
+        "phase3"),
+    "dedupe-neighbour": (
+        f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
+        "      const int prev = e ? key[e - 1] : left;",
+        "      const int prev = e > 1 ? key[e - 2] : left;", "phase3"),
 }
 CHECKS = {
     "flash": ("['flash_attention']",

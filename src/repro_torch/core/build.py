@@ -28,6 +28,7 @@ import time
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.types import SeismicConfig, SeismicIndex
 from repro_torch.sparse.ops import PaddedSparse, widen_coords
 from repro_torch.sparse.quant import (dequantize_u8, quantize_u8,
@@ -283,13 +284,19 @@ def list_block_arrays(docs, vals, cnt, fwd: PaddedSparse,
 
 
 def sample_rep_pos(counts, cfg: SeismicConfig,
-                   gen: torch.Generator) -> torch.Tensor:
-    """Representative positions [L, beta], uniform over each list's
-    ``max(min(count, lam), 1)`` members (with replacement)."""
+                   lists: torch.Tensor | None = None) -> torch.Tensor:
+    """Representative positions [L, beta] of the lists ``lists`` (default
+    ``0 .. L - 1``) whose postings number ``counts`` [L], uniform over
+    each list's ``max(min(count, lam), 1)`` members (with replacement):
+    the JAX builder's draws, list l's from ``randint(fold_in(PRNGKey(
+    seed), l), (beta,), 0, max(cnt, 1))``. A list's row depends on its
+    coordinate and count alone, on any device, so one list can be drawn
+    again by itself."""
+    if lists is None:
+        lists = torch.arange(counts.shape[0], device=counts.device)
     hi = counts.clamp(max=cfg.lam).clamp(min=1)
-    u = torch.rand((counts.shape[0], cfg.beta), generator=gen,
-                   device=counts.device)
-    return torch.minimum((u * hi[:, None]).long(), hi[:, None] - 1)
+    keys = prng.fold_in(prng.key(cfg.seed, counts.device), lists)
+    return prng.randint(keys, (cfg.beta,), 0, hi[:, None])
 
 
 class _Ticker:
@@ -319,7 +326,8 @@ def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
     """Algorithm 1 over the whole collection, on the collection's device.
 
     ``rep_pos`` [dim, beta] fixes the representatives' positions
-    (default: drawn from a generator seeded with ``cfg.seed``). With
+    (default: ``sample_rep_pos``, the JAX builder's draws from
+    ``cfg.seed``). With
     ``timings`` given, seconds per phase accumulate into it."""
     dev, d, n = docs.device, docs.dim, docs.n
     lam, nb, s = cfg.lam, cfg.n_blocks, cfg.summary_nnz
@@ -327,8 +335,7 @@ def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
     fwd32 = docs.astype(torch.float32)
     sorted_v, sorted_d, starts, counts = _sorted_postings(docs)
     if cfg.blocking != "fixed" and rep_pos is None:
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        rep_pos = sample_rep_pos(counts, cfg, gen)
+        rep_pos = sample_rep_pos(counts, cfg)
     tick("postings")
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)

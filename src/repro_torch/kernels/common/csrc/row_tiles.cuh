@@ -256,18 +256,34 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, StageLayout l,
   copy_range(dst + l.zero, g.zero, 4u * rows, full);
 }
 
+// A tile copied from g into the region at src: its first row's coords,
+// levels, scale and zero; row(i, s) is row i.
+struct TileBase {
+  const int32_t* c;
+  const uint8_t* v;
+  const float* scale;
+  const float* zero;
+  __device__ __forceinline__ RowRef row(int i, int s) const {
+    return {c + (long long)i * s, v + (long long)i * s, scale[i], zero[i]};
+  }
+};
+
+__device__ __forceinline__ TileBase tile_base(const unsigned char* src,
+                                              StageLayout l, Rows g) {
+  auto at = [&](uint32_t off, const void* p) {
+    return src + off + (reinterpret_cast<uintptr_t>(p) & 15);
+  };
+  return {reinterpret_cast<const int32_t*>(at(0, g.c)),
+          reinterpret_cast<const uint8_t*>(at(l.levels, g.v)),
+          reinterpret_cast<const float*>(at(l.scale, g.scale)),
+          reinterpret_cast<const float*>(at(l.zero, g.zero))};
+}
+
 // Row i of a tile copied from g into the region at src.
 __device__ __forceinline__ RowRef tile_row(const unsigned char* src,
                                            StageLayout l, Rows g, int i,
                                            int s) {
-  auto at = [&](uint32_t off, const void* p) {
-    return src + off + (reinterpret_cast<uintptr_t>(p) & 15);
-  };
-  const int32_t* c = reinterpret_cast<const int32_t*>(at(0, g.c));
-  const uint8_t* v = reinterpret_cast<const uint8_t*>(at(l.levels, g.v));
-  const float* sc = reinterpret_cast<const float*>(at(l.scale, g.scale));
-  const float* z = reinterpret_cast<const float*>(at(l.zero, g.zero));
-  return {c + (long long)i * s, v + (long long)i * s, sc[i], z[i]};
+  return tile_base(src, l, g).row(i, s);
 }
 
 // A consumer warp scores rows first .. first + R - 1, then step rows on,
@@ -277,8 +293,8 @@ __device__ __forceinline__ RowRef tile_row(const unsigned char* src,
 // the one sum order); row_at(i) gives row i, store(i, s) is called by
 // lane i % R. A group's rows past n repeat its first row and are not
 // stored.
-template <int R, int K, typename RowAt, typename Store>
-__device__ __forceinline__ void score_rows(const QMasked& qv, int n, int s,
+template <int R, int K, typename Q, typename RowAt, typename Store>
+__device__ __forceinline__ void score_rows(const Q& qv, int n, int s,
                                            int first, int step, int lane,
                                            RowAt row_at, Store store) {
   for (int i0 = first; i0 < n; i0 += step) {

@@ -24,19 +24,34 @@
 // nnz * (value + coordinate) bytes (768 B for bf16 values and int32
 // coordinates at nnz 128); the q entries those rows name; and writes
 // both outputs. Operations: 2 per scored entry. At k 10, degree 8 and
-// 256 queries that is a few MB: the launch, not the bytes, sets its time
-// at these shapes.
+// 256 queries that is 5.4 MB, 1.6 us at 3.35 TB/s: below a launch's own
+// latency (an empty kernel, timed alike, takes about 5 us), so the
+// kernel's time is its chain of dependent steps.
 //
-// Design, simple and right first: one 256-thread block per query. The
-// expansion is written to shared memory padded to a power of two with
-// INT_MAX (which sorts after every id and the sentinel), a bitonic sort
-// orders it, each thread dedupes and seen-masks its entries into a second
-// shared buffer (the seen row is read through L1), a second bitonic sort
-// compacts, and the warps score the candidates with the shared row dot
-// of row_dot.cuh, the one gather_dot_cand uses: fuse levels 0, 1 and 2
-// rescore a document bitwise alike. Shared memory is 8 bytes per padded
-// candidate (1 KB at C = 80). No launch allocates; each runs on the
-// caller's stream and its C entry point returns cudaGetLastError().
+// Design: the chain kept short. The first design, one block per query
+// sorting in shared memory (two bitonic sorts of 28 steps, each behind a
+// __syncthreads), scanning the seen row serially per entry and rescoring
+// about 10 candidates one after another per warp, each a row dot whose q
+// lookups wait on its row's loads, took 20x its bound. Here one block of
+// kWarps warps takes one query:
+// * warp 0 holds the C <= 32 * KPL ids in registers, KPL a lane (padding
+//   INT_MAX sorts last), and sorts them by a bitonic network over
+//   __shfl_xor_sync with no block barrier; the left neighbour of a lane's
+//   first id comes by __shfl_up_sync;
+// * the seen row is loaded once, coalesced, at the kernel's start, and
+//   each of its ids is broadcast to the warp and tested against every
+//   lane's ids;
+// * after the second sort (the compaction) the block's warps split the
+//   live frontier, kRows candidates a warp at once, and load all their
+//   entries (kAhead per lane and row) before any q lookup (row_dots), so
+//   a query's row reads are in flight together.
+// The q lookups go to L2 (QRow): at the smoke's shapes a query's 34.5
+// live rows x 128 lookups touch 38.5 KB of distinct 32-byte sectors of
+// q_dense (chip_smoke.py phase 8), where a query bitmap would be built
+// from the whole 119 KB row (d = 30522). Each row is summed by row_dot.cuh's row_dots in its one order,
+// as gather_dot_cand sums it: fuse levels 0, 1 and 2 rescore a document
+// bitwise alike. No launch allocates; each runs on the caller's stream and
+// its C entry point returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -47,32 +62,52 @@
 
 namespace {
 
-constexpr int kWarps = 8;              // warps per 256-thread block
+constexpr int kWarps = 16;             // warps per block (one query)
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxSmem = 48 * 1024;    // without the opt-in attribute
+constexpr int kRows = 4;               // candidate rows a warp scores at once
+constexpr int kAhead = 4;              // entries per lane and row ahead
+constexpr int kSeenAhead = 4;          // 32-id chunks of the seen row loaded
+                                       // at the start
 
-using seismic::row_dot;
+using seismic::QRow;
+using seismic::row_dots;
 
-// ascending bitonic sort of P (a power of two) ints in shared memory
-__device__ __forceinline__ void bitonic_sort(int* key, int P) {
+// Ascending bitonic sort of the warp's 32 * KPL keys, lane l holding keys
+// l * KPL .. l * KPL + KPL - 1: exchanges within a lane swap registers,
+// exchanges across lanes trade through __shfl_xor_sync.
+template <int KPL>
+__device__ __forceinline__ void warp_sort(int (&key)[KPL], int lane) {
+  constexpr int P = 32 * KPL;
+#pragma unroll
   for (int k = 2; k <= P; k <<= 1) {
+#pragma unroll
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < P; i += kThreads) {
-        const int p = i ^ j;
-        if (p > i) {
-          const int a = key[i], b = key[p];
-          if ((a > b) == ((i & k) == 0)) {
-            key[i] = b;
-            key[p] = a;
+      if (j >= KPL) {
+#pragma unroll
+        for (int e = 0; e < KPL; ++e) {
+          const int i = lane * KPL + e;
+          const int other = __shfl_xor_sync(0xffffffffu, key[e], j / KPL);
+          const bool lower = (i & j) == 0, up = (i & k) == 0;
+          key[e] = lower == up ? min(key[e], other) : max(key[e], other);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < KPL; ++e) {
+          const int f = e ^ j;
+          if (f > e) {
+            const int a = key[e], b = key[f];
+            if ((a > b) == (((lane * KPL + e) & k) == 0)) {
+              key[e] = b;
+              key[f] = a;
+            }
           }
         }
       }
-      __syncthreads();
     }
   }
 }
 
-template <typename C, typename V, bool kQuant>
+template <int KPL, typename C, typename V, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 refine_round_kernel(const int32_t* __restrict__ ids,
                     const int32_t* __restrict__ scored,
@@ -84,67 +119,116 @@ refine_round_kernel(const int32_t* __restrict__ ids,
                     const float* __restrict__ fwd_zero,
                     int32_t* __restrict__ cand, float* __restrict__ out,
                     int k, int W, int degree, int knn_deg, int n_docs,
-                    int nnz, int P, int d) {
-  extern __shared__ int smem[];
-  int* key = smem;              // [P] the expansion, then its sort
-  int* front = smem + P;        // [P] deduped, seen-masked, then compacted
+                    int nnz, int d) {
+  __shared__ int front[32 * KPL];     // the compacted frontier
+  __shared__ int n_live;
   const long long qi = blockIdx.x;
   const int n_cand = k * degree;
-
-  // ---- 1. expand
-  for (int t = threadIdx.x; t < P; t += kThreads) {
-    int v = INT_MAX;
-    if (t < n_cand) {
-      const int id = ids[qi * k + t / degree];
-      if (id < 0) {
-        v = n_docs;
-      } else {
-        const long long doc = id < n_docs ? id : n_docs - 1;
-        v = knn[doc * knn_deg + t % degree];
-      }
-    }
-    key[t] = v;
-  }
-  __syncthreads();
-  bitonic_sort(key, P);
-
-  // ---- 2 and 3. dedupe against the left neighbour, then the seen set
-  const int32_t* seen = scored + qi * W;
-  for (int t = threadIdx.x; t < P; t += kThreads) {
-    int v = key[t];
-    if (t < n_cand) {
-      if (t > 0 && v == key[t - 1]) v = n_docs;
-      for (int w = 0; w < W && v != n_docs; ++w)
-        if (__ldg(seen + w) == v) v = n_docs;
-    }
-    front[t] = v;
-  }
-  __syncthreads();
-
-  // ---- 4. compact: live ids to a sorted prefix
-  bitonic_sort(front, P);
-
-  // ---- 5. exact rescore of the live frontier
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* qrow = q + qi * d;
-  for (int t = warp; t < n_cand; t += kWarps) {
-    const int id = front[t];
-    float r = -INFINITY;
-    if (id < n_docs) {
-      const long long doc = id < 0 ? 0 : id;
-      float sc = 0.0f, z = 0.0f;
-      if constexpr (kQuant) {
-        sc = fwd_scale[doc];
-        z = fwd_zero[doc];
+  if (warp == 0) {
+    // the first chunks of the seen row, in flight during the expansion
+    const int32_t* seen = scored + qi * W;
+    int sv[kSeenAhead];
+#pragma unroll
+    for (int c = 0; c < kSeenAhead; ++c)
+      sv[c] = c * 32 + lane < W ? seen[c * 32 + lane] : n_docs;
+    // ---- 1. expand: this lane's ids l * KPL + e, then their neighbours
+    int key[KPL], id[KPL];
+#pragma unroll
+    for (int e = 0; e < KPL; ++e) {
+      const int t = lane * KPL + e;
+      id[e] = t < n_cand ? ids[qi * k + t / degree] : 0;
+    }
+#pragma unroll
+    for (int e = 0; e < KPL; ++e) {
+      const int t = lane * KPL + e;
+      key[e] = INT_MAX;
+      if (t < n_cand)
+        key[e] = id[e] < 0
+                     ? n_docs
+                     : knn[(long long)min(id[e], n_docs - 1) * knn_deg +
+                           t % degree];
+    }
+    warp_sort<KPL>(key, lane);
+    // ---- 2. dedupe against the left neighbour, 3. the seen set
+    const int left = __shfl_up_sync(0xffffffffu, key[KPL - 1], 1);
+    int m[KPL];
+#pragma unroll
+    for (int e = 0; e < KPL; ++e) {
+      const int t = lane * KPL + e;
+      const int prev = e ? key[e - 1] : left;
+      m[e] = t > 0 && t < n_cand && key[e] == prev ? n_docs : key[e];
+    }
+    auto mask_seen = [&](int v) {
+#pragma unroll
+      for (int e = 0; e < KPL; ++e)
+        if (lane * KPL + e < n_cand && m[e] == v) m[e] = n_docs;
+    };
+    for (int c0 = 0; c0 < W; c0 += 32) {
+      const int c = c0 / 32;
+      int x = n_docs;
+      if (c < kSeenAhead) {
+#pragma unroll
+        for (int a = 0; a < kSeenAhead; ++a)
+          if (a == c) x = sv[a];
+      } else if (c0 + lane < W) {
+        x = seen[c0 + lane];
       }
-      r = row_dot<C, V, kQuant>(qrow, fwd_coords + doc * nnz,
-                                fwd_vals + doc * nnz, nnz, sc, z, lane);
+      const int n_here = min(32, W - c0);
+#pragma unroll 8
+      for (int s = 0; s < n_here; ++s)
+        mask_seen(__shfl_sync(0xffffffffu, x, s));
     }
-    if (lane == 0) {
-      cand[qi * n_cand + t] = id;
-      out[qi * n_cand + t] = r;
+    // ---- 4. compact: live ids to a sorted prefix
+    warp_sort<KPL>(m, lane);
+    int live = 0;
+#pragma unroll
+    for (int e = 0; e < KPL; ++e) {
+      front[lane * KPL + e] = m[e];
+      live += lane * KPL + e < n_cand && m[e] < n_docs;
     }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      live += __shfl_xor_sync(0xffffffffu, live, o);
+    if (lane == 0) n_live = live;
   }
+  __syncthreads();
+
+  // ---- 5. write the frontier; rescore its live prefix
+  const int nl = n_live;
+  const long long base = qi * n_cand;
+  for (int t = threadIdx.x; t < n_cand; t += kThreads) {
+    cand[base + t] = front[t];
+    if (t >= nl) out[base + t] = -INFINITY;
+  }
+  const QRow qv{q + qi * d};
+  for (int i0 = warp * kRows; i0 < nl; i0 += kWarps * kRows) {
+    const C* c[kRows];
+    const V* v[kRows];
+    float sc[kRows], z[kRows], r[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int fid = front[i0 + j < nl ? i0 + j : i0];
+      const long long doc = fid < 0 ? 0 : fid;
+      c[j] = fwd_coords + doc * nnz;
+      v[j] = fwd_vals + doc * nnz;
+      sc[j] = z[j] = 0.0f;
+      if constexpr (kQuant) {
+        sc[j] = fwd_scale[doc];
+        z[j] = fwd_zero[doc];
+      }
+    }
+    row_dots<kRows, kAhead, C, V, kQuant>(qv, c, v, nnz, sc, z, lane, r);
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+      if (lane == j && i0 + j < nl) out[base + i0 + j] = r[j];
+  }
+}
+
+// ids a lane of the sorting warp holds for C candidates: 4 (C <= 128) or
+// 16 (C <= 512); 0 where C is larger than the kernel takes
+int keys_per_lane(int n_cand) {
+  return n_cand <= 128 ? 4 : (n_cand <= 512 ? 16 : 0);
 }
 
 template <typename C, typename V, bool kQuant>
@@ -153,18 +237,29 @@ int launch(const int32_t* ids, const int32_t* scored, const float* q,
            const float* fwd_scale, const float* fwd_zero, int32_t* cand,
            float* out, int Q, int k, int W, int degree, int knn_deg,
            int n_docs, int nnz, int d, cudaStream_t stream) {
-  int P = 1;
-  while (P < k * degree) P <<= 1;
-  const size_t smem = (size_t)P * 2 * sizeof(int);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  refine_round_kernel<C, V, kQuant><<<(unsigned)Q, kThreads, smem, stream>>>(
+  const int kpl = keys_per_lane(k * degree);
+  auto kernel = kpl == 4 ? refine_round_kernel<4, C, V, kQuant>
+                         : refine_round_kernel<16, C, V, kQuant>;
+  kernel<<<(unsigned)Q, kThreads, 0, stream>>>(
       ids, scored, q, knn, static_cast<const C*>(fwd_coords),
       static_cast<const V*>(fwd_vals), fwd_scale, fwd_zero, cand, out, k, W,
-      degree, knn_deg, n_docs, nnz, P, d);
+      degree, knn_deg, n_docs, nnz, d);
   return (int)cudaGetLastError();
 }
 
+// Does nothing: its launch time is the floor under a kernel as short as
+// this one (chip_smoke.py prints it beside refine_round's time).
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+extern "C" int refine_empty_launch(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// The most candidates (k * degree) a launch takes.
+extern "C" int refine_max_candidates() { return 512; }
 
 // coord_kind: 0 = int32, 1 = uint16.
 // val_kind:   0 = float32, 1 = bfloat16, 2 = uint8 with per-row dequant.
@@ -174,7 +269,8 @@ extern "C" int refine_round_launch(
     const float* fwd_scale, const float* fwd_zero, int32_t* cand, float* out,
     int Q, int k, int W, int degree, int knn_deg, int n_docs, int nnz, int d,
     int coord_kind, int val_kind, cudaStream_t stream) {
-  if (k < 1 || degree < 1 || degree > knn_deg || n_docs < 1)
+  if (k < 1 || degree < 1 || degree > knn_deg || n_docs < 1 || W < 0 ||
+      keys_per_lane(k * degree) == 0)
     return (int)cudaErrorInvalidValue;
 #define REFINE_ARGS                                                          \
   ids, scored, q, knn, fwd_coords, fwd_vals, fwd_scale, fwd_zero, cand, out, \

@@ -7,7 +7,9 @@
                         one launch
 
 The signature is the JAX package's without ``tile_q`` and ``interpret``
-(one block per query here). The forward plane takes the gather_dot
+(one block per query here; one warp sorts its k * degree ids in
+registers, so the kernel takes at most ``max_candidates()`` = 512 and
+the wrapper raises beyond). The forward plane takes the gather_dot
 kernels' types: int32 or uint16 coordinates; f32, bf16, or u8 values
 with per-document (scale, zero). CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the kernel or raise.
@@ -34,6 +36,10 @@ def _lib() -> ctypes.CDLL:
         v, i = ctypes.c_void_p, ctypes.c_int
         lib.refine_round_launch.argtypes = [v] * 10 + [i] * 10 + [v]
         lib.refine_round_launch.restype = i
+        lib.refine_empty_launch.argtypes = [v]
+        lib.refine_empty_launch.restype = i
+        lib.refine_max_candidates.argtypes = []
+        lib.refine_max_candidates.restype = i
         _ready = True
     return lib
 
@@ -73,6 +79,9 @@ def refine_round_batch(ids: torch.Tensor, scored: torch.Tensor,
             f"{name}: inputs must be contiguous")
     dev = q_dense.device
     c = k * degree
+    require(c <= max_candidates(),
+            f"{name}: k * degree = {c} candidates, more than the kernel's "
+            f"{max_candidates()} (one warp sorts them in registers)")
     cand = torch.empty((qn, c), dtype=torch.int32, device=dev)
     out = torch.empty((qn, c), dtype=torch.float32, device=dev)
     if qn == 0:
@@ -88,4 +97,19 @@ def refine_round_batch(ids: torch.Tensor, scored: torch.Tensor,
     return cand, out
 
 
-__all__ = ["refine_round_batch", "refine_round_ref"]
+def max_candidates() -> int:
+    """The most candidates (k * degree) the kernel takes a query."""
+    return _lib().refine_max_candidates()
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel of the same library on ``device``'s current
+    stream: its time is the launch floor under refine_round (counted
+    nowhere)."""
+    runtime.check_launch(_lib().refine_empty_launch(
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)),
+        "empty kernel")
+
+
+__all__ = ["refine_round_batch", "refine_round_ref", "max_candidates",
+           "empty_launch"]

@@ -2,19 +2,26 @@
 
 ``router_flat_batch``  probed lists [Q, cut] + summary planes [L, nb, S]
                        -> routed scores r [Q, cut*nb] (dead blocks at
-                       -inf), one launch
+                       -inf), three launches: the lists inverted into
+                       groups by list, the queries' records, the route
 ``router_hier_batch``  stage A over the superblock planes [L, ns, S2],
                        per-query top-m, stage B over the children ->
                        (rb [Q, m*fanout], flat [Q, m*fanout]), one launch
 
 The signatures are the JAX package's without its ``tile_q`` and
-``interpret``: router_flat has one warp per summary row; router_hier
-runs a cluster of blocks per query (``row_tiles.cluster_size``, by the
-batch and the card's SMs), and its C entry point sizes the tiles and
-shared memory from the shapes (``hier_geometry`` reports them). The
-wrapper raises where d is beyond ``row_tiles.MAX_DIM`` or a block's
-shared memory would not hold them. CPU tensors take the plain versions
-(``ref.py``); CUDA tensors launch the kernels or raise.
+``interpret``. router_flat is list-major at every batch size: each
+distinct probed list's live block rows are streamed once per group of
+up to 8 probing (query, slot) pairs and scored for all of them at once,
+whatever Q (at the smoke's 256 queries each live row is probed 2.3
+times, at 4096 15.5 times), so its geometry (``flat_geometry``)
+depends on the shapes alone.
+router_hier runs a cluster of blocks per query
+(``row_tiles.cluster_size``, by the batch and the card's SMs). Each C
+entry point sizes its tiles, shared memory and scratch from the shapes
+(``flat_geometry``, ``hier_geometry`` report them). The wrappers raise
+where d is beyond ``row_tiles.MAX_DIM`` or a block's shared memory
+would not hold them. CPU tensors take the plain versions (``ref.py``);
+CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -44,14 +51,32 @@ def _lib() -> ctypes.CDLL:
     lib = runtime.library("router_fused")
     if not _ready:
         v, i = ctypes.c_void_p, ctypes.c_int
-        lib.router_flat_launch.argtypes = [v] * 8 + [i] * 6 + [v]
+        lib.router_flat_launch.argtypes = [v] * 9 + [i] * 7 + [v]
         lib.router_flat_launch.restype = i
+        lib.router_flat_geometry.argtypes = [i] * 7 + [v]
+        lib.router_flat_geometry.restype = i
         lib.router_hier_launch.argtypes = [v] * 13 + [i] * 11 + [v]
         lib.router_hier_launch.restype = i
         lib.router_hier_geometry.argtypes = [i] * 8 + [v]
         lib.router_hier_geometry.restype = i
         _ready = True
     return lib
+
+
+def flat_geometry(qn: int, cut: int, l: int, nb: int, s: int, d: int,
+                  sms: int) -> dict:
+    """router_flat's launch geometry as its library computes it: pairs a
+    group, rows per warp, tile rows, the persistent grid, bitmap words per
+    query, a ring stage's bytes, a query record's bytes, the non-zeros a
+    record lists, the group table's bytes, the union coordinates a table
+    holds, the main, the groups and the records kernel's dynamic shared
+    memory, scratch words (int32), ring stages."""
+    return row_tiles.read_geometry(
+        "router_flat", _lib().router_flat_geometry,
+        ("group", "rows_per_warp", "tile_rows", "grid", "bitmap_words",
+         "stage_bytes", "record_bytes", "listed", "table_bytes", "union",
+         "smem", "groups_smem", "records_smem", "scratch_words", "stages"),
+        qn, cut, l, nb, s, d, sms)
 
 
 def hier_geometry(cut: int, ns: int, s2: int, s: int, fanout: int, m: int,
@@ -115,15 +140,22 @@ def router_flat_batch(lists: torch.Tensor, q_dense: torch.Tensor,
     _contiguous("router_flat", *args)
     qn, cut = lists.shape
     l, nb, s = sum_coords.shape
-    out = torch.empty((qn, cut * nb), dtype=torch.float32,
-                      device=q_dense.device)
+    dev = q_dense.device
+    out = torch.empty((qn, cut * nb), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    d, sms = q_dense.shape[1], _sm_count(dev)
+    g = flat_geometry(qn, cut, l, nb, s, d, sms)
+    row_tiles.check_smem("router_flat", g["smem"])
+    row_tiles.check_smem("router_flat's groups", g["groups_smem"])
+    row_tiles.check_smem("router_flat's records", g["records_smem"])
+    scratch = torch.empty(g["scratch_words"], dtype=torch.int32, device=dev)
     err = _lib().router_flat_launch(
-        *map(runtime.ptr, args), runtime.ptr(out), qn, cut, l, nb, s,
-        q_dense.shape[1], runtime.stream_of(q_dense))
+        *map(runtime.ptr, args), runtime.ptr(out), runtime.ptr(scratch), qn,
+        cut, l, nb, s, d, sms, runtime.stream_of(q_dense))
     runtime.check_launch(err, "router_flat")
-    runtime.count_launch("router_flat")
+    for name in ("router_flat_groups", "router_flat_records", "router_flat"):
+        runtime.count_launch(name)
     return out
 
 
@@ -172,5 +204,6 @@ def router_hier_batch(lists: torch.Tensor, q_dense: torch.Tensor,
     return rb, flat
 
 
-__all__ = ["router_flat_batch", "router_hier_batch", "hier_geometry",
+__all__ = ["router_flat_batch", "router_hier_batch", "flat_geometry",
+           "hier_geometry",
            "router_flat_ref", "router_hier_ref", "CLUSTER_LAUNCHES"]

@@ -43,7 +43,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"summary_dot": 0, "gather_dot": 0, "gather_dot_cand": 0,
             "router_flat": 0, "router_hier": 0, "refine_round": 0,
-            "flash_attention": 0}
+            "flash_attention": 0,
+            # router_flat's two helpers: its lists inverted into groups by
+            # list, and the queries' records
+            "router_flat_groups": 0, "router_flat_records": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.types import SeismicIndex
 from repro_torch.models.transformer import lm
@@ -39,9 +40,11 @@ class LMDecoder:
         """prompts [B, P] -> tokens int32 [B, P + n_steps] on the device.
 
         Prefills by stepping, as the JAX package does. Greedy takes the
-        first maximum (``torch.argmax``, as ``jnp.argmax``); sampling draws
-        from softmax(logits) with a ``torch.Generator`` seeded with
-        ``seed`` (other draws than ``jax.random.categorical``)."""
+        first maximum (``torch.argmax``, as ``jnp.argmax``); sampling
+        follows the JAX package's key chain: ``PRNGKey(seed)``, a
+        ``split`` each step, ``categorical`` with the second key over the
+        logits in their dtype (``repro_torch.prng``), so equal logits give
+        JAX's tokens."""
         prompts = torch.as_tensor(prompts, device=self.device).to(torch.int32)
         b, plen = prompts.shape
         if b != self.cache["k"].shape[1]:
@@ -50,7 +53,7 @@ class LMDecoder:
         if plen == 0 or plen + n_steps > self.max_seq:
             raise ValueError(f"generate: prompt length {plen} plus {n_steps} "
                              f"steps must lie in 1..max_seq {self.max_seq}")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        key = prng.key(seed, self.device)
         toks = [prompts[:, i] for i in range(plen)]
         for i in range(plen):
             logits, self.cache = lm.decode_step(
@@ -59,8 +62,8 @@ class LMDecoder:
             if greedy:
                 nxt = torch.argmax(logits, dim=-1)
             else:
-                probs = torch.softmax(logits.float(), dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+                key, sub = prng.split(key)
+                nxt = prng.categorical(sub, logits)
             toks.append(nxt.to(torch.int32))
             logits, self.cache = lm.decode_step(
                 self.params, self.cache, toks[-1][:, None], plen + j,

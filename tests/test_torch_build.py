@@ -27,6 +27,7 @@ from repro.core import build_index as jax_build
 from repro.retrieval import SearchParams as JParams
 from repro.retrieval import search_pipeline as jax_search
 from repro_torch.core import build_index, live_blocks
+from repro_torch.core.build import sample_rep_pos
 from repro_torch.core.types import SeismicConfig
 from repro_torch.retrieval import SearchParams, search_pipeline
 from repro_torch.sparse.ops import PaddedSparse
@@ -138,6 +139,27 @@ def test_geometric_build_matches_reference(small_collection, small_index):
             SearchParams(use_kernel=False, fuse_level=0, **p))
         np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                    rtol=1e-5, atol=1e-6)
+
+
+def test_default_build_draws_the_jax_representatives(small_collection,
+                                                    small_index):
+    """Without ``rep_pos`` the port draws JAX's representatives itself
+    (``sample_rep_pos``: fold_in per list), so the build gives JAX's
+    integer planes, up to the near-tie lists that the test above allows."""
+    _, _, docs_np, _, _ = small_collection
+    jindex, jcfg = small_index
+    rep_pos = jax_rep_pos(jindex, jcfg)
+    counts = torch.from_numpy(np.array(jindex.list_len)).long()
+    assert torch.equal(sample_rep_pos(counts, SeismicConfig(
+        **dataclasses.asdict(jcfg))), rep_pos)
+    some = torch.tensor([5, 0, 700])     # lists drawn alone: their rows
+    assert torch.equal(sample_rep_pos(counts[some], SeismicConfig(
+        **dataclasses.asdict(jcfg)), some), rep_pos[some])
+    index = build_index(port_docs(docs_np),
+                        SeismicConfig(**dataclasses.asdict(jcfg)),
+                        list_chunk=37)
+    ties = near_tie_lists(jindex, index, rep_pos, docs_np)
+    assert_planes(jindex, index, skip_lists=ties)
 
 
 def test_centroid_summaries_match_reference(small_collection):

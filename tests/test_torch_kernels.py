@@ -53,7 +53,10 @@ from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
                                                 gather_dot_cand_ref)
 from repro_torch.kernels.refine_fused.ops import refine_round_batch
 from repro_torch.kernels.refine_fused.ref import refine_round_ref
-from repro_torch.kernels.router_fused.ops import (hier_geometry,
+from repro_torch.core.build import sample_rep_pos
+from repro_torch.core.types import SeismicConfig
+from repro_torch.kernels.router_fused.ops import (flat_geometry,
+                                                  hier_geometry,
                                                   router_flat_batch,
                                                   router_hier_batch)
 from repro_torch.kernels.router_fused.ref import (router_flat_ref,
@@ -242,7 +245,9 @@ def test_plain_path_counts_no_launch():
     assert runtime.LAUNCHES == {"summary_dot": 0, "gather_dot": 0,
                                 "gather_dot_cand": 0, "router_flat": 0,
                                 "router_hier": 0, "refine_round": 0,
-                                "flash_attention": 0}
+                                "flash_attention": 0,
+                                "router_flat_groups": 0,
+                                "router_flat_records": 0}
 
 
 def test_kernel_sources_are_registered_and_hashed():
@@ -325,8 +330,8 @@ def refine_inputs(qn, k, w, n_docs, deg, nnz, d, kind, seed):
     knn = rng.integers(0, n_docs, (n_docs, deg)).astype(np.int32)
     knn[rng.random((n_docs, deg)) < 0.1] = n_docs     # missing edges
     scored = np.full((qn, w), n_docs, np.int32)
-    scored[:, :k] = np.where(ids >= 0, ids, n_docs)
-    scored[:, k:] = rng.integers(0, n_docs, (qn, w - k))
+    scored[:, :k] = np.where(ids >= 0, ids, n_docs)[:, :w]
+    scored[:, k:] = rng.integers(0, n_docs, (qn, max(w - k, 0)))
     if w - k >= deg:
         scored[0, k:k + deg] = knn[max(ids[0, 0], 0), :deg]
     q = rng.lognormal(0, 1, (qn, d)).astype(np.float32)
@@ -1105,3 +1110,156 @@ def test_router_hier_kernel_is_the_same_at_every_cluster_size_on_card(
                                          dot=summary_dot_batch)
     assert torch.equal(flat, want_flat) and torch.equal(rb, want_rb)
 
+
+
+def flat_inputs(qn, cut, nl, nb, s, d, seed):
+    """router_flat inputs over a small plane of nl lists: sparse queries
+    and one dense one (their summaries' coords drawn from the queries'
+    pool, so lookups hit), every query probing list 7, query 0 probing
+    it 9 times (more pairs than a group holds even at Q = 1) and the
+    dead list 3, the last query out-of-range probes (clipped) and a
+    repeated one. Each list's live blocks are a prefix of random length;
+    list 5 has a dead block inside its prefix."""
+    rng = np.random.default_rng(seed)
+    q, pool = sparse_queries(qn, d, seed=seed)
+    # one query of 300 non-zeros, too many to stage: the groups it joins
+    # look q up in L2 (QMasked), the others in shared memory (QStaged)
+    q[min(1, qn - 1), pool[:300]] = 1.5
+    lists = rng.integers(0, nl, (qn, cut)).astype(np.int32)
+    lists[:, 0] = 7
+    lists[0, :9] = 7
+    lists[0, 9] = 3
+    lists[-1, 10:14] = (-5, nl + 9, 3, 3)
+    lists[-1, 14] = lists[-1, 15]
+    live = rng.integers(0, nb + 1, nl)
+    live[3], live[7] = 0, nb
+    block_len = (np.arange(nb)[None] < live[:, None]).astype(np.int32) \
+        * rng.integers(1, 64, (nl, nb)).astype(np.int32)
+    block_len[5, : nb // 2] = 1
+    block_len[5, nb // 4] = 0
+    coords, *rest = tier_planes(nl, nb, s, pool.size, seed + 1)
+    return (lists, q, pool[coords], *rest, block_len)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qn", [1, 16, 256, 4096])
+def test_router_flat_list_major_on_card(qn):
+    """The list-major route at 1 to 4096 queries over a small plane: equal
+    to the plain version (-inf exactly at dead blocks, dead lists and
+    clipped probes of dead lists), and every live score bitwise
+    summary_dot's on the same rows (the unfused route); the groups, the
+    bitmaps and the route each count one launch."""
+    dev = _cuda()
+    cut, nl, nb, s, d = 16, 40, 37, 96, 30522
+    args = [_t(x).to(dev) for x in flat_inputs(qn, cut, nl, nb, s, d, qn)]
+    names = ("router_flat", "router_flat_groups", "router_flat_records")
+    before = {n: runtime.LAUNCHES[n] for n in names}
+    got = router_flat_batch(*args)
+    torch.cuda.synchronize()
+    assert all(runtime.LAUNCHES[n] == before[n] + 1 for n in names)
+    assert got.shape == (qn, cut * nb)
+    assert_scores(got.cpu().numpy(), router_flat_ref(*args).cpu())
+    lists, q, sc, sq, ss, sz, bl = args
+    li = lists.long().clamp(0, nl - 1)
+    unfused = summary_dot_batch(q, sc[li].reshape(qn, -1, s),
+                                sq[li].reshape(qn, -1, s),
+                                ss[li].reshape(qn, -1),
+                                sz[li].reshape(qn, -1))
+    live = torch.isfinite(got)
+    assert torch.equal(live, (bl[li] > 0).reshape(qn, -1))
+    assert torch.equal(got[live], unfused[live])
+    # the same answer again: the groups' order never reaches the output
+    assert torch.equal(router_flat_batch(*args), got)
+
+
+@pytest.mark.gpu
+def test_router_flat_geometry_on_card():
+    """At the smoke's shapes two blocks fit an SM (the ring of 3 tiles of
+    32 rows, two buffers of a group's 8 query records, the group table),
+    the grid is two blocks an SM or one per possible group, and the
+    scratch holds the query records, the pairs and the group table."""
+    _cuda()
+    g = flat_geometry(256, 10, 30522, 494, 96, 30522, 132)
+    assert (g["group"], g["rows_per_warp"], g["tile_rows"]) == (8, 4, 32)
+    assert 2 * (g["smem"] + 1024) <= 228 * 1024
+    assert g["grid"] == 264 and g["bitmap_words"] % 4 == 0
+    assert g["listed"] >= 48 and g["union"] >= 8 * 48
+    assert g["record_bytes"] % 16 == 0
+    assert g["record_bytes"] >= 8 * g["listed"] + 4
+    assert g["table_bytes"] >= 32 * g["union"] + 4 * g["bitmap_words"]
+    assert max(g["groups_smem"], g["records_smem"]) <= row_tiles.SMEM_MAX
+    p = 256 * 10
+    assert g["scratch_words"] == (256 * g["record_bytes"] // 4 + 4 + 2 * p
+                                  + 3 * (p // 8 + 1 + p))
+    assert flat_geometry(1, 2, 30522, 494, 96, 30522, 132)["grid"] == 3
+    with pytest.raises(ValueError, match="geometry refuses"):
+        flat_geometry(0, 10, 30522, 494, 96, 30522, 132)
+
+
+REFINE_EDGES = {   # qn, k, w, n_docs, deg, degree
+    "k*degree 21": (9, 7, 10, 3000, 5, 3),
+    "degree 1": (9, 10, 1, 3000, 4, 1),
+    "W 90": (64, 10, 90, 5000, 12, 8),
+    "512 candidates": (5, 64, 90, 5000, 8, 8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", VAL_KINDS)
+@pytest.mark.parametrize("case", list(REFINE_EDGES) + ["all padding"])
+def test_refine_round_kernel_edges_on_card(case, kind):
+    """The register-sort refine round: k * degree not a power of two, degree
+    1 with a seen row of one id, W 90, the 512-candidate sort (16 ids a
+    lane) and ids that are all padding, in the three value kinds, all
+    with uint16 coords (a compact forward index). Frontier ids equal the
+    plain version's; scores are bitwise gather_dot_cand's on the
+    frontier."""
+    dev = _cuda()
+    qn, k, w, n_docs, deg, degree = REFINE_EDGES.get(case,
+                                                     (7, 10, 20, 3000, 8, 8))
+    ids, scored, q, knn, *plane = refine_inputs(qn, k, w, n_docs, deg, 128,
+                                                30522, kind, seed=k + w)
+    if case == "all padding":
+        ids[:] = -1
+        scored[:, :k] = n_docs
+    args = [_t(x).to(dev) for x in (ids, scored, q, knn)]
+    tplane = [None if x is None else x.to(dev) for x in as_torch(*plane)]
+    if tplane[0].dtype == torch.int32:               # d < 32768
+        tplane[0] = tplane[0].to(torch.int16).view(torch.uint16)
+    cand, scores = refine_round_batch(*args, *tplane, n_docs=n_docs,
+                                      degree=degree)
+    torch.cuda.synchronize()
+    want_c, want_s = refine_round_ref(*args, *tplane, n_docs, degree)
+    assert torch.equal(cand, want_c)
+    assert_scores(scores.cpu().numpy(), want_s.cpu())
+    assert torch.equal(scores, gather_dot_cand_batch(
+        args[2], cand, *tplane, n_docs=n_docs))
+    if case == "all padding":
+        assert bool((cand == n_docs).all())
+
+
+@pytest.mark.gpu
+def test_refine_round_wrapper_raises_beyond_its_sort_on_card():
+    dev = _cuda()
+    ids, scored, q, knn, *plane = refine_inputs(2, 65, 70, 500, 8, 16, 64,
+                                                "f32", seed=1)
+    args = [_t(x).to(dev) for x in (ids, scored, q, knn)]
+    tplane = [None if x is None else x.to(dev) for x in as_torch(*plane)]
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(ValueError, match="512"):
+        refine_round_batch(*args, *tplane, n_docs=500, degree=8)
+    assert dict(runtime.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+def test_sample_rep_pos_on_card_equals_cpu():
+    """The builder's representative draws (repro_torch.prng) are integer
+    arithmetic: the card draws the CPU's positions, at the MS MARCO
+    shapes (30522 lists, beta 400, lam 6000)."""
+    dev = _cuda()
+    cfg = SeismicConfig(lam=6000, beta=400)
+    counts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 20000, 30522))
+    counts[:3] = torch.tensor([0, 1, 6000])
+    cpu = sample_rep_pos(counts, cfg)
+    assert torch.equal(sample_rep_pos(counts.to(dev), cfg).cpu(), cpu)

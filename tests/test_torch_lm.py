@@ -218,6 +218,36 @@ def test_lm_decoder_greedy_tokens_equal_jax(reduced):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_lm_decoder_sampling_picks_jax_tokens(reduced, monkeypatch):
+    """``generate(greedy=False)`` walks JAX's key chain (split, then
+    categorical over the logits). The two packages' logits agree only
+    within RTOL, so both samplers are fed the same logits: the port's
+    decoder steps through the JAX decoder's own jitted ``decode_step``
+    on the JAX parameters and cache, and must pick JAX's tokens."""
+    cfg, jcfg, params, mod = reduced
+    prompts = _tokens(cfg, 3, 4, seed=5)
+    for seed in (0, 11):
+        jdec = JLMDecoder(params, jcfg, batch=3, max_seq=16)
+        want = jdec.generate(prompts, 10, greedy=False, seed=seed)
+        jdec.cache = jlm.init_cache(jcfg, 3, 16)
+
+        def jax_step(_params, cache, toks, pos, _cfg):
+            logits, jdec.cache = jdec._step(
+                params, jdec.cache, jnp.asarray(toks.numpy(), jnp.int32),
+                jnp.asarray(pos, jnp.int32))
+            return torch.from_numpy(np.array(logits)), cache
+
+        monkeypatch.setattr(lm, "decode_step", jax_step)
+        got = LMDecoder(mod, cfg, batch=3, max_seq=16).generate(
+            prompts, 10, greedy=False, seed=seed)
+        monkeypatch.undo()
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        greedy = JLMDecoder(params, jcfg, batch=3, max_seq=16).generate(
+            prompts, 10)
+        assert not np.array_equal(np.asarray(want), np.asarray(greedy))
+
+
 def test_decode_matches_forward(reduced):
     """Decode logits (prefill by stepping) equal the full forward's at
     every position: caches, RoPE offsets and masks agree."""

@@ -75,7 +75,33 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    three timed runs;
 11. ``LMDecoder(batch=8, max_seq=128)`` answers 8 requests of 32-token
    prompts with 32 greedy tokens each; the decode logits over the
-   generated sequences against ``forward(use_kernel=True)``'s.
+   generated sequences against ``forward(use_kernel=True)``'s;
+12. the mutation path (run after phase 8, on phase 7's index and graph):
+   ``make_mutable`` lifts it to 1,050,624 docs with a 512-slot tail;
+   2,048 docs drawn with another seed are inserted in chunks of 512
+   (every chunk after the first compacts first); before the last chunk
+   5 % of the base and 10 % of the inserted docs are deleted; a final
+   ``compact()``. ``SeismicServer.apply_mutation`` publishes the index to
+   the servers of both operating points at fuse 0, 1 and 2 at three
+   points (lifted; "during": a full tail and mask-only deletes;
+   "after"), and 256 queries (half of them drawn with the inserts' seed)
+   go through the 256-query and the online servers, with launch counts
+   set to 0 just before and read just after (each of a-f must launch).
+   Asserted: bitwise equal across levels and online to batched; the
+   kernel path against the plain stages on its route (see
+   ``plain_on_kernel_route``); no deleted id returned; recall@10 during
+   and after at least 0.98 x a fresh build's (and graph's) of the same
+   corpus (the JAX package's mutation gate); the summaries of 64
+   compacted lists bound their members; a bitwise ``save_index`` /
+   ``load_index`` round trip (under ``build/``) with the same answers;
+   every published snapshot on the card. Printed: insert docs/s,
+   each compaction's seconds with its minor and major list counts, ms
+   per batch lifted / during / after, save and load seconds, peak
+   device memory.
+
+The index and query widths come from ``configs/seismic_msmarco``
+(``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED``
+stays a literal until the port has the tuner.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failure raises
@@ -120,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -129,28 +156,47 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.configs.seismic_msmarco import CONFIG_HIER, SHAPES
+except ModuleNotFoundError as exc:      # the script outside a checkout
+    sys.exit(f"chip_smoke: run from a checkout of the repository ({exc})")
+
 RTOL, ATOL = 2e-5, 1e-6
-# the slice's shapes: MS MARCO widths (configs/seismic_msmarco.py) and
-# its two query batches; router L = cut * n_blocks = 10 * 494
-DIM, DOC_NNZ, QUERY_NNZ = 30522, 128, 48
-Q_ONLINE, Q_BATCH, CUT, BLOCK_BUDGET = 256, 4096, 10, 64
+# the slice's shapes: MS MARCO widths (configs/seismic_msmarco.CONFIG_HIER:
+# its index config with the superblock tier suggest_fanout picks, fanout 8)
+# and the two query batches of its SHAPES; router L = cut * n_blocks
+ICFG = CONFIG_HIER.index
+DIM, DOC_NNZ, QUERY_NNZ = CONFIG_HIER.dim, CONFIG_HIER.doc_nnz, \
+    CONFIG_HIER.query_nnz
+_ONLINE, _BATCH = ({c.name: c.dims for c in SHAPES}[n]
+                   for n in ("query_online", "query_batch"))
+Q_ONLINE, Q_BATCH = _ONLINE["batch"], _BATCH["batch"]
+CUT, BLOCK_BUDGET = _ONLINE["cut"], _ONLINE["block_budget"]
 # an online server that answers each request as it arrives, one query
 # padded to a batch of 8, as the serving benchmark of the JAX package
 # (benchmarks/serving_load.py, its closed-loop and replica rows) serves;
 # router_hier then runs a cluster of blocks per query
 ONLINE_BATCH, ONLINE_REQUESTS = 8, 16
-INDEX = dict(lam=6000, beta=400, alpha=0.4, block_cap=64, summary_nnz=96,
-             fwd_dtype="bfloat16")
-ROUTER_L, SUMMARY_S, SCORER_N, STAGE1_N = 4940, 96, 4096, 512
+ROUTER_L, SUMMARY_S = CUT * ICFG.n_blocks, ICFG.summary_nnz
+SCORER_N, STAGE1_N = 4096, 512
 PLANE_DOCS = 1 << 20
-# CONFIG_HIER (configs/seismic_msmarco.py): suggest_fanout of the modelled
-# MS MARCO lists; 62 superblocks of 8 * 96 = 768 entries per list
-FANOUT, N_SUPER, SUPER_S = 8, 62, 768
-# CONFIG_TUNED's operating point at recall target 0.95
+# 62 superblocks of 8 * 96 = 768 entries per list
+FANOUT, N_SUPER, SUPER_S = (ICFG.superblock_fanout, ICFG.n_superblocks,
+                            ICFG.superblock_nnz)
+# CONFIG_TUNED's operating point at recall target 0.95 (the JAX
+# package's modeled tuning; the port has no tuner yet)
 TUNED = dict(k=10, cut=8, block_budget=128, policy="budget",
              superblock_fanout=FANOUT, superblock_budget=32, graph_degree=8,
              refine_rounds=2)
 GRAPH_DEGREE, GRAPH_BATCH = 8, 4096
+# phase 12: 2,048 docs inserted in chunks of 512 through a tail of 512
+# slots (every chunk after the first compacts first); before the last
+# chunk 5 % of the base and 10 % of the inserted docs are deleted
+MUT_INSERTS, MUT_CHUNK, MUT_TAIL = 2048, 512, 512
+MUT_DELETE_BASE, MUT_DELETE_NEW = 0.05, 0.10
+RECALL_RATIO = 0.98    # the JAX package's mutation gate (benchmarks/mutation.py)
+BOUND_LISTS = 64       # compacted lists whose summaries are checked
 SYNTH_LISTS = 2048              # lists of the synthetic router planes
 RUN_TO_RUN_DOCS = 1 << 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -477,14 +523,13 @@ def run_to_run_phase(torch, dev, seed) -> None:
     """Phase 4: the collection and the index made twice from one seed at
     65,536 docs; raises naming every plane that differs."""
     from repro_torch.core.build import build_index
-    from repro_torch.core.types import SeismicConfig
     from repro_torch.data import SyntheticSparseConfig, make_collection
     cfg = SyntheticSparseConfig(dim=DIM, n_docs=RUN_TO_RUN_DOCS,
                                 n_queries=Q_ONLINE, doc_nnz=DOC_NNZ,
                                 query_nnz=QUERY_NNZ, seed=seed)
     (d1, q1, _), (d2, q2, _) = (make_collection(cfg, device=dev)
                                 for _ in range(2))
-    icfg = SeismicConfig(**INDEX, superblock_fanout=FANOUT, seed=seed)
+    icfg = dataclasses.replace(ICFG, seed=seed)
     i1, i2 = build_index(d1, icfg), build_index(d1, icfg)
     index_planes = [("fwd.coords", i1.fwd.coords, i2.fwd.coords),
                     ("fwd.vals", i1.fwd.vals, i2.fwd.vals)]
@@ -535,26 +580,34 @@ ONLINE = f"online {ONLINE_BATCH}"
 LABELS = ("server 256", ONLINE, "pipeline 4096")
 
 
-def drive(torch, SeismicServer, search_pipeline, index, levels, q256,
-          q4096):
-    """Every level's server (256 queries), online server (ONLINE_REQUESTS
-    requests of one query each, batches of ONLINE_BATCH) and pipeline
-    (4096) run three times each -> (last results, ms per run), keyed
-    (level, label)."""
-    results, batch_ms = {}, {}
-    for fuse, p in levels.items():
-        server = SeismicServer(index, p, max_batch=Q_ONLINE)
-        online = SeismicServer(index, p, max_batch=ONLINE_BATCH)
+def front_ends(SeismicServer, index, levels, telemetry=None) -> dict:
+    """Each level's 256-query server (with a ``telemetry()`` of its own
+    when given) and online server (batches of ONLINE_BATCH), keyed by
+    level."""
+    return {f: (SeismicServer(index, p, max_batch=Q_ONLINE,
+                              telemetry=telemetry and telemetry()),
+                SeismicServer(index, p, max_batch=ONLINE_BATCH))
+            for f, p in levels.items()}
 
+
+def drive(torch, servers, search_pipeline, q256, q4096=None):
+    """Every level's server (256 queries), online server (ONLINE_REQUESTS
+    requests of one query each) and, with ``q4096``, pipeline (4096 on the
+    server's index) run three times each -> (last results, ms per run),
+    keyed (level, label)."""
+    results, batch_ms = {}, {}
+    for fuse, (server, online) in servers.items():
         def per_request():
             outs = [online.search(q256[i:i + 1])
                     for i in range(ONLINE_REQUESTS)]
             return tuple(torch.cat(parts) for parts in
                          zip(*map(as_triple, outs)))
-        for label, run in (("server 256", lambda: server.search(q256)),
-                           (ONLINE, per_request),
-                           ("pipeline 4096",
-                            lambda: search_pipeline(index, q4096, p))):
+        runs = [("server 256", lambda: server.search(q256)),
+                (ONLINE, per_request)]
+        if q4096 is not None:
+            runs.append(("pipeline 4096", lambda: search_pipeline(
+                server.index, q4096, server.params)))
+        for label, run in runs:
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -566,10 +619,11 @@ def drive(torch, SeismicServer, search_pipeline, index, levels, q256,
     return results, batch_ms
 
 
-def check_levels(torch, name, results, batch_ms, levels) -> None:
+def check_levels(torch, name, results, batch_ms, levels,
+                 labels=LABELS) -> None:
     """Ids, docs_evaluated and scores bitwise equal across the levels, and
     the online server's answers bitwise the 256-query server's."""
-    for label in LABELS:
+    for label in labels:
         base = results[0, label]
         for fuse in levels:
             if not same_results(torch, results[fuse, label], base):
@@ -894,14 +948,13 @@ def lm_phases(torch, dev, seed, runtime) -> dict:
     return rec
 
 
-def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
+def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     """Phases 5-8 (the index, the flat and the hierarchical, refined
-    paths, kernels a-f timed) -> the six retrieval kernels' records. The
-    index and the graph are freed when this returns."""
+    paths, kernels a-f timed) -> (the six retrieval kernels' records,
+    phase 7's index with its graph and the 256 queries, for phase 12)."""
     from repro_torch.core.build import build_index, live_blocks, \
         suggest_fanout
     from repro_torch.core.oracle import exact_topk, mean_recall_at_k
-    from repro_torch.core.types import SeismicConfig
     from repro_torch.data import SyntheticSparseConfig, make_collection
     from repro_torch.graph import build_doc_graph
     from repro_torch.graph.refine import scored_init
@@ -935,7 +988,7 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     docs, queries, _ = make_collection(data_cfg, device=dev)
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
-    icfg = SeismicConfig(**INDEX, superblock_fanout=FANOUT, seed=args.seed)
+    icfg = dataclasses.replace(ICFG, seed=args.seed)
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
     index = build_index(docs, icfg, timings=timings)
@@ -961,8 +1014,8 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
               for f in (0, 1, 2)}
     torch.cuda.synchronize()
     runtime.reset_launches()
-    results, batch_ms = drive(torch, SeismicServer, search_pipeline, index,
-                              levels, q256, q4096)
+    results, batch_ms = drive(torch, front_ends(SeismicServer, index, levels),
+                              search_pipeline, q256, q4096)
     flat_launches = dict(runtime.LAUNCHES)
     log(f"[6 flat path] launches {flat_launches}")
     for name in ("summary_dot", "gather_dot", "gather_dot_cand",
@@ -1010,8 +1063,9 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
     torch.cuda.synchronize()
     runtime.reset_launches()
     CLUSTER_LAUNCHES.clear()
-    results_h, batch_ms_h = drive(torch, SeismicServer, search_pipeline,
-                                  index, tuned, q256, q4096)
+    results_h, batch_ms_h = drive(torch, front_ends(SeismicServer, index,
+                                                    tuned),
+                                  search_pipeline, q256, q4096)
     hier_launches = dict(runtime.LAUNCHES)
     clusters = dict(sorted(CLUSTER_LAUNCHES.items()))
     log(f"  params {TUNED}; launches {hier_launches}; router_hier launches "
@@ -1405,7 +1459,361 @@ def retrieval_phases(torch, dev, args, runtime) -> list[dict]:
         row_tiles.cluster_size = chosen
     log("  router_hier by blocks per query (* the wrapper's choice on "
         f"{sms} SMs): " + ", ".join(sweep))
-    return record
+    return record, dict(index=index, queries=q256)
+
+
+
+def plain_on_kernel_route(torch, index, q, name, kernel_p, plain_p):
+    """The plain path's answers on the kernel's route, for a check that
+    holds where router scores tie. The router's kernel (summary_dot at
+    fuse 0; router_flat and router_hier equal it bitwise, which the level
+    checks assert) is held to its plain version on the plain route's own
+    rows, every tier. Where router scores tie in the plain order, another
+    summation order may keep other blocks, so the stages after the router
+    run their plain versions (use_kernel=False, fuse 0) on the kernel's
+    route, and the kernel path is held to them (``check_against_plain``).
+    """
+    from repro_torch.kernels.router_fused.ops import (router_flat_ref,
+                                                      router_hier_ref)
+    from repro_torch.kernels.summary_dot.ops import (summary_dot_batch,
+                                                     summary_dot_batch_ref)
+    from repro_torch.retrieval.pipeline import stage_fns
+    fk, fp = stage_fns(index, kernel_p), stage_fns(index, plain_p)
+    q_dense, lists, _ = fp["prep"](q.coords, q.vals)
+    tiers = []
+
+    def capture(*a):
+        tiers.append(a)
+        return summary_dot_batch_ref(*a)
+    flat = (index.sum_coords, index.sum_q, index.sum_scale, index.sum_zero,
+            index.block_len)
+    if plain_p.superblock_fanout:
+        router_hier_ref(lists, q_dense, index.sup_coords, index.sup_q,
+                        index.sup_scale, index.sup_zero, *flat,
+                        m=plain_p.superblock_budget,
+                        fanout=plain_p.superblock_fanout, dot=capture)
+    else:
+        router_flat_ref(lists, q_dense, *flat, dot=capture)
+    for a in tiers:
+        compare(torch, f"{name} summary_dot {list(a[1].shape)} on the plain "
+                "route's rows", summary_dot_batch(*a), summary_dot_batch_ref(*a))
+    del tiers
+    batch = fk["router"](q_dense, lists)
+    sel = fp["selector"](batch)
+    cand, scores = fp["scorer"](batch, sel)
+    return fp["refine"](q_dense, *fp["merge"](cand, scores))
+
+def on_card(index, what: str) -> None:
+    """Every tensor of a published snapshot lies on the card."""
+    planes = dict(index._tensor_fields(), **{"fwd.coords": index.fwd.coords,
+                                              "fwd.vals": index.fwd.vals})
+    off = [n for n, t in planes.items() if t is not None and not t.is_cuda]
+    if off:
+        raise AssertionError(f"{what}: planes {off} are not on the card")
+
+
+def summaries_bound(torch, index, lists) -> tuple[int, int]:
+    """For each list of ``lists``: every live block's summary (dequantized,
+    float64) plus half a quantization step is at least each live member's
+    value at every coordinate the summary keeps (the coordinate-wise max
+    of the members, which alpha-mass prunes to a subset; the member's
+    bf16 forward value is taken 2^-8 relative down, since a block the
+    builder summarized from the float32 collection may hold a member
+    whose bf16 rounding went up by up to 2^-9); every superblock summary
+    is at least each live child's dequantized value at the child's
+    coordinates (round-up quantization; 1e-6 relative for the rounding
+    of the stored scales). -> (block entries, child entries) checked."""
+    cfg = index.config
+    cap, f = index.n_docs, cfg.superblock_fanout
+
+    def deq(q, scale, zero):
+        v = (q.double() - 1) * scale.double()[..., None] \
+            + zero.double()[..., None]
+        return torch.where(q > 0, v, 0.0)
+    n_blk = n_kid = 0
+    for ell in lists.tolist():
+        bl = index.block_len[ell].long()
+        live_b = (bl > 0).nonzero().flatten()
+        sc = index.sum_coords[ell].long()                      # [nb, S]
+        sq = index.sum_q[ell]
+        sv = deq(sq, index.sum_scale[ell], index.sum_zero[ell])
+        half = 0.5 * index.sum_scale[ell].double()
+        blk = torch.repeat_interleave(live_b, bl[live_b])
+        start = torch.cumsum(bl[live_b], 0) - bl[live_b]
+        pos = index.block_off[ell].long()[blk] + torch.arange(
+            blk.numel(), device=blk.device) - torch.repeat_interleave(
+            start, bl[live_b])
+        docs = index.list_docs[ell, pos].long()
+        keep = docs < cap
+        blk, docs = blk[keep], docs[keep]
+        for a in range(0, docs.numel(), 1024):
+            d_, b_ = docs[a:a + 1024], blk[a:a + 1024]
+            rc = index.fwd.coords[d_].long()                   # [M, nnz]
+            rv = index.fwd.vals[d_].float()
+            hit = rc[:, :, None] == sc[b_][:, None, :]         # [M, nnz, S]
+            mv = torch.where(hit, rv[:, :, None], 0.0).amax(1).double()
+            kept = sq[b_] > 0
+            ok = mv * (1 - 2 ** -8) <= sv[b_] + half[b_, None]
+            if not bool(ok[kept].all()):
+                raise AssertionError(f"list {ell}: a block summary is below "
+                                     "a member's value")
+            n_blk += int(kept.sum())
+        if index.sup_coords is None:
+            continue
+        pc = index.sup_coords[ell].long()                      # [ns, S2]
+        pq = index.sup_q[ell]
+        pv = deq(pq, index.sup_scale[ell], index.sup_zero[ell])
+        g = live_b // f
+        match = (sc[live_b][:, :, None] == pc[g][:, None, :]) \
+            & (pq[g][:, None, :] > 0)                          # [B, S, S2]
+        sup_at = torch.where(match, pv[g][:, None, :], -1.0).amax(-1)
+        kept = sq[live_b] > 0
+        ok = sup_at >= sv[live_b] * (1 - 1e-6)
+        if not bool(ok[kept].all()):
+            raise AssertionError(f"list {ell}: a superblock summary is below "
+                                 "a child's value")
+        n_kid += int(kept.sum())
+    return n_blk, n_kid
+
+
+def mutation_phase(torch, dev, args, runtime, smi, index, q_base) -> dict:
+    """Phase 12: the mutation path on phase 7's index (kNN graph,
+    superblock tier, bf16 forward plane) at the MS MARCO widths: lift,
+    inserts with auto-compaction, deletes, a final compaction, served
+    through ``SeismicServer.apply_mutation`` at three points, a save and
+    load. Returns the launches per kernel on the mutated index."""
+    import shutil
+
+    from repro_torch.ckpt import load_index, save_index
+    from repro_torch.core import build_index, make_mutable
+    from repro_torch.core.oracle import exact_topk, mean_recall_at_k
+    from repro_torch.data import SyntheticSparseConfig, make_collection
+    from repro_torch.graph import build_doc_graph
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.retrieval import SearchParams, search_pipeline
+    from repro_torch.serve import SeismicServer
+    from repro_torch.serve.telemetry import ServerTelemetry
+    from repro_torch.sparse.ops import PaddedSparse
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    n_base = index.n_docs
+    cap = n_base + MUT_INSERTS
+    # the inserts, and half the queries, from the synthetic distribution
+    # with another seed, so inserted docs are answers too
+    new, new_q, _ = make_collection(SyntheticSparseConfig(
+        dim=DIM, n_docs=MUT_INSERTS, n_queries=Q_ONLINE // 2,
+        doc_nnz=DOC_NNZ, query_nnz=QUERY_NNZ, seed=args.seed + 1),
+        device=dev)
+    half = Q_ONLINE - new_q.n
+    q = PaddedSparse(torch.cat([q_base.coords[:half], new_q.coords]),
+                     torch.cat([q_base.vals[:half], new_q.vals]), DIM)
+    reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    mut = make_mutable(index, capacity=cap, tail_cap=MUT_TAIL,
+                       tail_max=MUT_TAIL, registry=reg)
+    del index
+    torch.cuda.synchronize()
+    log(f"[12 mutation] on {smi}: {n_base} docs lifted to capacity {cap} "
+        f"(tail of {MUT_TAIL}) in {time.perf_counter() - t0:.3f} s; "
+        f"{MUT_INSERTS} docs to insert in chunks of {MUT_CHUNK}")
+    on_card(mut.index, "the lifted snapshot")
+    base = dict(k=10, cut=CUT, block_budget=BLOCK_BUDGET)
+    paths = {"flat": base, "tuned": TUNED}
+    levels = {name: {f: SearchParams(use_kernel=True, fuse_level=f, **kw)
+                     for f in (0, 1, 2)} for name, kw in paths.items()}
+    plain = {name: SearchParams(use_kernel=False, fuse_level=0, **kw)
+             for name, kw in paths.items()}
+    servers = {name: front_ends(SeismicServer, mut.index, lv,
+                                telemetry=ServerTelemetry)
+               for name, lv in levels.items()}
+    # a–f: d's three kernels on the flat path at fuse 2, e and f on the
+    # tuned path at fuse 2, b at fuse 0, a at fuse 0 and 1, c at 1 and 2
+    kernels = ("summary_dot", "gather_dot", "gather_dot_cand", "router_flat",
+               "router_flat_groups", "router_flat_records", "router_hier",
+               "refine_round")
+    launches = {}
+    batch_ms = {}
+    failed = []        # recall gates, raised once the phase has measured all
+
+    def serve(point: str) -> None:
+        for fe in servers.values():
+            for server, online in fe.values():
+                server.apply_mutation(mut)
+                online.apply_mutation(mut)
+        epoch = servers["flat"][0][0].epoch
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        results = {name: drive(torch, fe, search_pipeline, q)
+                   for name, fe in servers.items()}
+        counted = dict(runtime.LAUNCHES)
+        log(f"  {point} (serving epoch {epoch}, index epoch {mut.epoch}, "
+            f"tail {mut.tail_occupancy}, live {mut.n_live}): launches "
+            f"{counted}")
+        for name in kernels:
+            if counted[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on "
+                                     f"the mutated index ({point})")
+        for name in RETRIEVAL:
+            launches[name] = launches.get(name, 0) + counted[name]
+        tomb = mut.index.tombstone
+        for name, (res, ms) in results.items():
+            check_levels(torch, f"{point} {name}", res, ms, levels[name],
+                         labels=LABELS[:2])
+            ref = plain_on_kernel_route(torch, mut.index, q, name,
+                                        levels[name][0], plain[name])
+            n_diff = check_against_plain(torch, f"{point} {name}",
+                                         res[2, "server 256"], ref, 10)
+            e2e = search_pipeline(mut.index, q, plain[name])
+            n_route = int((e2e[1] != res[2, "server 256"][1]).any(1).sum())
+            for out in list(res.values()) + [ref, e2e]:
+                ids = out[1][out[1] >= 0].long()
+                if bool(tomb[ids].any()):
+                    raise AssertionError(f"{point} {name}: a deleted id "
+                                         "was returned")
+            batch_ms[point, name] = (ms[2, "server 256"], ms[2, ONLINE])
+            tel = servers[name][2][0].telemetry.export()
+            log(f"  {point} {name}: summary_dot on the plain route's rows "
+                "within tolerance; kernel path vs the plain stages on its "
+                f"route: scores within tolerance, {n_diff} rows with ids "
+                "differing at non-isolated ties; the plain path end to end "
+                f"keeps other blocks at router ties in {n_route} of {q.n} "
+                "rows; no deleted id returned; fuse 2 ms per "
+                f"batch of {Q_ONLINE} "
+                f"{['%.2f' % t for t in ms[2, 'server 256']]}, per "
+                f"{ONLINE_REQUESTS} online requests "
+                f"{['%.2f' % t for t in ms[2, ONLINE]]}; telemetry launch "
+                f"p50 {tel['latency_s']['launch']['p50'] * 1e3:.2f} ms over "
+                f"{tel['batch']['launches']} launches ({smi})")
+
+    def recall_vs_fresh(point: str) -> None:
+        """recall@10 against the exact top-10 of the equivalent corpus
+        (deleted and unassigned rows all zero), mutated against a fresh
+        build (and graph) of that corpus at the same parameters."""
+        idx = mut.index
+        dead = idx.tombstone.clone()
+        dead[mut.n_docs:] = True
+        corpus = PaddedSparse(torch.where(dead[:, None], 0, idx.fwd.coords),
+                              torch.where(dead[:, None], 0.0,
+                                          idx.fwd.vals.float()), DIM)
+        t0 = time.perf_counter()
+        _, ex_i = exact_topk(corpus.coords, corpus.vals, DIM, q.coords,
+                             q.vals, 10)
+        fresh = build_doc_graph(build_index(corpus, idx.config),
+                                degree=GRAPH_DEGREE, batch=GRAPH_BATCH)
+        torch.cuda.synchronize()
+        t_fresh = time.perf_counter() - t0
+        for name, lv in levels.items():
+            r_mut = mean_recall_at_k(search_pipeline(idx, q, lv[2])[1], ex_i)
+            r_fresh = mean_recall_at_k(search_pipeline(fresh, q, lv[2])[1],
+                                       ex_i)
+            log(f"  {point} {name}: recall@10 {r_mut:.4f}, a fresh build of "
+                f"the same corpus {r_fresh:.4f} (ratio "
+                f"{r_mut / r_fresh:.4f}, gate {RECALL_RATIO}); exact top-10, "
+                f"fresh build and graph {t_fresh:.1f} s ({smi})")
+            if r_mut < RECALL_RATIO * r_fresh:
+                failed.append(f"{point} {name}: recall@10 {r_mut:.4f} < "
+                              f"{RECALL_RATIO} x fresh {r_fresh:.4f}")
+
+    serve("lifted")
+    h_comp = reg.get("seismic_compaction_seconds").labels()
+    n_minor = reg.get("seismic_compaction_lists_minor_total").labels()
+    n_major = reg.get("seismic_compaction_lists_major_total").labels()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    deleted = None
+    for i in range(0, MUT_INSERTS, MUT_CHUNK):
+        if i + MUT_CHUNK == MUT_INSERTS:
+            # before the last chunk: 5 % of the base, 10 % of the inserted
+            n_del = round(MUT_DELETE_BASE * n_base)
+            n_new = round(MUT_DELETE_NEW * i)
+            deleted = torch.cat([
+                torch.randperm(n_base, generator=gen, device=dev)[:n_del],
+                n_base + torch.randperm(i, generator=gen, device=dev)[:n_new]])
+            t0 = time.perf_counter()
+            mut.delete_docs(deleted)
+            torch.cuda.synchronize()
+            log(f"  delete {n_del} base and {n_new} inserted docs: "
+                f"{time.perf_counter() - t0:.3f} s ({smi})")
+            on_card(mut.index, "the snapshot after the delete")
+            serve("during")            # a full tail and mask-only deletes
+            recall_vs_fresh("during")
+        comp = (h_comp.n, h_comp.total, n_minor.value, n_major.value)
+        t0 = time.perf_counter()
+        mut.insert_docs(new.coords[i:i + MUT_CHUNK], new.vals[i:i + MUT_CHUNK])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t_comp = h_comp.total - comp[1]
+        msg = (f"  insert {MUT_CHUNK} docs: {dt:.3f} s, "
+               f"{MUT_CHUNK / (dt - t_comp):.0f} docs/s without compaction")
+        if h_comp.n > comp[0]:
+            msg += (f"; it compacted first: {t_comp:.3f} s, "
+                    f"{n_minor.value - comp[2]} lists minor, "
+                    f"{n_major.value - comp[3]} major")
+        log(msg + f" ({smi})")
+        on_card(mut.index, f"the snapshot after insert {i // MUT_CHUNK}")
+    comp = (h_comp.total, n_minor.value, n_major.value)
+    mut.compact()
+    torch.cuda.synchronize()
+    log(f"  final compaction: {h_comp.total - comp[0]:.3f} s, "
+        f"{n_minor.value - comp[1]} lists minor, {n_major.value - comp[2]} "
+        f"major; {h_comp.n} compactions in "
+        f"{h_comp.total:.3f} s ({smi})")
+    on_card(mut.index, "the compacted snapshot")
+    if mut.n_live != cap - deleted.numel():
+        raise AssertionError(f"{mut.n_live} live docs, expected "
+                             f"{cap - deleted.numel()}")
+    serve("after")
+    recall_vs_fresh("after")
+    # the summaries of a seeded sample of the compacted lists
+    touched = torch.unique(new.coords[new.vals > 0])
+    pick = touched[torch.randperm(touched.numel(), generator=gen,
+                                  device=dev)[:BOUND_LISTS]]
+    t0 = time.perf_counter()
+    n_blk, n_kid = summaries_bound(torch, mut.index, pick)
+    log(f"  summaries of {pick.numel()} compacted lists bound their members "
+        f"({n_blk} block entries) and superblocks their children ({n_kid} "
+        f"child entries), {time.perf_counter() - t0:.1f} s ({smi})")
+    # save and load: bitwise equal planes and answers
+    path = ROOT / "build" / "mutation_index"
+    shutil.rmtree(path, ignore_errors=True)
+    total = mut.index.nbytes()["total"]
+    log(f"  {total} bytes to save; {shutil.disk_usage(ROOT).free} bytes "
+        "free on the checkout's disk")
+    t0 = time.perf_counter()
+    save_index(str(path), mut.index, step=1)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_index(str(path), device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    shutil.rmtree(path, ignore_errors=True)
+    planes = dict(mut.index._tensor_fields(), **{
+        "fwd.coords": mut.index.fwd.coords, "fwd.vals": mut.index.fwd.vals})
+    got = dict(loaded._tensor_fields(), **{"fwd.coords": loaded.fwd.coords,
+                                            "fwd.vals": loaded.fwd.vals})
+    differ = [n for n, t in planes.items() if (t is None) != (got[n] is None)
+              or t is not None and (t.dtype != got[n].dtype
+                                    or not torch.equal(t, got[n]))]
+    if differ or loaded.config != mut.index.config:
+        raise AssertionError(f"save/load: planes {differ} differ")
+    for name, lv in levels.items():
+        if not same_results(torch, search_pipeline(loaded, q, lv[2]),
+                            search_pipeline(mut.index, q, lv[2])):
+            raise AssertionError(f"save/load: {name} answers differ")
+    del loaded
+    log(f"  save_index {t_save:.1f} s, load_index {t_load:.1f} s: every "
+        "plane bitwise equal, the same answers at fuse 2; ms per batch "
+        f"of {Q_ONLINE} at fuse 2, lifted / during / after: " + "; ".join(
+            f"{name} " + " / ".join(
+                f"{sorted(batch_ms[p, name][0])[1]:.2f}"
+                for p in ("lifted", "during", "after"))
+            for name in paths)
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase 12 "
+        f"in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
 
 
 def main() -> int:
@@ -1419,11 +1827,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run from a checkout of the repository "
-              "(src/repro_torch not found)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import runtime
 
     # ---- 1. device
@@ -1509,7 +1912,13 @@ def main() -> int:
     run_to_run_phase(torch, dev, args.seed)
     log(f"  in {time.perf_counter() - t0:.1f} s")
 
-    record = retrieval_phases(torch, dev, args, runtime)
+    record, kept = retrieval_phases(torch, dev, args, runtime)
+
+    # ---- 12. the mutation path on phase 7's index
+    mutated = mutation_phase(torch, dev, args, runtime, smi,
+                             kept.pop("index"), kept.pop("queries"))
+    for rec in record:
+        rec["launches"] += mutated[rec["name"]]
     gc.collect()                  # the index and the graph go here
     torch.cuda.empty_cache()
 

@@ -41,6 +41,7 @@ refine_round (``refine_fused.cu``, bf16 values, int32 coords):
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import subprocess
 import sys
 import time
@@ -209,7 +210,6 @@ def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke as cs
     from repro_torch.core.build import build_index
-    from repro_torch.core.types import SeismicConfig
     from repro_torch.data import SyntheticSparseConfig, make_collection
     from repro_torch.graph import build_doc_graph
     from repro_torch.graph.refine import scored_init
@@ -231,7 +231,8 @@ def main() -> int:
     docs, queries, _ = make_collection(SyntheticSparseConfig(
         dim=cs.DIM, n_docs=1 << 20, n_queries=cs.Q_BATCH,
         doc_nnz=cs.DOC_NNZ, query_nnz=cs.QUERY_NNZ, seed=0), device=dev)
-    index = build_index(docs, SeismicConfig(**cs.INDEX, seed=0))
+    index = build_index(docs, dataclasses.replace(
+        cs.ICFG, superblock_fanout=0, seed=0))
     index = build_doc_graph(index, degree=cs.GRAPH_DEGREE,
                             batch=cs.GRAPH_BATCH)
     torch.cuda.synchronize()

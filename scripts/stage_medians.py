@@ -16,6 +16,7 @@ back between two CUDA events (L2 warm, as the pipeline finds it).
 """
 from __future__ import annotations
 
+import dataclasses
 import statistics
 import sys
 from pathlib import Path
@@ -29,7 +30,6 @@ def main() -> int:
     sys.path[:0] = [str(Path.cwd() / "src"), str(Path.cwd())]
     import chip_smoke as cs
     from repro_torch.core.build import build_index
-    from repro_torch.core.types import SeismicConfig
     from repro_torch.data import SyntheticSparseConfig, make_collection
     from repro_torch.graph import build_doc_graph
     from repro_torch.graph.refine import scored_init
@@ -43,8 +43,7 @@ def main() -> int:
     docs, queries, _ = make_collection(SyntheticSparseConfig(
         dim=cs.DIM, n_docs=1 << 20, n_queries=cs.Q_BATCH,
         doc_nnz=cs.DOC_NNZ, query_nnz=cs.QUERY_NNZ, seed=0), device=dev)
-    index = build_index(docs, SeismicConfig(
-        **cs.INDEX, superblock_fanout=cs.FANOUT, seed=0))
+    index = build_index(docs, dataclasses.replace(cs.ICFG, seed=0))
     index = build_doc_graph(index, degree=cs.GRAPH_DEGREE,
                             batch=cs.GRAPH_BATCH)
     p = SearchParams(use_kernel=True, fuse_level=2, **cs.TUNED)

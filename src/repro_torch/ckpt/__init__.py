@@ -1,3 +1,3 @@
-from repro_torch.ckpt.index_io import load_index
+from repro_torch.ckpt.index_io import load_index, save_index
 
-__all__ = ["load_index"]
+__all__ = ["load_index", "save_index"]

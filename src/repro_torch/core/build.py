@@ -139,9 +139,12 @@ def _physical_blocks(assign, cnt, cfg: SeismicConfig):
         blk_len.to(torch.int32)
 
 
-def _summaries(docs_perm, block_id, fwd: PaddedSparse, cfg: SeismicConfig):
+def _summaries(docs_perm, block_id, fwd: PaddedSparse, cfg: SeismicConfig,
+               fused: bool = True):
     """Per-block summary of a chunk of lists -> (coords [Lc, nb, S],
-    u8 [Lc, nb, S], scale [Lc, nb], zero [Lc, nb]).
+    u8 [Lc, nb, S], scale [Lc, nb], zero [Lc, nb]). ``fused`` rounds the
+    quantizer's scale as the compiled JAX build does (see
+    :func:`list_block_arrays`).
 
     Equal to the JAX builder's dense route (scatter into ``[nb, d]``,
     then ``alpha_mass_subvector`` over ``arange(d)``) without the dense
@@ -202,66 +205,91 @@ def _summaries(docs_perm, block_id, fwd: PaddedSparse, cfg: SeismicConfig):
     put = outside & (slot < s) & fill[:, None]
     bi, ci = put.nonzero(as_tuple=True)
     out_c[bi, slot[bi, ci]] = ci.to(torch.int32)
-    q, scale, zero = quantize_u8(out_v, by_reciprocal=True)
+    q, scale, zero = quantize_u8(out_v, by_reciprocal=fused)
     return (out_c.view(lc, nb, s), q.view(lc, nb, s), scale.view(lc, nb),
             zero.view(lc, nb))
 
 
-def _superblock_summaries(sc, q, scale, zero, dim: int, cfg: SeismicConfig):
+def _top_per_group(group, coords, vals, n_groups: int, width: int,
+                   dim: int):
+    """The coordinate-wise max of entries (group, coordinate, value > 0),
+    then each group's ``width`` largest in ``lax.top_k`` order over a
+    dense ``[dim]`` row (value desc, coordinate asc), without the dense
+    rows: unique (group, coordinate) keys, one sort. The row's zeros
+    would follow and are written as coordinate 0, value 0 -> (coords
+    int32 [G, width], values f32 [G, width])."""
+    dev = vals.device
+    key = group.to(torch.int64) * dim + coords.to(torch.int64)
+    ukey, inv = torch.unique(key, return_inverse=True)
+    uval = torch.zeros(ukey.numel(), dtype=torch.float32, device=dev)
+    uval.scatter_reduce_(0, inv, vals, "amax", include_self=True)
+    order = torch.sort(-uval, stable=True).indices
+    order = order[torch.sort(ukey[order] // dim, stable=True).indices]
+    sg = ukey[order] // dim                                    # group
+    m = torch.bincount(sg, minlength=n_groups)
+    rank = torch.arange(sg.numel(), device=dev) - (torch.cumsum(m, 0)
+                                                   - m)[sg]
+    keep = rank < width
+    out_c = torch.zeros((n_groups, width), dtype=torch.int32, device=dev)
+    out_v = torch.zeros((n_groups, width), dtype=torch.float32, device=dev)
+    out_c[sg[keep], rank[keep]] = (ukey[order] - sg * dim)[keep].to(
+        torch.int32)
+    out_v[sg[keep], rank[keep]] = uval[order][keep]
+    return out_c, out_v
+
+
+def _dequantize(q, scale, zero, fused: bool) -> torch.Tensor:
+    """Summary values in float32. ``fused``: rounded once, as a fused
+    multiply-add does it (the JAX build's compiled dequant is one; so is
+    the kernels'): the float64 product (q - 1) * scale is exact and the
+    sum is rounded to float32. Otherwise the product and the sum are each
+    rounded, as eager JAX (and eager torch) compute them."""
+    if not fused:
+        return dequantize_u8(q, scale, zero)
+    return dequantize_u8(q, scale.double(), zero.double(),
+                         dtype=torch.float64).to(torch.float32)
+
+
+def _superblock_summaries(sc, q, scale, zero, dim: int, cfg: SeismicConfig,
+                          fused: bool = True):
     """Coarse tier over a chunk of lists' quantized block summaries
     ([Lc, nb, S] and [Lc, nb]) -> (coords [Lc, ns, S2], u8 [Lc, ns, S2],
     scale [Lc, ns], zero [Lc, ns]), with S2 = min(fanout * S, d).
 
     Block j belongs to superblock j // fanout. Equal to the JAX
-    build_index's dense route (scatter-max of the dequantized children into
-    a ``[ns, d]`` row, ``lax.top_k`` of width S2, coordinate 0 where the
-    value is 0) without the dense rows: the unique (superblock,
-    coordinate) keys of the children's non-zeros take their max, then
-    sort by (superblock, value desc, coordinate asc), which is
-    ``lax.top_k``'s order on the dense row; the row's zeros would follow
-    and are written as coordinate 0, value 0."""
+    build_index's dense route (scatter-max of the dequantized children
+    into a ``[ns, d]`` row, ``lax.top_k`` of width S2, coordinate 0 where
+    the value is 0) without the dense rows (:func:`_top_per_group`)."""
     lc, nb, s = q.shape
     f, ns = cfg.superblock_fanout, cfg.n_superblocks
     s2 = min(cfg.superblock_nnz, dim)
     dev = q.device
-    ng = lc * ns
-    # dequantized with one rounding, as a fused multiply-add does it (the
-    # JAX build's compiled dequant is one; so is the kernels'): the float64
-    # product (q - 1) * scale is exact, and the sum is rounded to float32
-    v = dequantize_u8(q, scale.double(), zero.double(),
-                      dtype=torch.float64).to(torch.float32)  # [Lc, nb, S]
+    v = _dequantize(q, scale, zero, fused)                     # [Lc, nb, S]
     group = (torch.arange(lc, device=dev)[:, None] * ns
              + torch.arange(nb, device=dev)[None, :] // f)     # [Lc, nb]
     take = v > 0
-    key = (group[..., None] * dim + sc.to(torch.int64))[take]
-    ukey, inv = torch.unique(key, return_inverse=True)
-    uval = torch.zeros(ukey.numel(), dtype=torch.float32, device=dev)
-    uval.scatter_reduce_(0, inv, v[take], "amax", include_self=True)
-    order = torch.sort(-uval, stable=True).indices
-    order = order[torch.sort(ukey[order] // dim, stable=True).indices]
-    sg = ukey[order] // dim                                    # superblock
-    m = torch.bincount(sg, minlength=ng)
-    rank = torch.arange(sg.numel(), device=dev) - (torch.cumsum(m, 0)
-                                                   - m)[sg]
-    keep = rank < s2
-    out_c = torch.zeros((ng, s2), dtype=torch.int32, device=dev)
-    out_v = torch.zeros((ng, s2), dtype=torch.float32, device=dev)
-    out_c[sg[keep], rank[keep]] = (ukey[order] - sg * dim)[keep].to(
-        torch.int32)
-    out_v[sg[keep], rank[keep]] = uval[order][keep]
-    q2, scale2, zero2 = quantize_u8_ceil(out_v, by_reciprocal=True)
+    out_c, out_v = _top_per_group(group[..., None].expand_as(sc)[take],
+                                  sc[take], v[take], lc * ns, s2, dim)
+    q2, scale2, zero2 = quantize_u8_ceil(out_v, by_reciprocal=fused)
     return (out_c.view(lc, ns, s2), q2.view(lc, ns, s2),
             scale2.view(lc, ns), zero2.view(lc, ns))
 
 
 def list_block_arrays(docs, vals, cnt, fwd: PaddedSparse,
-                      cfg: SeismicConfig, rep_pos=None, tick=None):
+                      cfg: SeismicConfig, rep_pos=None, tick=None,
+                      fused: bool = True):
     """Cluster + block + summarize a chunk of pruned lists [Lc, lam]:
     the per-list half of Algorithm 1 after static pruning. ``rep_pos``
     [Lc, beta] holds the representatives' positions (geometric blocking
     only). ``tick(phase)`` is called after each phase. With
     ``superblock_fanout > 0`` the superblock tier's four arrays follow
-    the nine flat ones."""
+    the nine flat ones.
+
+    ``fused`` rounds as the JAX package's compiled ``build_index``: XLA
+    divides by 254 as a multiply by its reciprocal, and the superblock
+    dequant is one multiply-add. ``fused=False`` rounds as the same
+    functions called eagerly, as the JAX ``mutate.compact`` calls them:
+    a division, and a dequant rounded after the product and the sum."""
     tick = tick or (lambda phase: None)
     if cfg.blocking == "fixed":
         # Fig. 5 baseline: impact-ordered chunks of one cluster
@@ -274,13 +302,56 @@ def list_block_arrays(docs, vals, cnt, fwd: PaddedSparse,
     docs_perm = docs.gather(1, perm)
     vals_perm = vals.gather(1, perm)
     tick("blocks")
-    sc, q, scale, zero = _summaries(docs_perm, block_id, fwd, cfg)
+    sc, q, scale, zero = _summaries(docs_perm, block_id, fwd, cfg, fused)
     tick("summaries")
     out = (docs_perm, vals_perm, cnt, blk_off, blk_len, sc, q, scale, zero)
     if cfg.superblock_fanout > 0:
-        out += _superblock_summaries(sc, q, scale, zero, fwd.dim, cfg)
+        out += _superblock_summaries(sc, q, scale, zero, fwd.dim, cfg,
+                                     fused)
         tick("superblocks")
     return out
+
+
+def block_summaries(docs_perm, block_id, fwd: PaddedSparse,
+                    cfg: SeismicConfig):
+    """Public seam over the per-block summary construction (Eq. 2 max ->
+    alpha-mass -> u8) for a chunk of lists ([Lc, W] block-permuted doc
+    ids and their block ids, ``n_blocks`` marking positions outside any
+    block): compaction summarizes freshly appended tail blocks through
+    the builder's own path. Rounds as the JAX seam called eagerly (a
+    division by 254; see :func:`list_block_arrays`)."""
+    return _summaries(docs_perm, block_id, fwd, cfg, fused=False)
+
+
+def merge_superblock_summary(sup_coords, sup_q, sup_scale, sup_zero,
+                             child_sc, child_q, child_scale, child_zero,
+                             dim: int, cfg: SeismicConfig):
+    """Monotone update of G superblock summaries with new child blocks:
+    ``sup_*`` are [G, S2] and [G], ``child_*`` [G, m, S] and [G, m] (a
+    child of level-0 entries only contributes nothing, so groups with
+    fewer new children pad with them).
+
+    The coordinate-wise max of the dequantized old summary and the new
+    children, round-up requantized: the result upper-bounds every child
+    of the group, the old ones through the old summary. Equal to the JAX
+    seam's dense ``[dim]`` row and ``lax.top_k`` without the dense row
+    (:func:`_top_per_group`), rounded as the JAX seam called eagerly (the
+    dequant rounded after the product and the sum, a division by 254;
+    see :func:`list_block_arrays`)."""
+    g, s2 = sup_q.shape
+    dev = sup_q.device
+    old = _dequantize(sup_q, sup_scale, sup_zero, False)          # [G, S2]
+    cv = _dequantize(child_q, child_scale, child_zero, False)     # [G, m, S]
+    rows = torch.arange(g, device=dev)
+    group = torch.cat([rows[:, None].expand_as(old).reshape(-1),
+                       rows[:, None, None].expand_as(cv).reshape(-1)])
+    coords = torch.cat([sup_coords.reshape(-1), child_sc.reshape(-1)])
+    vals = torch.cat([old.reshape(-1), cv.reshape(-1)])
+    take = vals > 0
+    out_c, out_v = _top_per_group(group[take], coords[take], vals[take], g,
+                                  s2, dim)
+    q2, scale2, zero2 = quantize_u8_ceil(out_v)
+    return out_c, q2, scale2, zero2
 
 
 def sample_rep_pos(counts, cfg: SeismicConfig,

@@ -1263,3 +1263,83 @@ def test_sample_rep_pos_on_card_equals_cpu():
     counts[:3] = torch.tensor([0, 1, 6000])
     cpu = sample_rep_pos(counts, cfg)
     assert torch.equal(sample_rep_pos(counts.to(dev), cfg).cpu(), cpu)
+
+
+@pytest.mark.gpu
+def test_mutated_index_on_card_is_bitwise_across_levels_and_fresh():
+    """Grow from empty with auto-compaction and deletes on the card, at
+    the mutation tests' small config (tests/test_mutation.py): the
+    kernels meet a sentinel equal to the capacity (40, not a power of
+    two), blocks whose purged members are sentinels, and all-zero rows.
+    At full budget ids, scores and docs_evaluated are bitwise equal at
+    fuse 0, 1 and 2, and once the tail is compacted bitwise equal to a
+    fresh build of the equivalent corpus on the card. With a live tail
+    (scored by the plain gather at every level and in no fresh build)
+    ids and docs_evaluated equal the fresh build's and scores lie within
+    the kernel tolerance."""
+    from repro_torch.core import MutableSeismicIndex, build_index
+    from repro_torch.retrieval import SearchParams, search_pipeline
+    from repro_torch.sparse.ops import PaddedSparse
+    dev = _cuda()
+    dim, nnz, cap = 64, 8, 40
+    cfg = SeismicConfig(lam=16, beta=2, alpha=1.0, block_cap=4,
+                        summary_nnz=64, superblock_fanout=2)
+    rng = np.random.default_rng(17)
+
+    def docs(n):
+        c = np.stack([rng.choice(np.arange(1, 24), nnz, replace=False)
+                      for _ in range(n)])
+        return (torch.from_numpy(c).to(dev),
+                torch.from_numpy(rng.uniform(0.1, 1.0, (n, nnz))).to(dev))
+
+    c, v = docs(8)
+    q = PaddedSparse(c.to(torch.int32), v.float(), dim)
+    levels = [SearchParams(k=10, cut=nnz, block_budget=nnz * cfg.n_blocks,
+                           policy="budget", fuse_level=f) for f in (0, 1, 2)]
+    mut = MutableSeismicIndex.empty(dim, nnz, cfg, capacity=cap, tail_cap=16,
+                                    tail_max=6, device=dev)
+
+    def check(compacted: bool):
+        idx = mut.index
+        corpus_v = idx.fwd.vals.clone()
+        dead = idx.tombstone.clone()
+        dead[mut.n_docs:] = True
+        corpus_v[dead] = 0
+        fresh = build_index(PaddedSparse(
+            torch.where(dead[:, None], 0, idx.fwd.coords), corpus_v, dim),
+            cfg)
+        runtime.reset_launches()
+        outs = [search_pipeline(idx, q, p) for p in levels]
+        torch.cuda.synchronize()
+        for name in ("summary_dot", "gather_dot", "gather_dot_cand",
+                     "router_flat"):
+            assert runtime.LAUNCHES[name] > 0, name
+        for out in outs[1:]:
+            for a, b in zip(out, outs[0]):
+                assert torch.equal(a, b)
+        got = outs[0]
+        live = got[1][got[1] >= 0].long()
+        assert not bool(idx.tombstone[live].any())
+        for p in levels:
+            want = search_pipeline(fresh, q, p)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[2], want[2])
+            if compacted:
+                assert torch.equal(got[0], want[0])
+            else:
+                assert_scores(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+    while mut.n_docs < cap - 11:
+        mut.insert_docs(*docs(int(rng.integers(1, 6))))
+        check(False)
+    mut.delete_docs(torch.tensor([0, 5, mut.n_docs - 1], device=dev))
+    check(False)
+    mut.compact()
+    planes = [t for t in mut.index._tensor_fields().values()
+              if t is not None] + [mut.index.fwd.coords, mut.index.fwd.vals]
+    assert all(t.device.type == dev.type for t in planes)
+    check(True)
+    mut.insert_docs(*docs(6))
+    mut.delete_docs(torch.tensor([mut.n_docs - 2], device=dev))
+    mut.compact()
+    check(True)

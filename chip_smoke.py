@@ -97,11 +97,40 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    every published snapshot on the card. Printed: insert docs/s,
    each compaction's seconds with its minor and major list counts, ms
    per batch lifted / during / after, save and load seconds, peak
-   device memory.
+   device memory;
+13. serving (run after phase 8, before phase 12, on phase 7's index with
+   ``TUNED`` attached as a ``TunedPolicy(target=0.95, modeled=True)``):
+   at ``TUNED`` and the flat ``SHAPES`` point (fuse 2), 161 requests
+   through ``AsyncSeismicServer`` at widths 128, 32 and 8; then 1,024
+   requests a point over the 256 queries (each query's first occurrence
+   a miss, 32 of them bursts of 4 identical requests, the rest repeats)
+   from 4 client threads, Poisson at twice the rate
+   ``SeismicServer(max_batch=8)`` sustains one request at a time, through
+   ``AsyncSeismicServer(max_batch=128, deadline 2 ms, reject at 4,096,
+   cache 4,096, coalescing)`` with ``Observability(stage_sample_every=16)``
+   and a ``ShadowAuditor`` per point auditing every 4th launched request:
+   ``TUNED``, ``swap_index`` to the flat point (and its auditor) while
+   requests are in flight, flat; then ``ReplicaSeismicServer(mirror, 4)``
+   at ``TUNED``, and again with replica 0 delayed 5x the median launch.
+   Asserted: every request ``done``, bitwise the 256-query server's answer
+   at its point (a request submitted after the swap returns only flat
+   answers); each kernel's launches exactly the launches times a pipeline
+   run's (the swap's warmup runs counted), router_hier's cluster counts
+   summing to its launches under 4 replica threads; every trace valid;
+   the Prometheus text and one scrape of the exporter equal to the
+   registry; audits done, no audit error or drop, the funnel summing to
+   the misses, phase 7's offline recall@10 (over the forward plane, the
+   auditor's referent) inside the ``TUNED`` audit's 99 % Wilson interval;
+   the delayed replica given the smallest dispatch share. Printed:
+   request p50/p95/p99 and QPS per server, launches and occupancy per
+   width, cache hit rate, coalesced share, dispatch shares,
+   staged against fused launch spans, modeled bytes per query and
+   achieved GB/s per stage, the audits' recall and interval, seconds and
+   peak device memory.
 
 The index and query widths come from ``configs/seismic_msmarco``
 (``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED``
-stays a literal until the port has the tuner.
+stays a literal until the port has the tuner's sweep.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failure raises
@@ -152,6 +181,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -229,6 +259,22 @@ RETRIEVAL = tuple(n for n in SOURCES if n != "flash_attention")
 LM_SEQ, LM_LONG_SEQ = 8192, 32768
 SERVE_BATCH, SERVE_MAX_SEQ, PROMPT_LEN, NEW_TOKENS = 8, 128, 32, 32
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+# phase 13: 1,024 requests a point over the 256 queries from 4 client
+# threads (Poisson arrivals at twice the rate SeismicServer(max_batch=8)
+# sustains one request at a time, as benchmarks/serving_load.py offers
+# it); 32 first occurrences come as bursts of 4 identical requests
+SERVE_REQUESTS, SERVE_BURSTS, SERVE_CLIENTS = 1024, 32, 4
+SERVE_MAX_BATCH, SERVE_DEADLINE = 128, 2e-3    # ladder 8 / 32 / 128
+SERVE_QUEUE = SERVE_CACHE = 4096
+STAGE_SAMPLE, AUDIT_EVERY = 16, 4   # staged launch, audited request
+# the audits' Wilson intervals at 99 %: about 64 of the 256 queries are
+# audited, chosen by the batching, and misses cluster by query, so a
+# 95 % interval would miss phase 7's recall over all 256 in several runs
+# of 100 with a correct server
+AUDIT_Z = 2.576
+REPLICAS, DELAY_FACTOR = 4, 5       # the delayed replica: 5x median launch
+SYNC_REQUESTS = 64                  # to time the one-at-a-time server
+SERVE_TIMEOUT = 120.0
 ATTN_F32_TOL = 2e-5            # flash_attention, float32: rtol = atol
 LM_REL_L2 = 2 ** -4            # llama3-8b logits, two bf16 paths
 
@@ -951,7 +997,8 @@ def lm_phases(torch, dev, seed, runtime) -> dict:
 def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     """Phases 5-8 (the index, the flat and the hierarchical, refined
     paths, kernels a-f timed) -> (the six retrieval kernels' records,
-    phase 7's index with its graph and the 256 queries, for phase 12)."""
+    phase 7's index with its graph, the 256 queries and the offline
+    recall@10 of phases 6 and 7, for phases 13 and 12)."""
     from repro_torch.core.build import build_index, live_blocks, \
         suggest_fanout
     from repro_torch.core.oracle import exact_topk, mean_recall_at_k
@@ -1032,9 +1079,10 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     ex_s, ex_i = exact_topk(docs.coords, docs.vals, docs.dim, q256.coords,
                             q256.vals, 10)
     torch.cuda.synchronize()
+    recall_flat = mean_recall_at_k(k256[1], ex_i)
     log(f"  recall@10 vs exact top-10 ({q256.n} queries, exact in "
         f"{time.perf_counter() - t0:.1f} s): kernel path "
-        f"{mean_recall_at_k(k256[1], ex_i):.4f}, plain path "
+        f"{recall_flat:.4f}, plain path "
         f"{mean_recall_at_k(ref256[1], ex_i):.4f}")
     for fuse, p in levels.items():
         for qs in (q256, q4096):
@@ -1138,7 +1186,7 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
             index.sup_zero) + d_in[2:]
     seen_h: dict[str, object] = {}
     run_pipeline_staged(index, q256.coords, q256.vals, ph,
-                        probe=seen_h.__setitem__)
+                        probe=seen_h.__setitem__, audit=True)
     ids_h = seen_h["merge_ids"]
     f_in = (ids_h, scored_init(ids_h, index.n_docs), qh, index.knn_ids,
             index.fwd.coords, index.fwd.vals)
@@ -1400,7 +1448,7 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     qh4, _, _ = prep_queries(q4096.coords, q4096.vals, index.dim, ph.cut)
     seen4: dict[str, object] = {}
     run_pipeline_staged(index, q4096.coords, q4096.vals, ph,
-                        probe=seen4.__setitem__)
+                        probe=seen4.__setitem__, audit=True)
     ids4 = seen4["merge_ids"]
     del seen4
     f4 = (ids4, scored_init(ids4, index.n_docs), qh4, index.knn_ids,
@@ -1459,7 +1507,8 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
         row_tiles.cluster_size = chosen
     log("  router_hier by blocks per query (* the wrapper's choice on "
         f"{sms} SMs): " + ", ".join(sweep))
-    return record, dict(index=index, queries=q256)
+    return record, dict(index=index, queries=q256, recall_flat=recall_flat,
+                        recall_tuned=recalls[2][0])
 
 
 
@@ -1816,6 +1865,446 @@ def mutation_phase(torch, dev, args, runtime, smi, index, q_base) -> dict:
     return launches
 
 
+def serving_traffic(seed: int) -> list[tuple[int, int]]:
+    """Phase 13's request stream over the 256 queries: (query, burst size)
+    units. Each query's first occurrence is a miss (SERVE_BURSTS of them
+    come as a burst of 4 identical requests, which coalesce); every other
+    unit repeats a query whose first occurrence came earlier (a cache
+    hit, or coalesced while that one is in flight)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    first = rng.permutation(Q_ONLINE)
+    bursts = set(rng.choice(Q_ONLINE, SERVE_BURSTS, replace=False).tolist())
+    n_units = SERVE_REQUESTS - 3 * SERVE_BURSTS
+    kinds = np.zeros(n_units, bool)
+    kinds[rng.choice(np.arange(1, n_units), Q_ONLINE - 1,
+                     replace=False)] = True
+    kinds[0] = True
+    units, seen = [], 0
+    for new in kinds:
+        if new:
+            q = int(first[seen])
+            seen += 1
+            units.append((q, 4 if q in bursts else 1))
+        else:
+            units.append((int(first[rng.integers(seen)]), 1))
+    return units
+
+
+def drive_clients(server, units, c, v, rate, seed, halves=1, between=None):
+    """SERVE_CLIENTS client threads submit ``units`` (round robin) with
+    Poisson arrivals of ``rate`` requests/s in all, ``halves`` times over;
+    between two halves every client waits at a barrier while the main
+    thread runs ``between()``. Returns ([(half, query, future)], seconds
+    from the first submission to the last answer, seconds from the first
+    submission to the last)."""
+    import numpy as np
+    subs: list[list] = [[] for _ in range(SERVE_CLIENTS)]
+    last = [0.0] * SERVE_CLIENTS
+    barrier = threading.Barrier(SERVE_CLIENTS + 1)
+    done_between = threading.Event()
+    errors = []
+
+    def client(cid: int) -> None:
+        try:
+            rng = np.random.default_rng(seed * 100 + cid)
+            mine = units[cid::SERVE_CLIENTS]
+            for half in range(halves):
+                for q, size in mine:
+                    time.sleep(rng.exponential(size * SERVE_CLIENTS / rate))
+                    for _ in range(size):
+                        subs[cid].append((half, q, server.submit(c[q], v[q])))
+                    last[cid] = time.monotonic()
+                if half + 1 < halves:
+                    barrier.wait(timeout=SERVE_TIMEOUT)
+                    done_between.wait(timeout=SERVE_TIMEOUT)
+        except Exception as e:   # noqa: BLE001 — reported below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(cid,))
+               for cid in range(SERVE_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for _ in range(halves - 1):
+        barrier.wait(timeout=SERVE_TIMEOUT)
+        between()
+        done_between.set()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"a client failed: {errors}")
+    out = [s for sub in subs for s in sub]
+    for _, _, fut in out:
+        if not fut.wait(SERVE_TIMEOUT):
+            raise AssertionError("a request is still pending")
+    return out, time.monotonic() - t0, max(last) - t0
+
+
+def check_answers(label, subs, refs, accept=None) -> dict:
+    """Every future ``done`` with ids, scores and docs_evaluated bitwise
+    the 256-query server's at its point (``refs[half]``; a first-half
+    request may also carry ``accept``'s answer, served after a swap).
+    Returns counts of cached, coalesced and late answers."""
+    import numpy as np
+    counts = {"cached": 0, "coalesced": 0, "after swap": 0}
+    for half, q, fut in subs:
+        if fut.status != "done":
+            raise AssertionError(f"{label}: a request ended {fut.status}")
+        r = fut.result(0)
+
+        def same(ref):
+            s, i, e = ref
+            return (np.array_equal(r.ids, i[q]) and
+                    np.array_equal(r.scores.view(np.int32),
+                                   s[q].view(np.int32))
+                    and r.docs_evaluated == e[q])
+        if not same(refs[half]):
+            if half == 0 and accept is not None and same(accept):
+                counts["after swap"] += 1
+            else:
+                raise AssertionError(
+                    f"{label}: request for query {q} (part {half}) differs "
+                    "from the 256-query server's answer")
+        counts["cached"] += r.cached
+        counts["coalesced"] += r.coalesced
+    return counts
+
+
+def latency_line(subs, seconds, submitted) -> str:
+    import numpy as np
+    all_ = np.array([f.result(0).latency_s for _, _, f in subs]) * 1e3
+    launched = np.array([f.result(0).latency_s for _, _, f in subs
+                         if not f.result(0).cached]) * 1e3
+    def p(a):
+        return "/".join(f"{x:.3f}" for x in np.percentile(a, (50, 95, 99)))
+    return (f"{len(subs)} requests arrived at {len(subs) / submitted:.1f}"
+            f"/s, answered in {seconds:.2f} s: {len(subs) / seconds:.1f} "
+            "QPS; latency p50/p95/p99 ms, all "
+            f"{p(all_)}, not cached {p(launched)}")
+
+
+def registry_values(reg) -> dict:
+    """The registry's samples keyed as ``parse_prometheus_text`` keys
+    them, each value as the text renders it."""
+    out = {}
+    for fam in reg.collect():
+        for values, child in fam.samples():
+            labels = tuple(sorted(zip(fam.label_names, values)))
+            if fam.kind == "histogram":
+                out[fam.name + "_count", labels] = float(child.n)
+                out[fam.name + "_sum", labels] = float(
+                    f"{child.total:.9g}")
+            else:
+                out[fam.name, labels] = float(f"{child.value:.9g}")
+    return out
+
+
+def launch_means(tracer) -> str:
+    """Mean launch span of staged and fused launches (one per batch)."""
+    import numpy as np
+    spans = {}
+    for tr in tracer.finished():
+        for s in tr.spans:
+            if s.name == "launch" and "batch_seq" in s.attrs:
+                spans[s.attrs["batch_seq"], s.attrs.get("replica")] = (
+                    s.attrs["staged"], s.duration_s)
+    parts = []
+    for kind, staged in (("staged", True), ("fused", False)):
+        d = [t for st, t in spans.values() if st == staged]
+        parts.append(f"{kind} {len(d)} x {np.mean(d) * 1e3:.3f} ms"
+                     if d else f"{kind} none")
+    return ", ".join(parts)
+
+
+def stage_bytes(reg) -> str:
+    snap = reg.snapshot()
+    modeled = {s["labels"]["stage"]: s["value"] for s in
+               snap["seismic_stage_modeled_bytes_per_query"]["samples"]}
+    rate = {s["labels"]["stage"]: s["value"] for s in snap.get(
+        "seismic_stage_achieved_bytes_per_second", {"samples": []})
+        ["samples"]}
+    return ", ".join(f"{k} {modeled[k]:.0f} B/query, "
+                     f"{rate.get(k, 0.0) / 1e9:.2f} GB/s" for k in modeled)
+
+
+def serving_phase(torch, dev, args, runtime, smi, kept) -> dict:
+    """Phase 13: async micro-batching, mirror replicas and the
+    observability plane on phase 7's index. Returns the launches per
+    kernel."""
+    import numpy as np
+
+    from repro_torch.core.oracle import exact_topk, mean_recall_at_k
+    from repro_torch.kernels.router_fused.ops import CLUSTER_LAUNCHES
+    from repro_torch.obs import (MetricsRegistry, Observability,
+                                 ShadowAuditor, parse_prometheus_text,
+                                 prometheus_text, start_exporter,
+                                 validate_trace)
+    from repro_torch.retrieval import (SearchParams, run_pipeline_staged,
+                                       search_pipeline)
+    from repro_torch.serve import (AsyncSeismicServer, ReplicaSeismicServer,
+                                   SeismicServer)
+    from repro_torch.tune.policy import TunedPolicy, attach_tuned
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    index = attach_tuned(kept["index"], [TunedPolicy(
+        target=0.95, modeled=True, **TUNED)])
+    q256 = kept["queries"]
+    points = {"TUNED": SearchParams(use_kernel=True, fuse_level=2, **TUNED),
+              "flat": SearchParams(use_kernel=True, fuse_level=2, k=10,
+                                   cut=CUT, block_budget=BLOCK_BUDGET)}
+    c = q256.coords.cpu().numpy()
+    v = q256.vals.cpu().numpy()
+    # the 256-query server's answers, and their recall@10 against the
+    # exact top-10 over the forward plane, the auditor's referent (phases
+    # 6 and 7 measure against the float32 collection)
+    _, exact_fwd = exact_topk(index.fwd.coords, index.fwd.vals, DIM,
+                              q256.coords, q256.vals, 10)
+    refs, offline = {}, {}
+    for name, p in points.items():
+        r = SeismicServer(index, p, max_batch=Q_ONLINE).search(q256)
+        refs[name] = tuple(t.cpu().numpy() for t in
+                           (r.scores, r.ids, r.docs_evaluated))
+        offline[name] = mean_recall_at_k(r.ids, exact_fwd)
+    # launches of one pipeline run at each point, fused and staged
+    per_run = {}
+    for name, p in points.items():
+        for staged in (False, True):
+            runtime.reset_launches()
+            if staged:
+                run_pipeline_staged(index, q256.coords[:8], q256.vals[:8], p,
+                                    split_refine=True)
+            else:
+                search_pipeline(index, q256[:8], p)
+            torch.cuda.synchronize()
+            counted = {k: n for k, n in runtime.LAUNCHES.items() if n}
+            if staged and counted != per_run[name]:
+                raise AssertionError(f"{name}: a staged run launches "
+                                     f"{counted}, a fused one "
+                                     f"{per_run[name]}")
+            per_run[name] = counted
+    log(f"[13 serving] on {smi}: kernel launches per pipeline run, fused "
+        f"and staged alike: {per_run}")
+
+    # the ladder: widths 128, 32 and 8 each answer bitwise the 256-query
+    # server's (router_hier's cluster size changes with the width)
+    for name, p in points.items():
+        srv = AsyncSeismicServer(index, p, max_batch=SERVE_MAX_BATCH,
+                                 query_nnz=QUERY_NNZ, coalesce=False)
+        futs = [srv.submit(c[q], v[q]) for q in range(160)]
+        try:
+            srv.start(warmup=False)      # batches of 128 and 32 queued
+            for f in futs:
+                f.wait(SERVE_TIMEOUT)
+            futs.append(srv.submit(c[160], v[160]))      # then one of 1
+            futs[-1].wait(SERVE_TIMEOUT)
+        finally:
+            srv.stop()
+        subs = [(0, q, f) for q, f in enumerate(futs)]
+        check_answers(f"ladder {name}", subs, {0: refs[name]})
+        widths = {k: n for k, n in srv.telemetry_export()["counters"].items()
+                  if k.startswith("launch_width_")}
+        if set(widths) != {f"launch_width_{w}" for w in srv.launch_widths}:
+            raise AssertionError(f"ladder {name}: widths {widths}")
+        log(f"  ladder {name}: {widths}, 161 answers bitwise the 256-query "
+            "server's")
+
+    # the rate SeismicServer(max_batch=8) sustains one request at a time
+    sync = SeismicServer(index, points["TUNED"], max_batch=ONLINE_BATCH)
+    t0 = time.perf_counter()
+    for i in range(SYNC_REQUESTS):
+        sync.search(q256[i:i + 1]).ids.cpu()
+    sync_rate = SYNC_REQUESTS / (time.perf_counter() - t0)
+    rate = 2 * sync_rate
+    units = serving_traffic(args.seed)
+    log(f"  SeismicServer(max_batch={ONLINE_BATCH}) one request at a time: "
+        f"{sync_rate:.1f} requests/s at TUNED; offered {rate:.1f} "
+        f"requests/s from {SERVE_CLIENTS} clients (Poisson), "
+        f"{SERVE_REQUESTS} requests a point: {Q_ONLINE} first occurrences "
+        f"({SERVE_BURSTS} as bursts of 4), the rest repeats")
+
+    # ---- the async server: TUNED, swap mid-traffic, flat
+    obs = Observability.create(trace_capacity=4 * SERVE_REQUESTS,
+                               stage_sample_every=STAGE_SAMPLE)
+    auditors = {
+        "TUNED": ShadowAuditor(index, points["TUNED"], obs.registry,
+                               audit_sample_every=AUDIT_EVERY,
+                               queue_bound=SERVE_REQUESTS,
+                               window=SERVE_REQUESTS, z=AUDIT_Z),
+        "flat": ShadowAuditor(index, points["flat"], MetricsRegistry(),
+                              audit_sample_every=AUDIT_EVERY,
+                              queue_bound=SERVE_REQUESTS,
+                              window=SERVE_REQUESTS, z=AUDIT_Z)}
+    srv = AsyncSeismicServer(
+        index, points["TUNED"], max_batch=SERVE_MAX_BATCH,
+        query_nnz=QUERY_NNZ, deadline_s=SERVE_DEADLINE,
+        queue_bound=SERVE_QUEUE, admission="reject", cache_size=SERVE_CACHE,
+        coalesce=True, obs=obs, auditor=auditors["TUNED"])
+    for a in auditors.values():
+        a.start()
+    swap = {}
+
+    def between():
+        swap["tuned bytes"] = stage_bytes(obs.registry)
+        t0 = time.perf_counter()
+        swap["epoch"] = srv.swap_index(index, points["flat"],
+                                       auditor=auditors["flat"])
+        swap["seconds"] = time.perf_counter() - t0
+
+    try:
+        srv.start()
+        runtime.reset_launches()
+        subs, secs, sent = drive_clients(srv, units, c, v, rate, args.seed,
+                                         halves=2, between=between)
+    finally:
+        srv.stop()
+    for a in auditors.values():
+        a.drain()
+        a.close()
+    counts = check_answers("async", subs, {0: refs["TUNED"], 1: refs["flat"]},
+                           accept=refs["flat"])
+    launches = dict(runtime.LAUNCHES)
+    tel = srv.telemetry_export()
+    batches = tel["counters"]["batches"]
+    warm = len(srv.launch_widths) * 2            # the swap's warmup runs
+    n_t = launches["router_hier"] // per_run["TUNED"]["router_hier"]
+    n_f = launches["router_flat"] // per_run["flat"]["router_flat"] - warm
+    for name in launches:
+        want = n_t * per_run["TUNED"].get(name, 0) \
+            + (n_f + warm) * per_run["flat"].get(name, 0)
+        if launches[name] != want or n_t + n_f != batches:
+            raise AssertionError(
+                f"async: {name} launched {launches[name]} times, not "
+                f"{n_t} x {per_run['TUNED'].get(name, 0)} + ({n_f} + "
+                f"{warm}) x {per_run['flat'].get(name, 0)} ({batches} "
+                "launches)")
+    traces = obs.tracer.finished()
+    for tr in traces:
+        validate_trace(tr)
+    log(f"  async (max_batch {SERVE_MAX_BATCH}, ladder {srv.launch_widths}"
+        f", deadline {SERVE_DEADLINE * 1e3:.0f} ms): "
+        + latency_line(subs, secs, sent))
+    log(f"  every request done, bitwise the 256-query server's at its point "
+        f"({counts['cached']} cached, {counts['coalesced']} coalesced; "
+        f"{counts['after swap']} TUNED-part requests served after the swap); "
+        f"swap_index to epoch {swap['epoch']} in {swap['seconds']:.3f} s "
+        f"with warmup; {batches} launches ({n_t} TUNED, {n_f} flat) and "
+        f"each kernel's count exact: {launches}")
+    occ = {s["labels"]["width"]: round(s["value"], 3) for s in
+           obs.registry.snapshot()["seismic_launch_width_occupancy"]
+           ["samples"]}
+    widths = {k: n for k, n in tel["counters"].items()
+              if k.startswith("launch_width_")}
+    coalesced = tel["counters"].get("coalesced", 0) \
+        / tel["counters"]["requests"]
+    log(f"  launches by width {widths}, occupancy {occ}; cache hit rate "
+        f"{tel['cache']['hit_rate']:.3f}, coalesced share "
+        f"{coalesced:.3f}; "
+        f"launch spans: {launch_means(obs.tracer)}; {len(traces)} traces "
+        "valid")
+    log(f"  device accounting (fuse 2): TUNED {swap['tuned bytes']}; flat "
+        f"{stage_bytes(obs.registry)}")
+
+    # exports and the audit
+    with start_exporter(obs.registry, obs.tracer,
+                        quality=auditors["TUNED"].snapshot) as ex:
+        import urllib.request
+        with urllib.request.urlopen(ex.url + "/metrics", timeout=30) as r:
+            scraped = parse_prometheus_text(r.read().decode())
+    for text in (prometheus_text(obs.registry), None):
+        parsed = scraped if text is None else parse_prometheus_text(text)
+        flat_samples = {k: val for fam in parsed.values()
+                        for k, val in fam["samples"].items()}
+        want = registry_values(obs.registry)
+        if any(flat_samples.get(k) != val for k, val in want.items()):
+            bad = [k for k, val in want.items() if flat_samples.get(k) != val]
+            raise AssertionError(f"exported samples differ: {bad[:5]}")
+    log(f"  prometheus text and one scrape of {ex.url}/metrics: "
+        f"{len(want)} samples equal to the registry's")
+    recall = {"TUNED": kept["recall_tuned"], "flat": kept["recall_flat"]}
+    for name, a in auditors.items():
+        phase = 7 if name == "TUNED" else 6
+        snap = a.snapshot()
+        w = snap["window"]
+        if snap["audits"] <= 0 or snap["errors"] or snap["dropped"]:
+            raise AssertionError(f"audit {name}: {snap['audits']} audits, "
+                                 f"{snap['errors']} errors, "
+                                 f"{snap['dropped']} dropped")
+        if sum(snap["loss"].values()) != snap["misses"]:
+            raise AssertionError(f"audit {name}: funnel {snap['loss']} does "
+                                 f"not sum to {snap['misses']} misses")
+        inside = w["wilson_lo"] <= offline[name] <= w["wilson_hi"]
+        log(f"  audit {name}: {snap['audits']} audits, live recall@10 "
+            f"{w['live_recall']:.4f} Wilson (z {AUDIT_Z}) "
+            f"[{w['wilson_lo']:.4f}, {w['wilson_hi']:.4f}] over "
+            f"{w['trials']} trials; phase {phase}'s offline recall@10 over "
+            f"the forward plane {offline[name]:.4f} "
+            f"{'inside' if inside else 'OUTSIDE'} (over the float32 "
+            f"collection {recall[name]:.4f}); funnel {snap['loss']} = "
+            f"{snap['misses']} misses")
+        if name == "TUNED" and not inside:
+            raise AssertionError("audit TUNED: phase 7's offline recall "
+                                 "lies outside the live recall's Wilson "
+                                 "interval")
+
+    # ---- mirror replicas, then one replica delayed
+    delay = None
+    for label in ("replicas", "replicas, one delayed"):
+        robs = Observability.create(trace_capacity=2 * SERVE_REQUESTS,
+                                    stage_sample_every=STAGE_SAMPLE)
+        rs = ReplicaSeismicServer(
+            index, points["TUNED"], n_replicas=REPLICAS, mode="mirror",
+            replica_delay_s=None if delay is None
+            else [delay] + [0.0] * (REPLICAS - 1),
+            max_batch=SERVE_MAX_BATCH, query_nnz=QUERY_NNZ,
+            deadline_s=SERVE_DEADLINE, queue_bound=SERVE_QUEUE,
+            cache_size=SERVE_CACHE, coalesce=True, obs=robs)
+        try:
+            rs.start()
+            runtime.reset_launches()
+            CLUSTER_LAUNCHES.clear()
+            subs, secs, sent = drive_clients(rs, units, c, v, rate,
+                                             args.seed)
+        finally:
+            rs.stop()
+        check_answers(label, subs, {0: refs["TUNED"]})
+        counted = dict(runtime.LAUNCHES)
+        rtel = rs.telemetry_export()
+        n = rtel["counters"]["batches"]
+        for name in counted:
+            k = per_run["TUNED"].get(name, 0)
+            if counted[name] != n * k:
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{counted[name]} times, not {n} x {k}")
+        if sum(CLUSTER_LAUNCHES.values()) != counted["router_hier"]:
+            raise AssertionError(f"{label}: router_hier's cluster counts "
+                                 f"{dict(CLUSTER_LAUNCHES)} do not sum to "
+                                 f"its {counted['router_hier']} launches")
+        for tr in robs.tracer.finished():
+            validate_trace(tr)
+        for name in RETRIEVAL:
+            launches[name] += counted[name]
+        share = rs.balancer.snapshot()["dispatch_share"]
+        log(f"  {label} ({REPLICAS} mirrors, delay "
+            f"{0.0 if delay is None else delay * 1e3:.2f} ms on replica 0): "
+            + latency_line(subs, secs, sent)
+            + "; bitwise the async server's; "
+            f"{n} launches, counts exact; dispatch share "
+            f"{[round(x, 3) for x in share]}; launch spans: "
+            f"{launch_means(robs.tracer)}")
+        if delay is None:
+            delay = DELAY_FACTOR * rtel["latency_s"]["launch"]["p50"]
+        elif share[0] != min(share):
+            raise AssertionError(f"{label}: the delayed replica's share "
+                                 f"{share[0]:.3f} is not the smallest")
+    log(f"  peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase 13 "
+        f"in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {name: launches[name] for name in RETRIEVAL}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1 << 20,
@@ -1913,6 +2402,15 @@ def main() -> int:
     log(f"  in {time.perf_counter() - t0:.1f} s")
 
     record, kept = retrieval_phases(torch, dev, args, runtime)
+
+    # ---- 13. async micro-batching, mirror replicas, observability
+    served = serving_phase(torch, dev, args, runtime, smi, kept)
+    for rec in record:
+        rec["launches"] += served[rec["name"]]
+    # the servers and their registries' gauge callbacks form reference
+    # cycles that hold the index's planes; phase 12 frees them after the
+    # lift only if nothing else holds them
+    gc.collect()
 
     # ---- 12. the mutation path on phase 7's index
     mutated = mutation_phase(torch, dev, args, runtime, smi,

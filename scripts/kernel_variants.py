@@ -296,7 +296,7 @@ def main() -> int:
     q256 = queries[:cs.Q_ONLINE]
     seen: dict[str, object] = {}
     run_pipeline_staged(index, q256.coords, q256.vals, p,
-                        probe=seen.__setitem__)
+                        probe=seen.__setitem__, audit=True)
     ids = seen["merge_ids"]
     qh, _, _ = prep_queries(q256.coords, q256.vals, index.dim, 8)
     f_in = (ids, scored_init(ids, index.n_docs), qh, index.knn_ids,

@@ -66,7 +66,8 @@ def main() -> int:
                                                 fuse_level=0, **kw))):
             seen: dict = {}
             res = run_pipeline_staged(index, q.coords, q.vals, p,
-                                      probe=seen.__setitem__)
+                                      probe=seen.__setitem__,
+                                      audit=True)
             out[label] = (res, seen)
         (kres, ks), (pres, ps) = out["kernel"], out["plain"]
         rk, rp = ks["router_r"], ps["router_r"]

@@ -62,7 +62,7 @@ def main() -> int:
             flush=True)
         seen: dict[str, object] = {}
         run_pipeline_staged(index, qs.coords, qs.vals, p,
-                            probe=seen.__setitem__)
+                            probe=seen.__setitem__, audit=True)
         ids = seen["merge_ids"]
         qh, _, _ = prep_queries(qs.coords, qs.vals, index.dim, p.cut)
         f_in = (ids, scored_init(ids, index.n_docs), qh, index.knn_ids,

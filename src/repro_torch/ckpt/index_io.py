@@ -2,7 +2,9 @@
 
 Layout: ``<path>/index_<step:08d>/index.npz`` (named arrays) plus the
 ``seismic_index.json`` manifest (step, dim, config, optional tuned
-operating points). Loading goes through
+operating points as ``dataclasses.asdict`` of each
+:class:`repro_torch.tune.TunedPolicy`, as the JAX package writes
+them). Loading goes through
 :func:`repro_torch.core.types.index_from_arrays`, so an index the JAX
 package saved loads here, and one saved here loads in the JAX package
 (except a bfloat16 forward plane: see :func:`save_index`).
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import SeismicIndex, index_from_arrays
+from repro_torch.tune.policy import TunedPolicy
 
 _INDEX_MANIFEST = "seismic_index.json"
 
@@ -61,7 +64,7 @@ def save_index(path: str, index: SeismicIndex, *, step: int = 0) -> str:
     manifest = dict(step=step, dim=index.dim,
                     config=dataclasses.asdict(index.config))
     if index.tuned:
-        manifest["tuned"] = [dict(t) for t in index.tuned]
+        manifest["tuned"] = [dataclasses.asdict(t) for t in index.tuned]
     with open(os.path.join(tmp, _INDEX_MANIFEST), "w") as f:
         json.dump(manifest, f)
     old = final + ".old"
@@ -77,7 +80,9 @@ def save_index(path: str, index: SeismicIndex, *, step: int = 0) -> str:
 def load_index(path: str, *, step: int | None = None,
                device=None) -> SeismicIndex:
     """Restore the newest (or the given) committed index step under
-    ``path``. ``.tmp``/``.old`` directories are never read."""
+    ``path``. ``.tmp``/``.old`` directories are never read. Tuned
+    operating points come back as a tuple of ``TunedPolicy`` (unknown
+    manifest keys are ignored, as the JAX loader does)."""
     if step is None:
         steps = [int(d.split("_")[1]) for d in os.listdir(path)
                  if d.startswith("index_") and d.split("_")[1].isdigit()]
@@ -89,6 +94,8 @@ def load_index(path: str, *, step: int | None = None,
         manifest = json.load(f)
     with np.load(os.path.join(d, "index.npz")) as z:
         arrays = {k: z[k] for k in z.files}
-    tuned = tuple(manifest.get("tuned", ()))
+    known = {f.name for f in dataclasses.fields(TunedPolicy)}
+    tuned = tuple(TunedPolicy(**{k: v for k, v in t.items() if k in known})
+                  for t in manifest.get("tuned", ()))
     return index_from_arrays(arrays, manifest["dim"], manifest["config"],
                              device=device, tuned=tuned)

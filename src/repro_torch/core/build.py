@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import math
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -463,6 +464,50 @@ def live_blocks(index: SeismicIndex) -> torch.Tensor:
     """Per-list live-block counts of a built index (the
     :func:`suggest_fanout` statistic)."""
     return (index.block_len > 0).sum(dim=-1).to(torch.int32)
+
+
+class DocBlockMap(NamedTuple):
+    """CSR doc -> (list, block) membership over a built index:
+    ``lists[indptr[d]:indptr[d+1]]`` and ``blocks[...]`` enumerate every
+    (inverted list, physical block) pair holding doc ``d`` after static
+    pruning, ordered by (list, position), on the index's device. The
+    quality plane's loss funnel reads it (``repro_torch.obs.quality``)."""
+    indptr: torch.Tensor    # int64 [n_docs + 1]
+    lists: torch.Tensor     # int32 [n_memberships]
+    blocks: torch.Tensor    # int32 [n_memberships]
+
+
+def doc_block_map(index: SeismicIndex, *,
+                  list_chunk: int = 1024) -> DocBlockMap:
+    """Invert ``list_docs`` into per-doc block memberships.
+
+    Physical blocks are contiguous position runs per list (``block_off``
+    is the cumsum of ``block_len``), so position ``p``'s block is the
+    first block whose end exceeds ``p``: one batched ``searchsorted``
+    over ``list_chunk`` lists at a time."""
+    docs, lens = index.list_docs, index.list_len
+    n_lists, lam = docs.shape
+    ends = (index.block_off + index.block_len).to(torch.int64)
+    pos = torch.arange(lam, device=docs.device)
+    member_lists, member_docs, member_blocks = [], [], []
+    for a in range(0, n_lists, list_chunk):
+        d = docs[a:a + list_chunk]
+        live = (pos < lens[a:a + list_chunk, None]) & (d < index.n_docs)
+        blk = torch.searchsorted(ends[a:a + list_chunk].contiguous(),
+                                 pos.expand(d.shape[0], lam).contiguous(),
+                                 right=True)
+        rows, _ = live.nonzero(as_tuple=True)
+        member_lists.append((rows + a).to(torch.int32))
+        member_docs.append(d[live].long())
+        member_blocks.append(blk[live].to(torch.int32))
+    member_docs = torch.cat(member_docs)
+    order = torch.sort(member_docs, stable=True).indices
+    counts = torch.bincount(member_docs, minlength=index.n_docs)
+    indptr = torch.zeros(index.n_docs + 1, dtype=torch.int64,
+                         device=docs.device)
+    torch.cumsum(counts, 0, out=indptr[1:])
+    return DocBlockMap(indptr, torch.cat(member_lists)[order],
+                       torch.cat(member_blocks)[order])
 
 
 def suggest_fanout(n_blocks_stats, *, max_fanout: int = 8) -> int:

@@ -77,7 +77,7 @@ class SeismicIndex:
     knn_ids: torch.Tensor | None = None     # int32 [N, degree] kNN graph
     tail_ids: torch.Tensor | None = None    # int32 [tail_cap] mutation tail
     tombstone: torch.Tensor | None = None   # bool [N] delete marks
-    tuned: tuple = ()                       # manifest operating points, raw
+    tuned: tuple = ()                       # TunedPolicy operating points
     config: SeismicConfig = dataclasses.field(default_factory=SeismicConfig)
 
     @property

@@ -200,7 +200,8 @@ def router_hier_batch(lists: torch.Tensor, q_dense: torch.Tensor,
         runtime.stream_of(q_dense))
     runtime.check_launch(err, "router_hier")
     runtime.count_launch("router_hier")
-    CLUSTER_LAUNCHES[cluster] += 1
+    with runtime._lock:
+        CLUSTER_LAUNCHES[cluster] += 1
     return rb, flat
 
 

@@ -14,7 +14,12 @@
   compiles several sources in parallel (one ``nvcc`` each) and returns
   ptxas' report.
 * Every wrapper adds one to its kernel's count in ``LAUNCHES`` where it
-  launches the kernel, and nowhere else.
+  launches the kernel, and nowhere else; counts update under ``_lock``,
+  so launches from several host threads (the replica servers' workers)
+  are all counted.
+* :func:`sync_stream` waits for the work queued on the calling thread's
+  current stream only, so a server thread's timing never includes the
+  work of another thread's stream.
 """
 from __future__ import annotations
 
@@ -53,12 +58,21 @@ _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
+
+
+def sync_stream(device: torch.device) -> None:
+    """Wait for the work queued on the current stream of ``device`` (the
+    calling thread's), not for the whole device; nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def use_plain(*tensors: torch.Tensor | None) -> bool:
@@ -159,6 +173,7 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-__all__ = ["LAUNCHES", "reset_launches", "count_launch", "use_plain",
+__all__ = ["LAUNCHES", "reset_launches", "count_launch", "sync_stream",
+           "use_plain",
            "build_kernels", "library", "library_path", "stream_of", "ptr",
            "check_launch", "require", "SOURCES", "BUILD_DIR", "INCLUDE_DIR"]

@@ -3,10 +3,10 @@
 
 ``run_pipeline`` is the batch-first core; ``search_pipeline`` its front
 door on a ``PaddedSparse`` batch. ``stage_fns`` / ``run_pipeline_staged``
-run the same stages one at a time with a device synchronize between
-them, for per-stage wall time. The sixth stage (refine, kNN-graph
-expansion, ``repro_torch.graph``) is the identity when ``graph_degree``
-or ``refine_rounds`` is 0.
+run the same stages one at a time with a synchronize of the calling
+thread's stream between them, for per-stage wall time. The sixth stage
+(refine, kNN-graph expansion, ``repro_torch.graph``) is the identity
+when ``graph_degree`` or ``refine_rounds`` is 0.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.graph.refine import (refine_batch, refine_one_round,
                                       scored_init, validate_refine_params)
+from repro_torch.kernels.runtime import sync_stream
 from repro_torch.retrieval.merge import merge_topk
 from repro_torch.retrieval.params import SearchParams
 from repro_torch.retrieval.prep import prep_queries
@@ -91,31 +92,36 @@ def stage_fns(index: "SeismicIndex", p: SearchParams
 
 def run_pipeline_staged(index: "SeismicIndex", q_coords: torch.Tensor,
                         q_vals: torch.Tensor, p: SearchParams,
+                        fns: dict[str, Callable] | None = None,
                         record: Callable[[str, float], None] | None = None,
                         span_cb: Callable[[str, float, float], None]
                         | None = None,
+                        split_refine: bool = False,
                         probe: Callable[[str, object], None] | None = None,
-                        split_refine: bool = False
+                        audit: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage-by-stage pipeline with per-stage wall-time reporting.
 
     ``record(stage, seconds)`` gets each stage's wall time, measured up
-    to a device synchronize; ``span_cb(stage, t0, t1)`` the
-    ``time.monotonic`` stamps. With ``split_refine`` the refine stage
-    runs round by round and each round is also reported as
-    ``refine_round_<j>`` (inside the ``refine`` interval), with equal
-    results. ``probe(name, value)`` sees the scorer's candidate ids
-    (``"cand"``), the probed ``lists``, the router scores ``router_r``
-    and the merged ``merge_ids`` (before refine). Output matches
+    to a synchronize of the calling thread's current stream;
+    ``span_cb(stage, t0, t1)`` the ``time.monotonic`` stamps. With
+    ``split_refine`` the refine stage runs round by round and each round
+    is also reported as ``refine_round_<j>`` (inside the ``refine``
+    interval), with equal results. ``probe(name, value)`` always sees
+    the scorer's candidate ids (``"cand"``); with ``audit`` it also sees
+    the shadow auditor's funnel captures: the probed ``lists``, the
+    router scores ``router_r`` and the merged ``merge_ids`` (before
+    refine). Pass ``fns`` (from :func:`stage_fns`) to reuse one set of
+    stage functions across calls. Output matches
     :func:`search_pipeline`."""
-    fns = stage_fns(index, p)
-    cuda = index.device.type == "cuda"
+    if fns is None:
+        fns = stage_fns(index, p)
+    dev = index.device
 
     def timed(name, fn, *args):
         t0 = time.monotonic()
         out = fn(*args)
-        if cuda:
-            torch.cuda.synchronize(index.device)
+        sync_stream(dev)
         t1 = time.monotonic()
         if record is not None:
             record(name, t1 - t0)
@@ -123,17 +129,18 @@ def run_pipeline_staged(index: "SeismicIndex", q_coords: torch.Tensor,
             span_cb(name, t0, t1)
         return out
 
-    q_dense, lists, _ = timed("prep", fns["prep"], q_coords.to(index.device),
-                              q_vals.to(index.device))
+    q_dense, lists, _ = timed("prep", fns["prep"], q_coords.to(dev),
+                              q_vals.to(dev))
     batch = timed("router", fns["router"], q_dense, lists)
     sel = timed("selector", fns["selector"], batch)
     cand, scores = timed("scorer", fns["scorer"], batch, sel)
     if probe is not None:
         probe("cand", cand)
-        probe("lists", lists)
-        probe("router_r", batch.r)
+        if audit:
+            probe("lists", lists)
+            probe("router_r", batch.r)
     top_s, top_ids, ev = timed("merge", fns["merge"], cand, scores)
-    if probe is not None:
+    if audit and probe is not None:
         probe("merge_ids", top_ids)
     if not (split_refine and p.refine_rounds > 0 and p.graph_degree > 0):
         return timed("refine", fns["refine"], q_dense, top_s, top_ids, ev)

@@ -1,13 +1,16 @@
 """Synchronous serving facades (port of ``repro.serve.engine``; the
-staged observability and shadow auditing paths are not ported yet).
+serving system, micro-batching and replicas, lives in
+``serve.batcher`` and ``serve.replica``).
 
 ``LMDecoder``      KV-cache decode loop around ``lm.decode_step`` (greedy or
                    sampling) over a batch of requests.
-``SeismicServer``  fixed-batch retrieval; params are checked against the
-                   index (route, refine) before the first launch; optional
-                   telemetry; ``swap_index`` / ``apply_mutation`` publish a
-                   new index (``repro_torch.core.mutate``) and bump the
-                   serving ``epoch``.
+``SeismicServer``  fixed-batch retrieval; params and the index's tuned
+                   policies are checked before the first launch; optional
+                   telemetry, observability (sampled staged launches,
+                   traces, device accounting) and shadow auditing;
+                   ``swap_index`` / ``apply_mutation`` publish a new index
+                   (``repro_torch.core.mutate``) and bump the serving
+                   ``epoch``.
 """
 from __future__ import annotations
 
@@ -20,11 +23,15 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.types import SeismicIndex
+from repro_torch.kernels.runtime import sync_stream
 from repro_torch.models.transformer import lm
+from repro_torch.obs.device import DeviceAccounting
 from repro_torch.retrieval import SearchParams, search_pipeline
-from repro_torch.retrieval.pipeline import validate_params
+from repro_torch.retrieval.pipeline import (run_pipeline_staged, stage_fns,
+                                            validate_params)
 from repro_torch.serve.telemetry import ServerTelemetry
 from repro_torch.sparse.ops import PaddedSparse
+from repro_torch.tune.policy import validate_tuned_index
 
 
 class LMDecoder:
@@ -87,18 +94,39 @@ class SeismicServer:
     request batch to a multiple of ``max_batch`` and answers it
     ``max_batch`` queries at a time, so every launch has one shape.
 
-    With ``telemetry`` each launch's latency (to a device synchronize,
-    taken only then), the batch count and its occupancy are recorded, and
-    the ``seismic_index_epoch`` gauge reads the serving epoch."""
+    Params and the index's tuned policies are checked before the first
+    launch. With ``telemetry`` each launch's latency (to a synchronize of
+    the calling thread's stream, taken only then), the batch count and
+    its occupancy are recorded, and the ``seismic_index_epoch`` gauge
+    reads the serving epoch. With ``obs`` (an
+    ``repro_torch.obs.Observability``; telemetry then writes into its
+    registry) every ``stage_sample_every``-th launch runs the staged
+    pipeline, traced as a ``launch`` span with per-stage children and
+    fed to device accounting; with an ``auditor`` (default
+    ``obs.auditor``) the planned rows of each launch run staged with the
+    funnel's captures and are fed to it. Staged and fused launches give
+    equal results."""
 
     def __init__(self, index: SeismicIndex, params: SearchParams,
                  max_batch: int = 256, *,
-                 telemetry: ServerTelemetry | None = None):
+                 telemetry: ServerTelemetry | None = None, obs=None,
+                 auditor=None):
         validate_params(index, params)      # fail before the first launch
+        validate_tuned_index(index)         # a stale TunedPolicy, too
         self.index = index
         self.params = params
         self.max_batch = max_batch
+        if telemetry is None and obs is not None:
+            telemetry = ServerTelemetry(registry=obs.registry)
         self.telemetry = telemetry
+        self.obs = obs
+        self.auditor = auditor if auditor is not None \
+            else getattr(obs, "auditor", None)
+        self._staged = self.auditor is not None or (
+            obs is not None and obs.stage_sample_every > 0)
+        self._fns = self._device = None
+        self._bind(index, params)
+        self._launch_seq = 0
         # serving generation, bumped on every swap_index (callers key their
         # own memoization on it)
         self.epoch = 0
@@ -109,6 +137,15 @@ class SeismicServer:
                 "every swap_index / mutation publish)").labels() \
                 .set_fn(lambda: self.epoch)
 
+    def _bind(self, index: SeismicIndex, params: SearchParams) -> None:
+        """The staged stage functions and device accounting of one
+        (index, params) pair, when staged launches are on."""
+        if self._staged:
+            self._fns = stage_fns(index, params)
+        if self.obs is not None and self.obs.stage_sample_every > 0:
+            self._device = DeviceAccounting(index, params,
+                                            self.telemetry.registry)
+
     def swap_index(self, index: SeismicIndex,
                    params: SearchParams | None = None) -> int:
         """Publish a new index (and optionally new params) after checking
@@ -117,6 +154,8 @@ class SeismicServer:
         ``swap_index`` themselves."""
         params = self.params if params is None else params
         validate_params(index, params)
+        validate_tuned_index(index)
+        self._bind(index, params)
         self.index = index
         self.params = params
         self.epoch += 1
@@ -129,6 +168,49 @@ class SeismicServer:
         if mutate_fn is not None:
             mutate_fn(mutable)
         return self.swap_index(mutable.index)
+
+    def _search_staged(self, chunk: PaddedSparse, n_real: int,
+                       audit_rows: tuple[int, ...] = ()):
+        """One sampled (or audited) chunk through the staged pipeline: a
+        ``launch`` trace with per-stage (and per-refine-round) child
+        spans, device accounting, and the planned rows fed to the shadow
+        auditor. Results equal the fused path's."""
+        from repro_torch.serve.batcher import attach_stage_spans
+        tracer = self.obs.tracer if self.obs is not None else None
+        triples: list[tuple[str, float, float]] = []
+        probed: dict[str, object] = {}
+        tel = self.telemetry
+        t0 = time.monotonic()
+        out = run_pipeline_staged(
+            self.index, chunk.coords, chunk.vals, self.params,
+            fns=self._fns,
+            record=(lambda s, dt: tel.record_latency(f"stage_{s}", dt))
+            if tel is not None else None,
+            span_cb=lambda name, a, b: triples.append((name, a, b)),
+            split_refine=True, probe=probed.__setitem__,
+            audit=bool(audit_rows))
+        t1 = time.monotonic()
+        a_span = None
+        if audit_rows:
+            a0 = time.monotonic()
+            for i in audit_rows:
+                self.auditor.feed(chunk.coords[i], chunk.vals[i], out[1][i],
+                                  captures=probed, row=i)
+            a_span = (a0, time.monotonic())
+        if tracer is not None:
+            tr = tracer.start_trace("launch", t0,
+                                    width=chunk.coords.shape[0],
+                                    occupancy=n_real, sync=True)
+            attach_stage_spans(tracer, tr, tr.root, triples)
+            if a_span is not None:
+                tracer.add_span(tr, "audit", a_span[0], a_span[1])
+            tracer.end_trace(tr, a_span[1] if a_span is not None else t1,
+                             status="done")
+        if self._device is not None:
+            stage_seconds = {name: b - a for name, a, b in triples}
+            self._device.observe(stage_seconds, chunk.coords.shape[0],
+                                 cand=probed.get("cand"))
+        return out, t1 - t0
 
     def search(self, queries: PaddedSparse) -> RetrievalResult:
         k, dev = self.params.k, self.index.device
@@ -147,16 +229,27 @@ class SeismicServer:
         for s in range(0, n + pad, self.max_batch):
             chunk = PaddedSparse(coords[s:s + self.max_batch],
                                  vals[s:s + self.max_batch], queries.dim)
-            if tel is None:
+            seq = self._launch_seq
+            self._launch_seq += 1
+            n_chunk = min(self.max_batch, n - s)
+            audit_rows = self.auditor.plan(n_chunk) \
+                if self.auditor is not None else ()
+            sampled = self.obs is not None and self.obs.sample_stages(seq)
+            if self._fns is not None and (sampled or audit_rows):
+                out, dt = self._search_staged(chunk, n_chunk, audit_rows)
+            elif tel is None:
                 outs.append(search_pipeline(self.index, chunk, self.params))
                 continue
-            t0 = time.perf_counter()
-            outs.append(search_pipeline(self.index, chunk, self.params))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            tel.record_latency("launch", time.perf_counter() - t0)
-            tel.inc("batches")
-            tel.observe_occupancy(min(self.max_batch, n - s))
+            else:
+                t0 = time.perf_counter()
+                out = search_pipeline(self.index, chunk, self.params)
+                sync_stream(dev)
+                dt = time.perf_counter() - t0
+            outs.append(out)
+            if tel is not None:
+                tel.record_latency("launch", dt)
+                tel.inc("batches")
+                tel.observe_occupancy(n_chunk)
         scores, ids, ev = (torch.cat(parts)[:n] for parts in zip(*outs))
         if tel is not None:
             tel.inc("requests", n)

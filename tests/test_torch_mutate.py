@@ -57,6 +57,7 @@ from repro_torch.serve import SeismicServer
 from repro_torch.serve.telemetry import ServerTelemetry
 from repro_torch.sparse.ops import PaddedSparse
 from repro_torch.sparse.quant import dequantize_u8
+from repro_torch.tune.policy import TunedPolicy
 from test_torch_pipeline import assert_topk, carry
 
 DIM, NNZ, CAP = 64, 8, 40
@@ -535,7 +536,7 @@ def test_port_save_load_roundtrip_is_bitwise(tmp_path, plane):
         index = dataclasses.replace(index, fwd=index.fwd.astype(
             torch.bfloat16), config=dataclasses.replace(
             index.config, fwd_dtype="bfloat16"))
-    index = dataclasses.replace(index, tuned=({"target": 0.9, "k": 10},))
+    index = dataclasses.replace(index, tuned=(TunedPolicy(target=0.9, k=10),))
     save_index(str(tmp_path), index, step=1)
     save_index(str(tmp_path), index, step=1)            # overwrite commits
     assert sorted(p.name for p in tmp_path.iterdir()) == ["index_00000001"]

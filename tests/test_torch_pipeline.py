@@ -42,6 +42,7 @@ from repro_torch.retrieval import (SearchParams, run_pipeline_staged,
                                    search_pipeline)
 from repro_torch.serve import SeismicServer
 from repro_torch.sparse.ops import PaddedSparse
+from repro_torch.tune.policy import TunedPolicy
 
 RTOL, ATOL = 1e-5, 1e-6
 POLICIES = ("budget", "adaptive", "global_threshold")
@@ -60,8 +61,11 @@ def jax_index_arrays(index) -> dict:
 
 
 def carry(index):
+    """A JAX index on the port, its tuned operating points included."""
+    tuned = tuple(TunedPolicy(**dataclasses.asdict(t)) for t in index.tuned)
     return index_from_arrays(jax_index_arrays(index), index.dim,
-                             dataclasses.asdict(index.config), device="cpu")
+                             dataclasses.asdict(index.config), device="cpu",
+                             tuned=tuned)
 
 
 def port_queries(queries) -> PaddedSparse:
@@ -129,7 +133,8 @@ def test_stages_match_reference(small_collection, carried, jax_reference,
     pq = port_queries(queries)
     seen = {}
     scores, ids, ev = run_pipeline_staged(
-        index, pq.coords, pq.vals, p, probe=seen.__setitem__)
+        index, pq.coords, pq.vals, p, probe=seen.__setitem__,
+        audit=True)
     assert torch.equal(seen["merge_ids"], ids)    # refine is the identity
     np.testing.assert_array_equal(seen["lists"].numpy(), want["lists"])
     assert_scores(seen["router_r"].numpy(), want["r"])

@@ -7,6 +7,7 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off for
    float32 matmuls and convolutions, so every reference is full float32;
+   ``TUNED`` (below) is held to the knobs earlier slices served;
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` each, in parallel) and print ptxas' register/spill report,
    and for the redesigned kernels (flash_attention's TMA + wgmma kernel,
@@ -41,9 +42,10 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    exact top-10 on the card; per-stage times;
 7. the kNN graph (``build_doc_graph``, degree 8, 4096 docs per call) and
    the hierarchical, refined path (kernels summary_dot, gather_dot,
-   gather_dot_cand, router_hier, refine_round) at ``CONFIG_TUNED``'s
-   0.95 operating point (k 10, cut 8, block_budget 128, budget policy,
-   superblock_budget 32, graph_degree 8, refine_rounds 2): the same two
+   gather_dot_cand, router_hier, refine_round) at ``TUNED``,
+   ``SearchParams.from_tuned(CONFIG_TUNED, 0.95)`` (k 10, cut 8,
+   block_budget 128, budget policy, superblock_budget 32, graph_degree 8,
+   refine_rounds 2): the same two
    front ends at fuse levels 0, 1 and 2 with launch counts set to 0 just
    before and read just after, the plain reference at 256, recall@10 at
    refine_rounds 0, 1 and 2, per-stage and per-round times;
@@ -126,11 +128,53 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    width, cache hit rate, coalesced share, dispatch shares,
    staged against fused launch spans, modeled bytes per query and
    achieved GB/s per stage, the audits' recall and interval, seconds and
-   peak device memory.
+   peak device memory;
+14. the recall-target tuner (run after phase 13, before phase 12, on
+   phase 7's index and graph): 256 held-out queries (rows 256-511 of
+   phase 5's 4096-query batch, so the collection's topics and disjoint
+   from phase 7's 256) with their exact top-10 (``exact_topk`` on the
+   card); ``sweep`` over ``default_grid(index, k=10, cut=8)`` plus
+   ``CONFIG_TUNED``'s two modeled points at fuse levels 1 and 2 (every
+   ``MeasuredPoint`` equal across them, asserted) and once staged with
+   ``timings=True``; ``tune_and_attach`` at 0.90 and 0.95 (an infeasible
+   target raises), the policies through ``validate_tuned_index``, each
+   attached point at fuse 2 held to the plain path (use_kernel=False,
+   fuse 0) on the held-out queries; ``from_tuned(index, 0.95)`` serves
+   phase 7's 256 queries at fuse 2 through ``SeismicServer``. Printed: the frontier, the knobs and
+   held-out recall and docs_evaluated at each target, phase 7's recall
+   at the tuned point beside ``TUNED``'s, the sweep's seconds;
+15. doc-sharded search and the paper's baselines (run after phase 12,
+   before the LM phases), on phase 5's collection drawn again:
+   ``build_sharded_index`` into 4 shards of 262,144 docs; at the flat
+   ``SHAPES`` point and ``TUNED``'s route without refine (fuse 2), (i)
+   every shard's pipeline, ``mask_shard_topk`` and a stable top-10 in one
+   process, (ii) ``ReplicaSeismicServer(mode="shard")`` serving phase
+   13's traffic with a ``swap_index`` from one point to the other in
+   flight, (iii) ``make_distributed_search`` on 4 ranks (this script
+   started again with ``--shard-rank``) sharing the card over gloo, each
+   drawing the collection and building its own shard, the builds one
+   after another (16 lists a build step; the main process frees its
+   collection meanwhile). Asserted: every shard's kernel path held to
+   its plain path (use_kernel=False, fuse 0); (i), (ii) and (iii)
+   bitwise equal; every id valid and every score the exact inner product
+   over the forward plane within ``1e-3 max(1, |ip|)``;
+   ``docs_evaluated`` the shards' sum; every kernel of each route
+   launched by each; the card's used memory (every process, sampled
+   every 0.2 s) under 70 GiB at every stage. Then ``exact_search``
+   (its ids ``exact_topk``'s except at ties, asserted), ``build_ivf``
+   (4 sqrt(N) clusters, cap 256, 3 iterations, seed 0; two builds bitwise
+   equal, asserted) and ``ivf_search`` at nprobe 2-32, and
+   ``impact_search`` over the unsharded index's lists at a ladder of
+   postings per list. Printed: build seconds and peak memory, recall@10
+   beside the single index's, ms per batch, p50/p99, and a Table-1 block
+   (recall@10, docs evaluated and ms a query for each baseline point and
+   Seismic).
 
 The index and query widths come from ``configs/seismic_msmarco``
-(``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED``
-stays a literal until the port has the tuner's sweep.
+(``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED`` is
+``SearchParams.from_tuned(CONFIG_TUNED, 0.95)``. The servers' gauge
+callbacks hold their owners weakly, so a deleted server frees its index
+by reference counting (no collector call between phases 13 and 12).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failure raises
@@ -178,6 +222,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -188,7 +233,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 try:
-    from repro_torch.configs.seismic_msmarco import CONFIG_HIER, SHAPES
+    from repro_torch.configs.seismic_msmarco import (CONFIG_HIER,
+                                                     CONFIG_TUNED, SHAPES)
+    from repro_torch.retrieval.params import SearchParams as _Params
+    from repro_torch.tune.policy import knobs_from_params
 except ModuleNotFoundError as exc:      # the script outside a checkout
     sys.exit(f"chip_smoke: run from a checkout of the repository ({exc})")
 
@@ -214,11 +262,14 @@ PLANE_DOCS = 1 << 20
 # 62 superblocks of 8 * 96 = 768 entries per list
 FANOUT, N_SUPER, SUPER_S = (ICFG.superblock_fanout, ICFG.n_superblocks,
                             ICFG.superblock_nnz)
-# CONFIG_TUNED's operating point at recall target 0.95 (the JAX
-# package's modeled tuning; the port has no tuner yet)
-TUNED = dict(k=10, cut=8, block_budget=128, policy="budget",
-             superblock_fanout=FANOUT, superblock_budget=32, graph_degree=8,
-             refine_rounds=2)
+# CONFIG_TUNED's operating point at recall target 0.95: the modeled
+# TunedPolicy the tuner's frontier code picks (configs/seismic_msmarco),
+# resolved as a server resolves a tuned index's; phase 1 holds it to the
+# knobs earlier slices served as a literal
+TUNED = knobs_from_params(_Params.from_tuned(CONFIG_TUNED, 0.95))
+TUNED_LITERAL = dict(k=10, cut=8, block_budget=128, policy="budget",
+                     superblock_fanout=FANOUT, superblock_budget=32,
+                     graph_degree=8, refine_rounds=2)
 GRAPH_DEGREE, GRAPH_BATCH = 8, 4096
 # phase 12: 2,048 docs inserted in chunks of 512 through a tail of 512
 # slots (every chunk after the first compacts first); before the last
@@ -275,6 +326,22 @@ AUDIT_Z = 2.576
 REPLICAS, DELAY_FACTOR = 4, 5       # the delayed replica: 5x median launch
 SYNC_REQUESTS = 64                  # to time the one-at-a-time server
 SERVE_TIMEOUT = 120.0
+# phase 14: the tuner's sweep over 256 held-out queries (rows 256-511 of
+# phase 5's 4096-query batch) at two recall targets
+TUNE_TARGETS = (0.90, 0.95)
+# phase 15: phase 5's collection in 4 doc shards; the paper's baselines
+# as benchmarks/table1_tradeoff.py sets them (IVF: 4 sqrt(N) clusters of
+# at most 256 docs, 3 Lloyd iterations)
+N_SHARDS = 4
+SHARD_LIST_CHUNK = 16          # lists a build step (results do not change;
+                               # a smaller step, less build scratch)
+CARD_LIMIT_GIB = 70.0          # phase 15's budget for the card's used memory
+PLAIN_ROWS = 32                # queries a plain-path call in phase 15 (its
+                               # scratch grows with the batch)
+IVF_CAP, IVF_ITERS, IVF_NPROBE = 256, 3, (2, 4, 8, 16, 32)
+IMPACT_POSTINGS = (64, 256, 1024, 6000)
+SCORE_TOL = 1e-3               # |score - ip| <= 1e-3 max(1, |ip|)
+RANK_TIMEOUT = 600.0
 ATTN_F32_TOL = 2e-5            # flash_attention, float32: rtol = atol
 LM_REL_L2 = 2 ** -4            # llama3-8b logits, two bf16 paths
 
@@ -994,6 +1061,18 @@ def lm_phases(torch, dev, seed, runtime) -> dict:
     return rec
 
 
+def collection(torch, dev, args):
+    """Phase 5's collection and its 4096 queries, drawn on the card from
+    the seed (phase 15 and its ranks draw them again)."""
+    from repro_torch.data import SyntheticSparseConfig, make_collection
+    data_cfg = SyntheticSparseConfig(dim=DIM, n_docs=args.n_docs,
+                                     n_queries=Q_BATCH, doc_nnz=DOC_NNZ,
+                                     query_nnz=QUERY_NNZ, seed=args.seed)
+    docs, queries, _ = make_collection(data_cfg, device=dev)
+    torch.cuda.synchronize()
+    return docs, queries
+
+
 def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     """Phases 5-8 (the index, the flat and the hierarchical, refined
     paths, kernels a-f timed) -> (the six retrieval kernels' records,
@@ -1002,7 +1081,6 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     from repro_torch.core.build import build_index, live_blocks, \
         suggest_fanout
     from repro_torch.core.oracle import exact_topk, mean_recall_at_k
-    from repro_torch.data import SyntheticSparseConfig, make_collection
     from repro_torch.graph import build_doc_graph
     from repro_torch.graph.refine import scored_init
     from repro_torch.kernels.gather_dot.ops import (
@@ -1029,11 +1107,7 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     # ---- 5. collection and index at the MS MARCO widths, superblock tier
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    data_cfg = SyntheticSparseConfig(dim=DIM, n_docs=args.n_docs,
-                                     n_queries=Q_BATCH, doc_nnz=DOC_NNZ,
-                                     query_nnz=QUERY_NNZ, seed=args.seed)
-    docs, queries, _ = make_collection(data_cfg, device=dev)
-    torch.cuda.synchronize()
+    docs, queries = collection(torch, dev, args)
     t_data = time.perf_counter() - t0
     icfg = dataclasses.replace(ICFG, seed=args.seed)
     timings: dict[str, float] = {}
@@ -1507,8 +1581,25 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
         row_tiles.cluster_size = chosen
     log("  router_hier by blocks per query (* the wrapper's choice on "
         f"{sms} SMs): " + ", ".join(sweep))
-    return record, dict(index=index, queries=q256, recall_flat=recall_flat,
-                        recall_tuned=recalls[2][0])
+    # phase 14's held-out sample: the next 256 rows of the 4096-query
+    # batch, its exact top-10 against the float32 collection
+    held = q4096[Q_ONLINE:2 * Q_ONLINE]
+    _, held_exact = exact_topk(docs.coords, docs.vals, docs.dim,
+                               held.coords, held.vals, 10)
+
+    def seismic_row(res, ms):
+        return (mean_recall_at_k(res[1], ex_i), float(res[2].float().mean()),
+                sorted(ms)[1] / Q_ONLINE)
+    return record, dict(
+        index=index, queries=q256, recall_flat=recall_flat,
+        recall_tuned=recalls[2][0], recall_route=recalls[0][0],
+        exact=(ex_s, ex_i), held_out=held,
+        held_exact=held_exact,
+        table={"Seismic flat (phase 6)": seismic_row(
+                   results[2, "server 256"], batch_ms[2, "server 256"]),
+               "Seismic TUNED (phase 7)": seismic_row(
+                   results_h[2, "server 256"],
+                   batch_ms_h[2, "server 256"])})
 
 
 
@@ -2118,6 +2209,7 @@ def serving_phase(torch, dev, args, runtime, smi, kept) -> dict:
         sync.search(q256[i:i + 1]).ids.cpu()
     sync_rate = SYNC_REQUESTS / (time.perf_counter() - t0)
     rate = 2 * sync_rate
+    kept["rate"] = rate
     units = serving_traffic(args.seed)
     log(f"  SeismicServer(max_batch={ONLINE_BATCH}) one request at a time: "
         f"{sync_rate:.1f} requests/s at TUNED; offered {rate:.1f} "
@@ -2305,17 +2397,604 @@ def serving_phase(torch, dev, args, runtime, smi, kept) -> dict:
     return {name: launches[name] for name in RETRIEVAL}
 
 
+def tuning_phase(torch, dev, args, runtime, smi, kept) -> dict:
+    """Phase 14: the recall-target tuner on phase 7's index and graph.
+    Returns the launches per kernel."""
+    from repro_torch.core.oracle import mean_recall_at_k
+    from repro_torch.retrieval import SearchParams, search_pipeline
+    from repro_torch.serve import SeismicServer
+    from repro_torch.tune import (default_grid, pareto_frontier, sweep,
+                                  tune_and_attach, validate_tuned_index)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    index, held, exact = kept["index"], kept["held_out"], kept["held_exact"]
+
+    def grid(fuse):
+        return default_grid(index, k=10, cut=8, fuse_level=fuse) + [
+            t.to_params(fuse_level=fuse) for t in CONFIG_TUNED.tuned]
+
+    def measured(points):
+        return [(knobs_from_params(pt.params), pt.recall, pt.docs_evaluated,
+                 pt.router_cost) for pt in points]
+
+    runtime.reset_launches()
+    swept, secs = {}, {}
+    for fuse in (1, 2):
+        t0 = time.perf_counter()
+        swept[fuse] = sweep(index, held, exact, grid=grid(fuse))
+        secs[fuse] = time.perf_counter() - t0
+    if measured(swept[1]) != measured(swept[2]):
+        raise AssertionError("tuning: a measured point differs between fuse "
+                             "levels 1 and 2")
+    t0 = time.perf_counter()
+    timed = sweep(index, held, exact, grid=grid(2), timings=True)
+    secs["timings"] = time.perf_counter() - t0
+    if measured(timed) != measured(swept[2]):
+        raise AssertionError("tuning: the staged sweep's points differ from "
+                             "the fused sweep's")
+    log(f"[14 tuning] on {smi}: {len(swept[2])} points (default_grid, cut "
+        f"8, plus CONFIG_TUNED's {len(CONFIG_TUNED.tuned)} modeled points) "
+        f"over {held.n} held-out queries (rows {Q_ONLINE}-"
+        f"{2 * Q_ONLINE - 1} of phase 5's batch); sweep seconds: fuse 1 "
+        f"{secs[1]:.2f}, fuse 2 {secs[2]:.2f}, fuse 2 staged "
+        f"{secs['timings']:.2f}; every point equal (recall, docs_evaluated, "
+        "router_cost) at fuse 1, fuse 2 and staged")
+    adv = {tuple(knobs_from_params(pt.params).items()): pt.advisory_seconds
+           for pt in timed}
+
+    def knob_text(p):
+        k = knobs_from_params(p)
+        route = (f"hier sb {k['superblock_budget']}"
+                 if k["superblock_fanout"] else "flat")
+        extra = {"adaptive": f" hf {k['heap_factor']}",
+                 "global_threshold": f" tf {k['threshold_factor']}"}.get(
+                     k["policy"], "")
+        return (f"{k['policy']}{extra}, block_budget {k['block_budget']}, "
+                f"{route}, "
+                f"refine {k['graph_degree']}x{k['refine_rounds']}")
+    for pt in pareto_frontier(swept[2]):
+        a = adv[tuple(knobs_from_params(pt.params).items())]
+        log(f"  frontier: {knob_text(pt.params)}: recall@10 "
+            f"{pt.recall:.4f}, docs_evaluated {pt.docs_evaluated:.2f}, "
+            f"router_cost {pt.router_cost}, staged {a * 1e3:.2f} ms")
+    t0 = time.perf_counter()
+    tuned_index = tune_and_attach(index, held, exact, targets=TUNE_TARGETS,
+                                  grid=grid(2))
+    validate_tuned_index(tuned_index)
+    log(f"  tune_and_attach (targets {TUNE_TARGETS}) in "
+        f"{time.perf_counter() - t0:.2f} s; the attached policies pass "
+        "validate_tuned_index")
+    for pol in tuned_index.tuned:
+        log(f"  target {pol.target}: {knob_text(pol.to_params())}; held-out "
+            f"recall@10 {pol.measured_recall:.4f}, docs_evaluated "
+            f"{pol.measured_cost:.2f}, router_cost {pol.router_cost}, "
+            f"fingerprint {pol.sample_fingerprint}")
+    p95 = SearchParams.from_tuned(tuned_index, 0.95, fuse_level=2)
+    res = SeismicServer(tuned_index, p95, max_batch=Q_ONLINE).search(
+        kept["queries"])
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    rec = mean_recall_at_k(res.ids, kept["exact"][1])
+    log(f"  from_tuned(0.95) at fuse 2 serves phase 7's {Q_ONLINE} queries: "
+        f"recall@10 {rec:.4f}, mean docs_evaluated "
+        f"{float(res.docs_evaluated.float().mean()):.1f} (TUNED, the modeled "
+        f"point, in phase 7: {kept['recall_tuned']:.4f}); launches "
+        f"{launches}")
+    for name in ("summary_dot", "gather_dot_cand", "router_flat",
+                 "router_hier", "refine_round"):
+        if launches[name] <= 0:
+            raise AssertionError(f"tuning: kernel {name} never launched")
+    # the sweep's three runs all take the kernels: each attached point is
+    # held to the plain path on the held-out queries
+    for pol in tuned_index.tuned:
+        label = f"tuning target {pol.target}"
+        n_diff = check_against_plain(
+            torch, label, search_pipeline(index, held, pol.to_params(
+                fuse_level=2)),
+            search_pipeline(index, held, pol.to_params(
+                use_kernel=False, fuse_level=0)), 10)
+        log(f"  {label} at fuse 2 vs the plain path on the {held.n} "
+            f"held-out queries: scores within tolerance, {n_diff} rows "
+            "with ids differing at non-isolated ties")
+    log(f"  peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase 14 "
+        f"in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {name: launches[name] for name in RETRIEVAL}
+
+
+def shard_points():
+    """Phase 15's two operating points, fuse 2: the flat SHAPES point and
+    TUNED's route without refine (build_sharded_index builds no graph)."""
+    from repro_torch.retrieval import SearchParams
+    return {"flat": SearchParams(use_kernel=True, fuse_level=2, k=10,
+                                 cut=CUT, block_budget=BLOCK_BUDGET),
+            "TUNED route": SearchParams(use_kernel=True, fuse_level=2,
+                                        **{**TUNED, "graph_degree": 0,
+                                           "refine_rounds": 0})}
+
+
+def shard_rank(args) -> int:
+    """One rank of phase 15's ``make_distributed_search`` run (a process
+    this script starts for itself): draw phase 5's collection, build this
+    rank's shard (ranks build one after another, so one build's scratch
+    is on the card at a time), search phase 7's 256 queries at both
+    points, and write the answers (rank 0), the launches, the times and
+    the peak memory under ``--out``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.build import build_index
+    from repro_torch.core.distributed import (make_distributed_search,
+                                              shard_collection)
+    from repro_torch.kernels import runtime
+    from repro_torch.sparse.ops import PaddedSparse
+
+    rank, out = args.shard_rank, Path(args.out)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{args.port}", world_size=N_SHARDS, rank=rank)
+    mesh = init_device_mesh("cpu", (1, N_SHARDS),
+                            mesh_dim_names=("data", "model"))
+    shard = mesh.get_local_rank("model")
+    docs, queries = collection(torch, dev, args)
+    q256 = queries[:Q_ONLINE]
+    n_docs = docs.n
+    sharded = shard_collection(docs, N_SHARDS)
+    mine = PaddedSparse(sharded.coords[shard].clone(),
+                        sharded.vals[shard].clone(), DIM)
+    del docs, queries, sharded
+    torch.cuda.empty_cache()
+    draw_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    icfg = dataclasses.replace(ICFG, seed=args.seed)
+    t_build = 0.0
+    for turn in range(N_SHARDS):
+        if turn == rank:
+            t0 = time.perf_counter()
+            local = build_index(mine, icfg, list_chunk=SHARD_LIST_CHUNK)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            del mine
+            torch.cuda.empty_cache()
+        dist.barrier()
+    answers, ms = {}, {}
+    runtime.reset_launches()
+    for name, p in shard_points().items():
+        search = make_distributed_search(mesh, p, doc_axes=("model",),
+                                         data_axis="data", n_docs=n_docs)
+        times = []
+        for _ in range(4):
+            dist.barrier()
+            t0 = time.perf_counter()
+            s, ids = search(local, q256.coords, q256.vals)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        answers[name] = (s.cpu(), ids.cpu())
+        ms[name] = times
+    if rank == 0:
+        torch.save(answers, out / "answers.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, shard=shard, build_s=t_build, ms=ms,
+        launches=dict(runtime.LAUNCHES), draw_gib=draw_gib,
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        reserved_gib=torch.cuda.max_memory_reserved(dev) / 2**30,
+        resident_gib=torch.cuda.memory_allocated(dev) / 2**30)))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(args, out: Path) -> list[dict]:
+    """Start the N_SHARDS ranks of :func:`shard_rank` on a free local port
+    and wait for all; every rank is ended before this returns. The ranks'
+    allocators map memory in expandable segments, so a rank's build
+    scratch leaves no cached blocks it cannot give back."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    env = dict(os.environ,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--n-docs",
+         str(args.n_docs), "--seed", str(args.seed), "--shard-rank",
+         str(r), "--port", str(port), "--out", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env)
+        for r in range(N_SHARDS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("a make_distributed_search rank failed:\n"
+                             + "\n".join(f"--- rank {r} (rc {p.returncode})"
+                                         f"\n{o[-4000:]}" for r, (p, o)
+                                         in enumerate(zip(procs, logs))))
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(N_SHARDS)]
+
+
+class CardPeak:
+    """The card's used memory (every process on it with its CUDA context,
+    ``mem_get_info``), sampled every 0.2 s on a thread while the ``with``
+    block runs; ``peak`` keeps the largest sample of each stage named by
+    ``stage``."""
+
+    def __init__(self, torch, dev):
+        self.info = lambda: torch.cuda.mem_get_info(dev)
+        self.current, self.peak = "", {}
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def stage(self, name: str) -> None:
+        self.sample()
+        self.current = name
+        self.sample()
+
+    def sample(self) -> None:
+        if not self.current:
+            return
+        free, total = self.info()
+        used = (total - free) / 2**30
+        self.peak[self.current] = max(self.peak.get(self.current, 0.0), used)
+
+    def _run(self) -> None:
+        while not self._done.wait(0.2):
+            self.sample()
+
+    def __enter__(self) -> "CardPeak":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._done.set()
+        self._thread.join()
+        self.sample()
+
+
+def exact_scores(torch, docs, q, ids, dtype=None):
+    """float64 <q, doc> for ids [Q, k] (-1 -> nan), the docs' values first
+    rounded to ``dtype`` (the forward plane's) when given."""
+    from repro_torch.sparse.ops import densify
+    qd = densify(q, dtype=torch.float64)
+    safe = ids.long().clamp(min=0)
+    c = docs.coords[safe].long()                             # [Q, k, nnz]
+    vals = docs.vals[safe]
+    if dtype is not None:
+        vals = vals.to(dtype)
+    ip = (qd.gather(1, c.reshape(q.n, -1)).reshape(c.shape)
+          * vals.double()).sum(-1)
+    return torch.where(ids >= 0, ip, torch.nan)
+
+
+def sharded_phase(torch, dev, args, runtime, smi, kept) -> dict:
+    """Phase 15: doc-sharded search three ways and the paper's baselines
+    on phase 5's collection, the card's used memory held to
+    ``CARD_LIMIT_GIB`` at every stage. Returns the launches per kernel."""
+    with CardPeak(torch, dev) as card:
+        launches = sharded_stages(torch, dev, args, runtime, smi, kept, card)
+    log(f"  the card's used memory (every process with its CUDA context, "
+        f"sampled every 0.2 s) at its peak in each stage of phase 15: "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in card.peak.items())
+        + f" (budget {CARD_LIMIT_GIB:g} GiB; {smi})")
+    over = {k: v for k, v in card.peak.items() if v >= CARD_LIMIT_GIB}
+    if over:
+        raise AssertionError(f"sharded: the card's used memory reached "
+                             f"{over} GiB, budget {CARD_LIMIT_GIB:g}")
+    return launches
+
+
+def sharded_stages(torch, dev, args, runtime, smi, kept, card) -> dict:
+    """The stages of :func:`sharded_phase`, each named to ``card``."""
+    import numpy as np
+
+    from repro_torch.core.baselines import (build_ivf, exact_search,
+                                            impact_search, ivf_search)
+    from repro_torch.core.build import build_index
+    from repro_torch.core.distributed import (build_sharded_index,
+                                              search_shards)
+    from repro_torch.core.oracle import mean_recall_at_k
+    from repro_torch.retrieval import search_pipeline
+    from repro_torch.serve import ReplicaSeismicServer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    card.stage("build_sharded_index")
+    docs, queries = collection(torch, dev, args)
+    q256 = queries[:Q_ONLINE]
+    del queries
+    if not (torch.equal(q256.coords, kept["queries"].coords)
+            and torch.equal(q256.vals, kept["queries"].vals)):
+        raise AssertionError("sharded: the collection drawn again differs "
+                             "from phase 5's")
+    ex_s, ex_i = kept["exact"]
+    icfg = dataclasses.replace(ICFG, seed=args.seed)
+    t0 = time.perf_counter()
+    sharded = build_sharded_index(docs, icfg, N_SHARDS,
+                                  list_chunk=SHARD_LIST_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()    # the builds' scratch
+    log(f"[15 sharded + baselines] on {smi}: build_sharded_index "
+        f"{N_SHARDS} x {sharded.per_shard} docs in "
+        f"{time.perf_counter() - t0:.1f} s, {sharded.nbytes()} bytes; peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        "GiB")
+    points = shard_points()
+    single = {"flat": kept["recall_flat"],
+              "TUNED route": kept["recall_route"]}
+    launches = {name: 0 for name in RETRIEVAL}
+
+    def add_launches(counts):
+        for name in RETRIEVAL:
+            launches[name] += counts[name]
+
+    def route_of(counts):
+        return {k for k, n in counts.items() if n}
+
+    # (i) in process: each shard's pipeline, masked, merged
+    card.stage("(i) and (ii)")
+    refs, routes = {}, {}
+    for name, p in points.items():
+        runtime.reset_launches()
+        out = search_shards(sharded, q256, p)
+        torch.cuda.synchronize()
+        counts = dict(runtime.LAUNCHES)
+        add_launches(counts)
+        routes[name] = route_of(counts)
+        want = "router_flat" if name == "flat" else "router_hier"
+        if want not in routes[name] or "gather_dot_cand" not in routes[name]:
+            raise AssertionError(f"sharded {name}: route {routes[name]}")
+        # every shard's kernel path held to its plain path (PLAIN_ROWS
+        # queries a call; rows are answered independently): (ii) and
+        # (iii) are held to (i) bitwise below, and all three take the
+        # kernels
+        plain = dataclasses.replace(p, use_kernel=False, fuse_level=0)
+        ev, n_diff = 0, 0
+        for s, local in enumerate(sharded.shards):
+            got = search_pipeline(local, q256, p)
+            ref = [search_pipeline(local, q256[a:a + PLAIN_ROWS], plain)
+                   for a in range(0, q256.n, PLAIN_ROWS)]
+            n_diff += check_against_plain(
+                torch, f"sharded {name} shard {s}", got,
+                tuple(torch.cat(parts) for parts in zip(*ref)), 10)
+            ev = ev + got[2]
+        del local, got, ref     # the last shard goes with ``sharded``
+        if not torch.equal(ev, out[2]):
+            raise AssertionError(f"sharded {name}: docs_evaluated is not the "
+                                 "per-shard sum")
+        ids = out[1]
+        if bool(((ids < -1) | (ids >= args.n_docs)).any()):
+            raise AssertionError(f"sharded {name}: an id out of range")
+        # over the forward plane's values (bf16 at the MS MARCO widths)
+        ip = exact_scores(torch, docs, q256, ids,
+                          sharded.shard(0).fwd.vals.dtype)
+        live = ids >= 0
+        err = (out[0].double() - ip).abs()[live]
+        bound = SCORE_TOL * ip.abs().clamp(min=1.0)[live]
+        if bool((err > bound).any()):
+            raise AssertionError(f"sharded {name}: a score is not the exact "
+                                 "inner product")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            search_shards(sharded, q256, p)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        refs[name] = out
+        rec = mean_recall_at_k(ids, ex_i)
+        log(f"  (i) in process, {name}: recall@10 {rec:.4f}"
+            + f" (single index, phases 6-7: {single[name]:.4f})"
+            + f", mean docs_evaluated {float(out[2].float().mean()):.1f} "
+            f"(the shards' sum), ms per batch of {Q_ONLINE} "
+            f"{['%.2f' % t for t in times]}; scores exact (max abs "
+            f"{float(err.max()):.2e}); every shard's kernel path vs its "
+            f"plain path: scores within tolerance, {n_diff} shard rows with "
+            f"ids differing at non-isolated ties; launches {counts}")
+    refs_np = {name: tuple(t.cpu().numpy() for t in r)
+               for name, r in refs.items()}
+
+    # (ii) shard-mode replicas: phase 13's traffic, a swap mid-traffic
+    c = q256.coords.cpu().numpy()
+    v = q256.vals.cpu().numpy()
+    srv = ReplicaSeismicServer(
+        sharded, points["flat"], mode="shard", max_batch=SERVE_MAX_BATCH,
+        query_nnz=QUERY_NNZ, deadline_s=SERVE_DEADLINE,
+        queue_bound=SERVE_QUEUE, cache_size=SERVE_CACHE, coalesce=True)
+
+    # the swap lands inside the first part's traffic (at 60 % of its
+    # expected span), without warmup, so jobs are dispatched and in flight
+    # on both sides of it; the second part starts after it
+    units = serving_traffic(args.seed)
+    swap = threading.Timer(0.6 * len(units) / kept["rate"], lambda: (
+        srv.swap_index(sharded, points["TUNED route"], warmup=False)))
+    try:
+        srv.start()
+        runtime.reset_launches()
+        swap.start()
+        subs, secs, sent = drive_clients(srv, units, c, v, kept["rate"],
+                                         args.seed, halves=2,
+                                         between=swap.join)
+    finally:
+        swap.cancel()
+        srv.stop()
+    counts = dict(runtime.LAUNCHES)
+    add_launches(counts)
+    n_ans = check_answers("shard mode", subs,
+                          {0: refs_np["flat"], 1: refs_np["TUNED route"]},
+                          accept=refs_np["TUNED route"])
+    missing = (routes["flat"] | routes["TUNED route"]) - route_of(counts)
+    if missing:
+        raise AssertionError(f"shard mode: {missing} never launched")
+    log(f"  (ii) ReplicaSeismicServer(mode='shard', {N_SHARDS} replicas), "
+        "flat then a swap_index to the TUNED route: "
+        + latency_line(subs, secs, sent)
+        + f"; every answer bitwise (i)'s ({n_ans['cached']} cached, "
+        f"{n_ans['coalesced']} coalesced, {n_ans['after swap']} after the "
+        f"swap); {srv.telemetry_export()['counters']['batches']} merged "
+        f"launches; launches {counts}")
+    # the ranks draw the collection themselves: it is drawn again after
+    del srv, sharded, docs
+    torch.cuda.empty_cache()
+    log(f"  the shards and the collection freed: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+
+    # (iii) make_distributed_search on N_SHARDS ranks over gloo
+    card.stage("(iii)")
+    t0 = time.perf_counter()
+    ranks = run_ranks(args, ROOT / "build" / "phase15")
+    card.stage("baselines")
+    resident = sum(r["resident_gib"] for r in ranks)
+    together = max(resident - r["resident_gib"] + r["peak_gib"]
+                   for r in ranks)
+    answers = torch.load(ROOT / "build" / "phase15" / "answers.pt")
+    for name, (s, ids) in answers.items():
+        want_s, want_i = refs[name][0].cpu(), refs[name][1].cpu()
+        if not (torch.equal(ids, want_i) and torch.equal(
+                s.view(torch.int32), want_s.view(torch.int32))):
+            raise AssertionError(f"make_distributed_search {name}: answers "
+                                 "differ from the in-process route's")
+    for r in ranks:
+        add_launches(r["launches"])
+        missing = (routes["flat"] | routes["TUNED route"]) \
+            - route_of(r["launches"])
+        if missing:
+            raise AssertionError(f"rank {r['rank']}: {missing} never "
+                                 "launched")
+    log(f"  (iii) make_distributed_search on {N_SHARDS} gloo ranks sharing "
+        f"the card, a (1, {N_SHARDS}) mesh: {time.perf_counter() - t0:.1f} s "
+        "with the ranks' start, draws and builds; answers bitwise (i)'s at "
+        "both points; ms per batch (rank 0, after one warm run) "
+        + "; ".join(f"{n} {['%.2f' % t for t in ts[1:]]}"
+                    for n, ts in ranks[0]["ms"].items())
+        + "; shard builds s " + str([round(r["build_s"], 1) for r in ranks])
+        + "; GiB per rank (draw peak, peak, reserved peak, resident) " + str(
+            [tuple(round(r[k], 2) for k in ("draw_gib", "peak_gib",
+                                            "reserved_gib", "resident_gib"))
+             for r in ranks])
+        + f"; the ranks' allocations together at most {together:.2f} GiB "
+        "(one rank's build peak beside the others' built shards)")
+
+    # baselines, on the same collection and queries
+    docs, _ = collection(torch, dev, args)
+    table = dict(kept["table"])
+    for name in points:
+        table[f"Seismic {name}, {N_SHARDS} shards"] = None
+
+    def timed(fn, runs=2):
+        out, best = None, float("inf")
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return out, best * 1e3 / Q_ONLINE
+    (es, ei), ms = timed(lambda: exact_search(docs, q256, 10))
+    diff = ei.long() != ex_i
+    if bool(diff.any()):
+        a = exact_scores(torch, docs, q256, ei)[diff]
+        b = ex_s[diff]
+        if bool(((a - b).abs() > RTOL * b.abs()).any()):
+            raise AssertionError("exact_search: ids differ from exact_topk's "
+                                 "away from a tie")
+    table["exact_search"] = (mean_recall_at_k(ei, ex_i), float(docs.n), ms)
+    log(f"  exact_search (float32): ids equal exact_topk's (float64) except "
+        f"{int(diff.sum())} at ties; {ms:.4f} ms a query")
+    n_clusters = int(4 * args.n_docs ** 0.5)
+    builds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        builds.append(build_ivf(docs, n_clusters, IVF_CAP, IVF_ITERS,
+                                seed=0))
+        torch.cuda.synchronize()
+        builds[-1] = (builds[-1], time.perf_counter() - t0)
+    (ivf, t1), (ivf2, t2) = builds
+    for f in ("centroids", "member_docs", "member_len"):
+        if not torch.equal(getattr(ivf, f), getattr(ivf2, f)):
+            raise AssertionError(f"build_ivf: two builds differ in {f}")
+    del ivf2, builds
+    log(f"  build_ivf ({n_clusters} clusters, cap {IVF_CAP}, {IVF_ITERS} "
+        f"iterations, seed 0): {t1:.1f} / {t2:.1f} s, two builds bitwise "
+        f"equal; {ivf.nbytes()} bytes; members kept "
+        f"{int(ivf.member_len.clamp(max=IVF_CAP).sum())} of {docs.n}; peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        "GiB")
+    for nprobe in IVF_NPROBE:
+        (s, ids, ev), ms = timed(lambda: ivf_search(ivf, q256, 10, nprobe))
+        table[f"IVF nprobe {nprobe}"] = (mean_recall_at_k(ids, ex_i),
+                                         float(ev.float().mean()), ms)
+    del ivf
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lists = build_index(docs, dataclasses.replace(icfg, superblock_fanout=0))
+    torch.cuda.synchronize()
+    log(f"  the unsharded index's lists for impact_search (a build without "
+        f"the superblock tier, which the lists do not depend on): "
+        f"{time.perf_counter() - t0:.1f} s")
+    qc = q256.coords.long()
+    for b in IMPACT_POSTINGS:
+        (s, ids), ms = timed(lambda: impact_search(
+            lists.list_docs, lists.list_vals, lists.list_len, lists.n_docs,
+            q256, 10, b))
+        touched = torch.where(q256.vals > 0,
+                              lists.list_len[qc].clamp(max=b), 0).sum(1)
+        table[f"impact {b} postings a list"] = (
+            mean_recall_at_k(ids, ex_i), float(touched.float().mean()), ms)
+    del lists
+    torch.cuda.empty_cache()
+    for name in points:
+        r = refs[name]
+        table[f"Seismic {name}, {N_SHARDS} shards"] = (
+            mean_recall_at_k(r[1], ex_i), float(r[2].float().mean()),
+            float(np.median(ranks[0]["ms"][name][1:])) / Q_ONLINE)
+    log(f"  Table 1 on {args.n_docs} docs, {Q_ONLINE} queries, k 10 ({smi}); "
+        "docs a query: exactly scored (impact: postings accumulated); ms a "
+        "query: a batch's ms over its queries (Seismic rows: the 256-query "
+        "server at fuse 2, phases 6-7; sharded rows: rank 0 of (iii))")
+    for name, (rec, d, ms) in table.items():
+        log(f"    {name:<34} recall@10 {rec:.4f}  docs {d:>12.1f}  "
+            f"ms {ms:.4f}")
+    log(f"  launches in phase 15 ((i), (ii) and the ranks of (iii)): "
+        f"{launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (this "
+        f"process); phase 15 in {time.perf_counter() - t_phase:.1f} s "
+        f"({smi})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1 << 20,
                     help="collection size (MS MARCO has 8,841,823)")
     ap.add_argument("--seed", type=int, default=0)
+    # phase 15 starts this script again as the ranks of its
+    # make_distributed_search run
+    ap.add_argument("--shard-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.shard_rank is not None:
+        return shard_rank(args)
     from repro_torch.kernels import runtime
 
     # ---- 1. device
@@ -2329,6 +3008,10 @@ def main() -> int:
     log(f"[1 device] {kind} x{count}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; TF32 off "
         "(matmul and cudnn)")
+    if any(TUNED[k] != v for k, v in TUNED_LITERAL.items()):
+        raise AssertionError(f"from_tuned(CONFIG_TUNED, 0.95) gives {TUNED}, "
+                             f"not the served point {TUNED_LITERAL}")
+    log(f"  TUNED = from_tuned(CONFIG_TUNED, 0.95): {TUNED}")
 
     # ---- 2. build the kernels
     t0 = time.perf_counter()
@@ -2407,17 +3090,25 @@ def main() -> int:
     served = serving_phase(torch, dev, args, runtime, smi, kept)
     for rec in record:
         rec["launches"] += served[rec["name"]]
-    # the servers and their registries' gauge callbacks form reference
-    # cycles that hold the index's planes; phase 12 frees them after the
-    # lift only if nothing else holds them
-    gc.collect()
+
+    # ---- 14. the recall-target tuner on phase 7's index
+    tuned = tuning_phase(torch, dev, args, runtime, smi, kept)
+    for rec in record:
+        rec["launches"] += tuned[rec["name"]]
 
     # ---- 12. the mutation path on phase 7's index
     mutated = mutation_phase(torch, dev, args, runtime, smi,
-                             kept.pop("index"), kept.pop("queries"))
+                             kept.pop("index"), kept["queries"])
     for rec in record:
         rec["launches"] += mutated[rec["name"]]
     gc.collect()                  # the index and the graph go here
+    torch.cuda.empty_cache()
+
+    # ---- 15. doc-sharded search three ways, the paper's baselines
+    sharded = sharded_phase(torch, dev, args, runtime, smi, kept)
+    for rec in record:
+        rec["launches"] += sharded[rec["name"]]
+    kept.clear()
     torch.cuda.empty_cache()
 
     # ---- 9. the LM path: flash_attention against plain, prefill, serving

@@ -5,8 +5,11 @@ beta=400, alpha=0.4 — the paper's best MS MARCO settings, §7.1).
 ``CONFIG_HIER`` / ``REDUCED_HIER`` derive the superblock tier with the
 adaptive ``core.build.suggest_fanout`` instead of a hand-picked fanout.
 
-The modeled tuned variants (``with_modeled_tuning``, ``CONFIG_TUNED``)
-need the tuner, which the port does not have yet.
+``CONFIG_TUNED`` / ``REDUCED_TUNED`` carry modeled ``TunedPolicy``
+operating points (``with_modeled_tuning``), picked by the tuner's own
+frontier code over a modeled cost/recall surface;
+``SearchParams.from_tuned(CONFIG_TUNED, 0.95)`` resolves them as it does
+on a tuned index.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ class SeismicArchConfig:
     dim: int
     doc_nnz: int
     query_nnz: int
-    # modeled operating points of the JAX package's tuner; kept for the
-    # field's sake (the port has no tuner yet)
+    # modeled TunedPolicy tuple: config-time operating points picked by
+    # the tuner's frontier and selection code over a modeled surface
+    # (modeled=True); tune_and_attach on a built index supersedes them
     tuned: tuple = ()
 
     @property
@@ -89,3 +93,71 @@ def with_suggested_fanout(arch: SeismicArchConfig,
 # cap); the reduced CPU config lands at 2
 CONFIG_HIER = with_suggested_fanout(CONFIG)
 REDUCED_HIER = with_suggested_fanout(REDUCED)
+
+
+# ------------------------------------------------ tuned operating points
+
+def _modeled_points(arch: SeismicArchConfig, k: int = 10, cut: int = 8,
+                    graph_degree: int = 8):
+    """Modeled recall/cost surface over the coupled knob grid, the
+    config-time analog of ``repro_torch.tune.sweep``: the cost side is the
+    work model (expected exactly-scored docs plus refine rescoring,
+    ``router_work`` for routing), the recall side a saturating coverage
+    model (early blocks carry most of the top-k mass; each refine round
+    recovers a fixed fraction of what the budget dropped). The floats are
+    rounded as the JAX package rounds them."""
+    from repro_torch.retrieval.params import SearchParams
+    from repro_torch.retrieval.router import router_work
+    from repro_torch.tune.sweep import MeasuredPoint
+    icfg = arch.index
+    per_list = min(arch.n_docs * arch.doc_nnz / arch.dim, icfg.lam)
+    pool = max(cut * per_list, 1.0)
+    # impact concentration (paper Fig. 1): coverage is measured against
+    # the concentrated quarter of the probed postings
+    eff_pool = max(pool * 0.25, 1.0)
+    gain_per_round = 0.8 * graph_degree / (graph_degree + k)
+    f = icfg.superblock_fanout
+    points = []
+    for budget in (2, 4, 8, 16, 32, 64, 128):
+        if budget > cut * icfg.n_blocks:
+            continue
+        for rounds in (0, 1, 2):
+            cov = min(1.0, budget * icfg.block_cap / eff_pool)
+            base = cov ** 0.3
+            gain = 1.0 - (1.0 - gain_per_round) ** rounds
+            recall = base + (1.0 - base) * gain
+            docs = min(budget * icfg.block_cap, pool) \
+                + rounds * k * graph_degree
+            p = SearchParams(
+                k=k, cut=cut, block_budget=budget, policy="budget",
+                superblock_fanout=f,
+                superblock_budget=max(2, budget // max(f // 2, 1)),
+                graph_degree=graph_degree if rounds else 0,
+                refine_rounds=rounds)
+            points.append(MeasuredPoint(
+                params=p, recall=round(recall, 6),
+                docs_evaluated=float(round(docs, 3)),
+                router_cost=router_work(icfg, p)))
+    return points
+
+
+def with_modeled_tuning(arch: SeismicArchConfig,
+                        targets=(0.9, 0.95)) -> SeismicArchConfig:
+    """The ``*-tuned`` variant: one modeled ``TunedPolicy`` per recall
+    target, selected by the tuner's frontier code over the modeled
+    surface."""
+    from repro_torch.tune.frontier import (policy_from_point,
+                                           select_operating_point)
+    points = _modeled_points(arch)
+    pols = tuple(
+        policy_from_point(select_operating_point(points, t), t,
+                          fingerprint="modeled", modeled=True)
+        for t in targets)
+    return dataclasses.replace(arch, name=f"{arch.name}-tuned",
+                               tuned=pols)
+
+
+# the MS MARCO-scale surface needs its top budget rung plus refine rounds;
+# on the reduced CPU arch the model trades budget down against a round
+CONFIG_TUNED = with_modeled_tuning(CONFIG_HIER)
+REDUCED_TUNED = with_modeled_tuning(REDUCED_HIER)

@@ -50,6 +50,7 @@ from repro_torch.core.build import (block_summaries, build_index,
                                     merge_superblock_summary, sample_rep_pos)
 from repro_torch.core.types import SeismicConfig, SeismicIndex
 from repro_torch.device import resolve_device
+from repro_torch.obs.registry import weak_fn
 from repro_torch.sparse.ops import PaddedSparse, widen_coords
 from repro_torch.sparse.quant import dequantize_u8, quantize_u8
 
@@ -615,16 +616,16 @@ class MutableSeismicIndex:
         registry.gauge(
             "seismic_index_epoch",
             "Mutation epoch of the index (bumped on every visible "
-            "mutation)").labels().set_fn(lambda: self._epoch)
+            "mutation)").labels().set_fn(weak_fn(self, lambda s: s._epoch))
         registry.gauge(
             "seismic_tail_occupancy",
             "Live docs in the unblocked tail segment").labels().set_fn(
-            lambda: self._tail_occ)
+            weak_fn(self, lambda s: s._tail_occ))
         registry.gauge(
             "seismic_tail_fill_ratio",
             "Tail occupancy / tail_max (1.0 = next insert "
             "compacts)").labels().set_fn(
-            lambda: self._tail_occ / self.tail_max)
+            weak_fn(self, lambda s: s._tail_occ / s.tail_max))
         self._m_inserted = registry.counter(
             "seismic_docs_inserted_total", "Docs inserted").labels()
         self._m_deleted = registry.counter(

@@ -1,11 +1,19 @@
-"""Exact brute-force retrieval and recall (port of ``repro.core.oracle``).
+"""Exact brute-force retrieval, recall, and the paper's Algorithm 2 as a
+host oracle (port of ``repro.core.oracle``).
 
 ``exact_topk`` scores every document for a whole query batch on the
 device, ``doc_chunk`` documents at a time, in float64 (the JAX oracle's
 precision), keeping a running top-k. Ties keep the lower doc id, as the
 JAX oracle's stable argsort does.
+
+``algorithm2`` is a line-by-line numpy/heapq implementation of the
+paper's Algorithm 2 (coordinate at a time, a min-heap, heap_factor block
+skipping) over a :class:`NumpyIndexView` of a port index: a host oracle
+that cross-checks the batched query path and never runs on the card.
 """
 from __future__ import annotations
+
+import heapq
 
 import numpy as np
 import torch
@@ -36,6 +44,98 @@ def exact_topk(doc_coords: torch.Tensor, doc_vals: torch.Tensor, dim: int,
         top_s, pos = torch.sort(cat_s, dim=1, descending=True, stable=True)
         best_s, best_i = top_s[:, :k], cat_i.gather(1, pos[:, :k])
     return best_s, best_i
+
+
+def _host64(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float64).cpu().numpy()
+
+
+class NumpyIndexView:
+    """Host numpy view of a port ``SeismicIndex``: the forward values (a
+    bf16 or u8 plane included, dequantized with its per-doc scale and
+    zero) as float64, u16 coordinates widened to int64."""
+
+    def __init__(self, index):
+        self.fwd_coords = widen_coords(index.fwd.coords).cpu().numpy()
+        vals = index.fwd.vals
+        if index.fwd_scale is not None:
+            from repro_torch.sparse.quant import dequantize_u8
+            vals = dequantize_u8(vals, index.fwd_scale, index.fwd_zero)
+        self.fwd_vals = _host64(vals)
+        self.list_docs = index.list_docs.cpu().numpy()
+        self.list_len = index.list_len.cpu().numpy()
+        self.block_off = index.block_off.cpu().numpy()
+        self.block_len = index.block_len.cpu().numpy()
+        self.sum_coords = index.sum_coords.cpu().numpy()
+        self.sum_q = index.sum_q.cpu().numpy()
+        self.sum_scale = index.sum_scale.cpu().numpy()
+        self.sum_zero = index.sum_zero.cpu().numpy()
+        self.dim = index.dim
+        self.n_docs = index.n_docs
+
+    def summary(self, i: int, j: int) -> tuple[np.ndarray, np.ndarray]:
+        q = self.sum_q[i, j].astype(np.float64)
+        v = np.where(q > 0,
+                     (q - 1.0) * self.sum_scale[i, j] + self.sum_zero[i, j],
+                     0.0)
+        return self.sum_coords[i, j], v
+
+
+def algorithm2(view: NumpyIndexView, q_coords: np.ndarray,
+               q_vals: np.ndarray, k: int, cut: int, heap_factor: float):
+    """Paper Algorithm 2, verbatim control flow, on the host.
+
+    Returns (scores desc [k], ids [k], stats dict). A document met again
+    in another list is skipped on heap insert (set membership): its score
+    is the same each time it is evaluated."""
+    q_coords = np.asarray(q_coords)
+    q_vals = np.asarray(q_vals)
+    q_dense = np.zeros(view.dim, np.float64)
+    np.add.at(q_dense, q_coords, q_vals.astype(np.float64))
+    order = np.argsort(-q_vals, kind="stable")[:cut]
+    probe = [int(q_coords[o]) for o in order if q_vals[o] > 0]
+
+    heap: list[tuple[float, int]] = []   # min-heap of (score, doc)
+    in_heap: set[int] = set()
+    docs_evaluated = 0
+    blocks_scored = 0
+    blocks_skipped = 0
+
+    for i in probe:                                   # line 3
+        nb = view.block_off.shape[1]
+        for j in range(nb):                           # line 4
+            ln = int(view.block_len[i, j])
+            if ln == 0:
+                continue
+            sc, sv = view.summary(i, j)
+            r = float((q_dense[sc] * sv).sum())       # line 5
+            blocks_scored += 1
+            if len(heap) == k and r < heap[0][0] / heap_factor:   # line 6
+                blocks_skipped += 1
+                continue                              # line 7
+            off = int(view.block_off[i, j])
+            for d in view.list_docs[i, off:off + ln]:  # line 8
+                d = int(d)
+                if d >= view.n_docs:
+                    continue
+                docs_evaluated += 1
+                p = float((q_dense[view.fwd_coords[d]]
+                           * view.fwd_vals[d]).sum())  # line 9
+                if d in in_heap:
+                    continue
+                if len(heap) < k or p > heap[0][0]:    # line 10
+                    heapq.heappush(heap, (p, d))       # line 11
+                    in_heap.add(d)
+                    if len(heap) == k + 1:             # line 12
+                        _, popped = heapq.heappop(heap)  # line 13
+                        in_heap.discard(popped)
+
+    out = sorted(heap, reverse=True)
+    scores = np.array([s for s, _ in out], np.float64)
+    ids = np.array([d for _, d in out], np.int64)
+    stats = dict(docs_evaluated=docs_evaluated, blocks_scored=blocks_scored,
+                 blocks_skipped=blocks_skipped)
+    return scores, ids, stats
 
 
 def recall_at_k(approx_ids, exact_ids) -> float:

@@ -147,6 +147,44 @@ def write_jsonl_snapshot(registry: MetricsRegistry, path: str, *,
     return rec
 
 
+class _Handler(BaseHTTPRequestHandler):
+    """Serves the registry, tracer and quality callable its server
+    carries. A module-level class: a class made inside ``__init__`` would
+    sit in a reference cycle (as every class does) holding what it closes
+    over, such as an auditor and its index, until the cyclic collector
+    runs."""
+
+    def do_GET(self):              # noqa: N802 — stdlib API
+        srv = self.server
+        if self.path in ("/metrics", "/"):
+            body = prometheus_text(srv.registry)
+            ctype = "text/plain; version=0.0.4; charset=utf-8"
+        elif self.path == "/snapshot.json":
+            body = json.dumps(srv.registry.snapshot())
+            ctype = "application/json"
+        elif self.path == "/traces" and srv.tracer is not None:
+            body = json.dumps(srv.tracer.export_chrome())
+            ctype = "application/json"
+        elif self.path == "/healthz":
+            body = json.dumps({"status": "ok"})
+            ctype = "application/json"
+        elif self.path == "/quality.json" and srv.quality is not None:
+            body = json.dumps(srv.quality())
+            ctype = "application/json"
+        else:
+            self.send_error(404)
+            return
+        data = body.encode("utf-8")
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def log_message(self, *a):      # silence per-request stderr
+        pass
+
+
 class ObsHTTPServer:
     """Background stdlib HTTP endpoint exposing one registry (and
     optionally one tracer). ``port=0`` binds an ephemeral port —
@@ -159,41 +197,11 @@ class ObsHTTPServer:
         self.registry = registry
         self.tracer = tracer
         self.quality = quality   # zero-arg callable -> JSON-able dict
-        outer = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def do_GET(self):              # noqa: N802 — stdlib API
-                if self.path in ("/metrics", "/"):
-                    body = prometheus_text(outer.registry)
-                    ctype = "text/plain; version=0.0.4; charset=utf-8"
-                elif self.path == "/snapshot.json":
-                    body = json.dumps(outer.registry.snapshot())
-                    ctype = "application/json"
-                elif self.path == "/traces" and outer.tracer is not None:
-                    body = json.dumps(outer.tracer.export_chrome())
-                    ctype = "application/json"
-                elif self.path == "/healthz":
-                    body = json.dumps({"status": "ok"})
-                    ctype = "application/json"
-                elif self.path == "/quality.json" \
-                        and outer.quality is not None:
-                    body = json.dumps(outer.quality())
-                    ctype = "application/json"
-                else:
-                    self.send_error(404)
-                    return
-                data = body.encode("utf-8")
-                self.send_response(200)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def log_message(self, *a):      # silence per-request stderr
-                pass
-
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd.daemon_threads = True
+        self._httpd.registry = registry
+        self._httpd.tracer = tracer
+        self._httpd.quality = quality
         self.host = host
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,

@@ -58,6 +58,7 @@ import torch
 from repro_torch.core.oracle import exact_topk, recall_at_k
 from repro_torch.device import host_array as _host
 from repro_torch.device import new_stream, on_stream
+from repro_torch.obs.registry import weak_fn
 
 FUNNEL_STAGES = ("router", "selector", "scorer", "refine")
 SLO_STATES = ("ok", "warn", "breach")
@@ -336,18 +337,19 @@ class ShadowAuditor:
         reg.gauge("seismic_live_recall",
                   "Windowed live recall@k from shadow audits",
                   ("k",)).labels(k) \
-            .set_fn(lambda: self.window_stats()["live_recall"])
+            .set_fn(weak_fn(self, lambda s: s.window_stats()["live_recall"]))
         reg.gauge("seismic_live_recall_wilson_lo",
                   "Wilson lower bound of the windowed live recall",
                   ("k",)).labels(k) \
-            .set_fn(lambda: self.window_stats()["wilson_lo"])
+            .set_fn(weak_fn(self, lambda s: s.window_stats()["wilson_lo"]))
         reg.gauge("seismic_live_recall_wilson_hi",
                   "Wilson upper bound of the windowed live recall",
                   ("k",)).labels(k) \
-            .set_fn(lambda: self.window_stats()["wilson_hi"])
+            .set_fn(weak_fn(self, lambda s: s.window_stats()["wilson_hi"]))
         reg.gauge("seismic_recall_slo_state",
                   "Recall SLO state: 0=ok 1=warn 2=breach").labels() \
-            .set_fn(lambda: float(SLO_STATES.index(self.slo_state)))
+            .set_fn(weak_fn(
+                self, lambda s: float(SLO_STATES.index(s.slo_state))))
         reg.gauge("seismic_recall_slo_target",
                   "Recall target the SLO machine compares against "
                   "(0 = no target attached)").labels() \
@@ -355,19 +357,20 @@ class ShadowAuditor:
         if self.reference is not None:
             reg.gauge("seismic_query_drift_nnz",
                       "Windowed mean query nnz over the tuning sample's"
-                      ).labels().set_fn(lambda: self.drift()["nnz_ratio"])
+                      ).labels() \
+                .set_fn(weak_fn(self, lambda s: s.drift()["nnz_ratio"]))
             reg.gauge("seismic_query_drift_l1",
                       "Windowed mean query L1 mass over the tuning "
                       "sample's").labels() \
-                .set_fn(lambda: self.drift()["l1_ratio"])
+                .set_fn(weak_fn(self, lambda s: s.drift()["l1_ratio"]))
             reg.gauge("seismic_query_drift_topcoord_tv",
                       "Total variation distance between live and "
                       "tuning top-coordinate histograms").labels() \
-                .set_fn(lambda: self.drift()["topcoord_tv"])
+                .set_fn(weak_fn(self, lambda s: s.drift()["topcoord_tv"]))
             reg.gauge("seismic_query_drift_in_sample",
                       "Fraction of windowed queries literally in the "
                       "tuning sample").labels() \
-                .set_fn(lambda: self.drift()["in_sample"])
+                .set_fn(weak_fn(self, lambda s: s.drift()["in_sample"]))
 
     # ------------------------------------------------------ lifecycle
 

@@ -12,6 +12,11 @@ callback (``set_fn``) evaluated at collect time. The histogram's
 quantile estimate is one cumulative-count walk with geometric
 interpolation inside the landing bucket, monotone in ``p`` and inside
 ``[vmin, vmax]``.
+
+A callback that reads an object which itself holds the registry (a
+server, an auditor) closes a reference cycle: :func:`weak_fn` builds one
+that holds its owner weakly, so the owner (and what it holds) is freed
+by reference counting once its last strong reference goes.
 """
 from __future__ import annotations
 
@@ -20,9 +25,21 @@ import itertools
 import math
 import re
 import threading
+import weakref
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def weak_fn(owner, fn, default: float = 0.0):
+    """A gauge callback ``fn(owner)`` that holds ``owner`` weakly; once
+    ``owner`` is gone it reads ``default``."""
+    ref = weakref.ref(owner)
+
+    def read():
+        obj = ref()
+        return default if obj is None else fn(obj)
+    return read
 
 
 class Histogram:
@@ -250,4 +267,5 @@ class MetricsRegistry:
         return out
 
 
-__all__ = ["Histogram", "Counter", "Gauge", "Family", "MetricsRegistry"]
+__all__ = ["Histogram", "Counter", "Gauge", "Family", "MetricsRegistry",
+           "weak_fn"]

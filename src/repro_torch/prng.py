@@ -25,11 +25,18 @@ Each function follows its counterpart in JAX 0.9.0 with
 ``uniform``       ``_uniform``: random mantissa bits under exponent 0
 ``gumbel``        ``_gumbel`` (mode "low"): ``-log(-log(u))``
 ``categorical``   ``argmax(gumbel + logits)`` (``replace=True``)
+``permutation``   ``_shuffle``: ``ceil(3 ln n / ln(2^32 - 1))`` rounds,
+                  each ``key, sub = split(key)`` then a stable sort of
+                  the values by 32-bit ``random_bits(sub)`` keys
+                  compared as unsigned words (``lax.sort_key_val``)
+``choice``        ``replace=False``: the first draws of ``permutation``;
+                  ``replace=True``: ``randint``
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -211,5 +218,34 @@ def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` -> int64 ``[n]``, a
+    permutation of ``arange(n)`` on the key's device. The round count is
+    JAX's, computed in float64 as numpy does: one round up to n = 1,625,
+    two from 1,626."""
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    for _ in range(rounds):
+        k, sub = split(k).unbind(-2)
+        # the words are held non-negative in int64: an unsigned order
+        order = torch.sort(random_bits(sub, 32, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(k: torch.Tensor, n: int, shape: tuple[int, ...],
+           replace: bool = True) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace)`` (uniform, no ``p``)
+    -> int64 ``shape`` of values in [0, n)."""
+    draws = math.prod(shape)
+    if not replace and draws > n:
+        raise ValueError(f"Cannot take a larger sample (size {draws}) than "
+                         f"population (size {n}) when 'replace=False'")
+    if replace:
+        return randint(k, shape, 0, n)
+    return permutation(k, n)[:draws].reshape(shape)
+
+
 __all__ = ["MASK", "threefry2x32", "key", "fold_in", "split", "random_bits",
-           "randint", "uniform", "gumbel", "categorical"]
+           "randint", "uniform", "gumbel", "categorical", "permutation",
+           "choice"]

@@ -5,6 +5,10 @@ One deliberate difference from the JAX package: the port defaults to
 through the hand-written kernels (the JAX default avoids Pallas because
 it runs in interpret mode off a TPU). ``use_kernel=False, fuse_level=0``
 selects the unfused tensor-op path, the reference for the kernel paths.
+
+``SearchParams.from_tuned(index, target)`` resolves the cheapest
+persisted ``TunedPolicy`` meeting a recall target (on a tuned index, or
+on an arch config's modeled ``tuned`` tuple) back into pipeline params.
 """
 from __future__ import annotations
 
@@ -49,3 +53,32 @@ class SearchParams:
         if self.fuse_level not in (0, 1, 2):
             raise ValueError(
                 f"fuse_level must be 0, 1, or 2, got {self.fuse_level}")
+
+    @classmethod
+    def from_tuned(cls, index, target: float, *, use_kernel: bool = True,
+                   fuse_level: int = 1) -> "SearchParams":
+        """Resolve the cheapest ``TunedPolicy`` carried by ``index`` whose
+        MEASURED recall meets ``target`` (a policy tuned for 0.90 that
+        measured 0.95 satisfies a 0.92 request); among those, the least
+        ``(measured_cost, router_cost, target)``.
+
+        Raises ``ValueError`` when ``index`` carries no policy meeting the
+        target. Duck-typed on ``.tuned`` (an index or an arch config), so
+        this module imports nothing of ``repro_torch.tune``."""
+        policies = getattr(index, "tuned", ()) or ()
+        if not policies:
+            raise ValueError(
+                "index carries no TunedPolicy; run repro.tune."
+                "tune_and_attach (or pass explicit SearchParams)")
+        feasible = [t for t in policies if t.satisfies(target)]
+        if not feasible:
+            best = max(t.measured_recall for t in policies)
+            raise ValueError(
+                f"no persisted TunedPolicy meets recall target "
+                f"{target:.4f} (best measured {best:.4f} over "
+                f"{len(policies)} policies); re-tune with a higher "
+                "target or widen the tuning grid")
+        chosen = min(feasible, key=lambda t: (t.measured_cost,
+                                              t.router_cost, t.target))
+        return chosen.to_params(use_kernel=use_kernel,
+                                fuse_level=fuse_level)

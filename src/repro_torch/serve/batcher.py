@@ -47,6 +47,7 @@ from repro_torch.core.types import SeismicIndex
 from repro_torch.device import host_array, new_stream, on_stream
 from repro_torch.kernels.runtime import sync_stream
 from repro_torch.obs.device import DeviceAccounting
+from repro_torch.obs.registry import weak_fn
 from repro_torch.retrieval import SearchParams, search_pipeline
 from repro_torch.retrieval.pipeline import (run_pipeline_staged, stage_fns,
                                             validate_params)
@@ -243,26 +244,27 @@ class AsyncSeismicServer:
     def _register_gauges(self) -> None:
         """Derived serving gauges, evaluated at scrape time. One bundle
         per server: servers sharing a registry would make the last one
-        win these callbacks."""
+        win these callbacks. The callbacks hold the server weakly, so the
+        registry keeps no stopped server (and its index) alive."""
         reg = self.telemetry.registry
         reg.gauge("seismic_index_epoch",
                   "Generation of the index being served (bumped on "
                   "every swap_index / mutation publish)").labels() \
-            .set_fn(lambda: self.epoch)
+            .set_fn(weak_fn(self, lambda s: s.epoch))
         reg.gauge("seismic_cache_hit_rate",
                   "LRU result-cache hit rate since start").labels() \
-            .set_fn(lambda: self.cache.stats()["hit_rate"]
-                    if self.cache is not None else 0.0)
+            .set_fn(weak_fn(self, lambda s: s.cache.stats()["hit_rate"]
+                            if s.cache is not None else 0.0))
         reg.gauge("seismic_shed_rate",
                   "(shed + rejected) / submitted requests").labels() \
-            .set_fn(lambda: (self._event("shed")
-                             + self._event("rejected"))
-                    / max(1, self._event("requests")))
+            .set_fn(weak_fn(self, lambda s: (s._event("shed")
+                                             + s._event("rejected"))
+                            / max(1, s._event("requests"))))
         reg.gauge("seismic_deadline_miss_rate",
                   "dispatches later than deadline + grace / dispatched"
                   ).labels() \
-            .set_fn(lambda: self._event("deadline_missed")
-                    / max(1, self._event("dispatched")))
+            .set_fn(weak_fn(self, lambda s: s._event("deadline_missed")
+                            / max(1, s._event("dispatched"))))
         self._width_occ = reg.gauge(
             "seismic_launch_width_occupancy",
             "Mean real-request fill fraction per compiled launch width",
@@ -278,14 +280,14 @@ class AsyncSeismicServer:
                       "Served mean docs_evaluated minus the attached "
                       "TunedPolicy's measured cost", ("target",)) \
                 .labels(f"{self._tuned_match.target:g}") \
-                .set_fn(lambda: (self._ev_sum / self._ev_n - cost)
-                        if self._ev_n else 0.0)
+                .set_fn(weak_fn(self, lambda s: (s._ev_sum / s._ev_n - cost)
+                                if s._ev_n else 0.0))
             reg.gauge("seismic_tuned_drift_ratio",
                       "Served mean docs_evaluated over the attached "
                       "TunedPolicy's measured cost", ("target",)) \
                 .labels(f"{self._tuned_match.target:g}") \
-                .set_fn(lambda: (self._ev_sum / self._ev_n / cost)
-                        if self._ev_n and cost else 1.0)
+                .set_fn(weak_fn(self, lambda s: (s._ev_sum / s._ev_n / cost)
+                                if s._ev_n and cost else 1.0, 1.0))
 
     # ------------------------------------------------------- lifecycle
 

@@ -26,6 +26,7 @@ from repro_torch.core.types import SeismicIndex
 from repro_torch.kernels.runtime import sync_stream
 from repro_torch.models.transformer import lm
 from repro_torch.obs.device import DeviceAccounting
+from repro_torch.obs.registry import weak_fn
 from repro_torch.retrieval import SearchParams, search_pipeline
 from repro_torch.retrieval.pipeline import (run_pipeline_staged, stage_fns,
                                             validate_params)
@@ -135,7 +136,7 @@ class SeismicServer:
                 "seismic_index_epoch",
                 "Generation of the index being served (bumped on "
                 "every swap_index / mutation publish)").labels() \
-                .set_fn(lambda: self.epoch)
+                .set_fn(weak_fn(self, lambda s: s.epoch))
 
     def _bind(self, index: SeismicIndex, params: SearchParams) -> None:
         """The staged stage functions and device accounting of one

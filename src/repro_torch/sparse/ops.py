@@ -85,6 +85,21 @@ def densify(ps: PaddedSparse, dtype: torch.dtype = torch.float32
     return out
 
 
+def densify_one(coords: torch.Tensor, vals: torch.Tensor, dim: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[nnz] sparse -> [d] dense (repeated coordinates add up)."""
+    out = torch.zeros((dim,), dtype=dtype, device=coords.device)
+    return out.index_put_((widen_coords(coords),), vals.to(dtype),
+                          accumulate=True)
+
+
+def inner_product_padded(q_dense: torch.Tensor, coords: torch.Tensor,
+                         vals: torch.Tensor) -> torch.Tensor:
+    """<q, x> for dense q [d] against padded-sparse rows [N, nnz] -> [N]
+    (the plain version of the ``gather_dot`` kernel for one query)."""
+    return (q_dense[widen_coords(coords)] * vals).sum(dim=-1)
+
+
 def sparsify(dense: torch.Tensor, nnz_max: int) -> PaddedSparse:
     """[N, d] dense -> padded-sparse keeping the nnz_max largest entries."""
     vals, coords = top_k(dense, nnz_max)
@@ -123,3 +138,14 @@ def top_cut(coords: torch.Tensor, vals: torch.Tensor, cut: int
     c = torch.where(v > 0, c, 0)
     v = torch.where(v > 0, v, 0.0)
     return c.to(torch.int32), v
+
+
+def l1_mass_fraction(vals, top: int) -> torch.Tensor:
+    """Fraction of L1 mass the ``top`` largest-|value| entries of each row
+    carry (in the values' float dtype; rows of zeros give 0), as the Fig. 1
+    concentration benchmark measures it."""
+    v = torch.as_tensor(vals).abs()
+    v = torch.sort(v, dim=-1, descending=True).values
+    total = v.sum(dim=-1)
+    total = torch.where(total == 0, 1.0, total)
+    return v[..., :top].sum(dim=-1) / total

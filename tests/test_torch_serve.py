@@ -331,7 +331,9 @@ def test_mirror_replicas_are_bitwise_the_async_server(
 
 
 def test_shard_mode_names_the_missing_module(index):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """Shard mode serves a ShardedIndex and names its builder when given
+    anything else (its tests are in tests/test_torch_distributed.py)."""
+    with pytest.raises(TypeError, match="build_sharded_index"):
         ReplicaSeismicServer(index, SearchParams(**KW), n_replicas=2,
                              mode="shard")
     with pytest.raises(ValueError):
@@ -541,3 +543,70 @@ def test_search_convenience_and_epoch_keys(small_collection, index,
     assert key[:8] == struct.pack("<Q", 0)
     with pytest.raises(RuntimeError, match="stopped"):
         srv.start()
+
+
+@pytest.mark.parametrize("kind", ["seismic", "async", "replica", "shard",
+                                  "audited"])
+def test_a_deleted_server_frees_its_index_by_reference_counting(
+        small_collection, index, kind):
+    """The servers' and the auditor's gauge callbacks hold their owner
+    weakly, and a closed exporter holds nothing in a cycle: once a
+    stopped server (and the caller's index) is deleted, an index plane
+    is freed with the cyclic collector off, while the registry that
+    outlives them reads the callbacks' defaults."""
+    import dataclasses
+    import gc
+    import weakref
+
+    from repro_torch.serve import SeismicServer
+    c, v = host_queries(small_collection)
+    own = dataclasses.replace(index, sum_q=index.sum_q.clone())
+    plane = weakref.ref(own.sum_q)
+    obs = Observability.create(stage_sample_every=2)
+    reg = obs.registry
+    gc.disable()
+    try:
+        p = SearchParams(**KW)
+        if kind == "seismic":
+            srv = SeismicServer(own, p, max_batch=4, obs=obs)
+            srv.search(PaddedSparse(torch.from_numpy(c[:4]),
+                                    torch.from_numpy(v[:4]), 1024))
+        else:
+            auditor = ShadowAuditor(own, p, reg) if kind == "audited" \
+                else None
+            if kind == "shard":
+                from repro_torch.core.distributed import ShardedIndex
+                srv = ReplicaSeismicServer(
+                    ShardedIndex(shards=(own, index), n_docs=2 * own.n_docs),
+                    p, mode="shard", max_batch=4, query_nnz=16, obs=obs)
+            elif kind == "replica":
+                srv = ReplicaSeismicServer(own, p, n_replicas=2,
+                                           max_batch=4, query_nnz=16,
+                                           obs=obs)
+            else:
+                srv = AsyncSeismicServer(own, p, max_batch=4, query_nnz=16,
+                                         obs=obs, auditor=auditor,
+                                         cache_size=8)
+            if auditor is not None:
+                auditor.start()
+            serve_all(srv, c, v, ORDER[:6])
+            if auditor is not None:
+                auditor.drain()
+                # the exporter serves the auditor's snapshot until closed
+                import urllib.request
+                from repro_torch.obs import start_exporter
+                with start_exporter(reg, obs.tracer,
+                                    quality=auditor.snapshot) as ex:
+                    with urllib.request.urlopen(ex.url + "/quality.json",
+                                                timeout=TIMEOUT) as r:
+                        assert r.status == 200
+                    del ex
+                auditor.close()
+            del auditor
+        assert reg.snapshot()["seismic_index_epoch"]["samples"]
+        del srv, own
+        assert plane() is None
+        text = parse_prometheus_text(prometheus_text(reg))
+        assert text["seismic_index_epoch"]["samples"]
+    finally:
+        gc.enable()

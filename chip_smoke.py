@@ -64,10 +64,14 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
 9. flash_attention against its plain version on seeded inputs: the
    llama3-8b prefill shape (B 1, Hq 32, Hkv 8, S 8192, D 128, bf16,
    causal), float32 at a ragged S = 200, a window of 64, causal=False,
-   D 16 and 64; its time at the prefill shape beside its bound, the
-   plain version and ``scaled_dot_product_attention`` (which only this
-   script calls), and once at 32768 tokens (prefill_32k of
-   ``lm_shapes``) without the plain version;
+   D 16 and 64, D 112 (bf16 causal, float32 ragged, a window of 64);
+   its time at the prefill shape beside its bound, the plain version and
+   ``scaled_dot_product_attention`` (which only this script calls), and
+   once at 32768 tokens (prefill_32k of ``lm_shapes``) without the plain
+   version; then at gemma3-27b's local layers ([1, 32 / 16, 8192, 128],
+   window 1024; SDPA with a boolean band mask) and kimi-k2's heads ([1,
+   64 / 8, 8192, 112]), each held to the plain version and timed beside
+   its bound (live pairs only), the plain version and SDPA;
 10. llama3-8b (``configs/llama3_8b.CONFIG``: 32 layers, bf16, drawn on
    the card from the seed) prefills [1, 8192] tokens with the kernel
    (``use_kernel=True``; launch counts set to 0 just before and read
@@ -168,7 +172,36 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    postings per list. Printed: build seconds and peak memory, recall@10
    beside the single index's, ms per batch, p50/p99, and a Table-1 block
    (recall@10, docs evaluated and ms a query for each baseline point and
-   Seismic).
+   Seismic);
+16. gemma3-27b (``configs/gemma3_27b.CONFIG`` at full width and depth:
+   62 layers, 52 local with a window of 1024 and 10 global, bf16, drawn
+   on the card from the seed, 52.9 GiB) prefills [1, 8192] with the
+   kernel (62 flash_attention launches, 52 of them windowed, asserted)
+   and on the plain path; logits compared; the 52 local layers run global
+   must fall outside the logit bound (asserted), the 10 global layers
+   windowed is printed; three timed runs; ``LMDecoder`` serves 8
+   requests of 32 + 32 tokens; then a 6-layer cut (one LLLLLG period,
+   full width) decodes 1,088 positions at batch 1 and its logits at
+   positions 1,024-1,087, where the local layers' rings have wrapped, are
+   held to its own forward's;
+17. deepseek-v2-lite-16b (27 layers: MLA, a dense first layer, 26 MoE
+   layers of 64 experts, top 6, 2 shared; full width and depth, 29.3
+   GiB): prefill [1, 8192] launches no kernel (asserted; MLA and MoE have
+   none in either package), two runs bitwise equal (asserted), the
+   dropped share of (token, expert) assignments at capacity 960 printed;
+   ``LMDecoder`` (capacity 1 at batch 8); decode (MLA's absorbed form)
+   against forward at batch 2 over 64 positions with ``capacity_factor``
+   64, so that neither drops, as the JAX package's own test: in bf16
+   printed with the token-layers whose router chose other experts in
+   the two paths (a rounding moves a top-6 of 64 now and then, and such
+   a token takes another FFN), then in float32 at the same widths (the
+   model drawn again, 58.5 GiB) held to the logit bound;
+18. kimi-k2-1t-a32b at full width cut to 2 layers (the dense first layer
+   and one MoE layer of 384 experts, top 8, 1 shared: 19.9B parameters,
+   37.1 GiB; 61 layers are 1.9 TiB in bf16): prefill [1, 8192] with the
+   kernel (2 launches at head dim 112, asserted) and on the plain path,
+   logits compared; three timed runs; ``LMDecoder``.
+Each of phases 16-18 holds the allocator's peak under 70 GiB.
 
 The index and query widths come from ``configs/seismic_msmarco``
 (``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED`` is
@@ -213,7 +246,12 @@ random walk to ``sqrt(320) * 2**-9 ~ 3.5 %``; top-1 agreement, the max
 abs gap and the plain path's top-1/top-2 logit gap where the argmax
 flips are printed beside it. The bound must reject a wrong path: the
 prefill with attention called non-causal, or windowed to half the
-sequence, is held to it and has to fail (phase 10).
+sequence, is held to it and has to fail (phase 10). The same bound holds
+gemma3-27b's and kimi-k2's kernel paths to their plain paths and the
+decodes of phases 16 and 17 to their forwards: gemma3-27b's 62 layers
+add up to about ``sqrt(620) * 2**-9 ~ 4.9 %``, inside it; its local
+layers run global has to fail it. deepseek's two prefills are compared
+bitwise: no sum of the MoE runs on atomics.
 """
 from __future__ import annotations
 
@@ -343,7 +381,24 @@ IMPACT_POSTINGS = (64, 256, 1024, 6000)
 SCORE_TOL = 1e-3               # |score - ip| <= 1e-3 max(1, |ip|)
 RANK_TIMEOUT = 600.0
 ATTN_F32_TOL = 2e-5            # flash_attention, float32: rtol = atol
-LM_REL_L2 = 2 ** -4            # llama3-8b logits, two bf16 paths
+LM_REL_L2 = 2 ** -4            # LM logits, two bf16 paths
+LOGIT_ROWS = 256               # positions a chunk of the logit comparison
+# phases 16-18: gemma3-27b, deepseek-v2-lite-16b and kimi-k2-1t-a32b at
+# their published widths; gemma's ring checked on one LLLLLG period (6
+# layers) over 1,088 positions (its window is 1,024); kimi cut to its
+# dense layer and one MoE layer; deepseek's decode against its forward
+# at batch 2 over 64 positions with capacity_factor 64 (no drops, as the
+# JAX package's own check); every model's allocator peak under 70 GiB
+GEMMA_RING_LAYERS, GEMMA_RING_POS = 6, 1088
+KIMI_LAYERS = 2
+MLA_CHECK_BATCH, MLA_CHECK_POS, MLA_CHECK_CF = 2, 64, 64.0
+MODEL_PEAK_GIB = 70.0
+# phase 9's two model shapes beside llama3-8b's: gemma3-27b's local
+# layers (Hq 32, Hkv 16, D 128, window 1024) and kimi-k2's (Hq 64, Hkv 8,
+# D 112), at 8192 tokens; the plain version runs 16 q heads a call
+GEMMA_ATTN = (1, 32, 16, LM_SEQ, 128, 1024)
+KIMI_ATTN = (1, 64, 8, LM_SEQ, 112, None)
+PLAIN_HEADS = 16
 
 
 def log(*parts) -> None:
@@ -810,6 +865,9 @@ def flash_check(torch, dev, gen) -> float:
         ("non-causal", 1, 8, 2, 1000, 128, bf16, False, None),
         ("D 16", 2, 4, 1, 333, 16, bf16, True, None),
         ("D 64", 2, 8, 2, 333, 64, bf16, True, None),
+        ("D 112", 1, 8, 1, 1000, 112, bf16, True, None),
+        ("D 112 f32 ragged", 2, 4, 2, 200, 112, f32, True, None),
+        ("D 112 window 64", 1, 8, 2, 1000, 112, bf16, True, 64),
     ]
     model_err = None
     for label, b, hq, hkv, s, d, dt, causal, window in cases:
@@ -840,6 +898,20 @@ def flash_check(torch, dev, gen) -> float:
     return model_err
 
 
+def attention_bound(b, hq, hkv, s, d, window=None):
+    """flash_attention's least time at [B, Hq, S, D] bf16, causal, over
+    Hkv kv heads -> (ms, "operations" or "bytes", TFLOP, MB, live (q, k)
+    pairs a head): Q K^T and P V over the live pairs only (``sum_q
+    min(q + 1, window)``), against q, k, v and o read or written once."""
+    pairs = s * (s + 1) / 2 if window is None else \
+        sum(min(q + 1, window) for q in range(s))
+    ops = 4 * d * hq * b * pairs
+    nbytes = 2 * b * s * d * 2 * (hq + hkv)
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, ops / 1e12, nbytes / 1e6, pairs
+
+
 def flash_phase(torch, dev, gen, bench) -> dict:
     """Phase 9: flash_attention against its plain version (``flash_check``),
     then its times at the prefill's shape (and once at 32768 tokens)
@@ -862,16 +934,11 @@ def flash_phase(torch, dev, gen, bench) -> dict:
         plain_ms = bench.ms(lambda: flash_attention_ref(q, k, v, causal=True),
                             iters=2, warmup=1) if plain else None
         gap = float((kern().float() - lib().float()).abs().max())
-        pairs = s * (s + 1) // 2                 # causal (q, k) pairs
-        ops = 4 * d * hq * b * pairs             # Q K^T and P V
-        nbytes = 2 * b * s * d * 2 * (hq + hkv)  # q, o, k, v in bf16
-        t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        bms = max(t_ops, t_bytes) * 1e3
-        by = "operations" if t_ops >= t_bytes else "bytes"
+        bms, by, tflop, mb, _ = attention_bound(b, hq, hkv, s, d)
         log(f"[9 flash_attention] [{b}, {hq}, {s}, {d}] bf16 causal, Hkv "
             f"{hkv}: {ms:.4f} ms (bound {bms:.4f} ms by {by}: "
-            f"{ops / 1e12:.3f} TFLOP at 989 TFLOP/s, {nbytes / 1e6:.1f} MB "
-            f"at 3.35 TB/s; {bms / ms:.1%} of it, {ops / ms / 1e9:.1f} "
+            f"{tflop:.3f} TFLOP at 989 TFLOP/s, {mb:.1f} MB "
+            f"at 3.35 TB/s; {bms / ms:.1%} of it, {tflop / ms * 1e3:.1f} "
             f"TFLOP/s), plain "
             f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}, "
             f"scaled_dot_product_attention {lib_ms:.4f} ms (max abs gap to "
@@ -891,29 +958,113 @@ def flash_phase(torch, dev, gen, bench) -> dict:
                 library_ms=lib_ms)
 
 
+def flash_model_shape(torch, dev, gen, bench, label, shape) -> dict:
+    """Phase 9 at one more model's shape ``(B, Hq, Hkv, S, D, window)``,
+    bf16 causal: the kernel against its plain version (PLAIN_HEADS q
+    heads a call), its time beside the bound, the plain version's time
+    and ``scaled_dot_product_attention``'s (``enable_gqa``; a window as
+    an explicit boolean band mask, SDPA having no window argument). The
+    bound counts the live (q, k) pairs only: ``4 Hq D sum_q min(q + 1,
+    window)`` operations. Returns the kernel's record (launches filled
+    by the model's phase)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_ref,
+                                                         route)
+    b, hq, hkv, s, d, window = shape
+    g = hq // hkv
+    q, k, v = attention_inputs(torch, dev, gen, b, hq, hkv, s, d,
+                               torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kern():
+        return flash_attention(q, k, v, causal=True, window=window)
+
+    def plain(row=False):
+        outs = []
+        for h0 in range(0, hq, PLAIN_HEADS):
+            h1 = min(h0 + PLAIN_HEADS, hq)
+            kh, vh = (x[:, h0 // g:(h1 - 1) // g + 1] for x in (k, v))
+            qh = q[:, h0:h1]
+            if row:      # the tolerance's row term: plain on |v|, float32
+                qh, kh, vh = qh.float(), kh.float(), vh.float().abs()
+            outs.append(flash_attention_ref(qh, kh, vh, causal=True,
+                                            window=window))
+        return torch.cat(outs, dim=1)
+
+    if window is None:
+        def lib():
+            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=dev)
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+
+        def lib():
+            return sdpa(q, k, v, attn_mask=band, enable_gqa=True)
+
+    got = kern()
+    err, worst = compare_attention(torch, f"flash_attention {label}", got,
+                                   plain(), plain(row=True))
+    ms, lib_ms = bench.ms(kern), bench.ms(lib)
+    plain_ms = bench.ms(plain, iters=2, warmup=1)
+    gap = float((got.float() - lib().float()).abs().max())
+    bms, by, tflop, mb, pairs = attention_bound(b, hq, hkv, s, d, window)
+    kind = route(torch.bfloat16, d)[0]
+    log(f"[9 flash_attention] {label} [{b}, {hq}, {s}, {d}] bf16 causal, "
+        f"Hkv {hkv}, window {window}, the {kind} kernel: max abs err "
+        f"{err:.3e} (worst element at {worst:.3f} of its tolerance); "
+        f"{ms:.4f} ms (bound {bms:.4f} ms by {by}: {tflop:.3f} TFLOP "
+        f"over {pairs:.0f} live (q, k) pairs a head at 989 TFLOP/s, "
+        f"{mb:.1f} MB at 3.35 TB/s; {bms / ms:.1%} of it, "
+        f"{tflop / ms * 1e3:.1f} TFLOP/s), plain {plain_ms:.3f} ms "
+        f"({PLAIN_HEADS} q heads a call), scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms (max abs gap to the kernel {gap:.3e})")
+    src, rep = SOURCES["flash_attention"]
+    return dict(name=f"flash_attention ({label})", route="cuda", source=src,
+                replaces=rep, launches=None, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
 def logit_distance(torch, label, got, want) -> tuple[float, str]:
     """Two bf16 paths' logits: finite and of one shape -> (relative L2
     distance, text with the max abs gap, the top-1 agreement and the
-    ``want`` path's top-1/top-2 gap where the argmax flips)."""
+    ``want`` path's top-1/top-2 gap where the argmax flips). Compared
+    LOGIT_ROWS positions at a time in float32, so no [S, V] float32 copy
+    of either exists (gemma3-27b's are 8.6 GB)."""
     torch.cuda.synchronize()
     if got.shape != want.shape:
         raise AssertionError(f"{label}: shapes {tuple(got.shape)} and "
                              f"{tuple(want.shape)}")
-    g, w = got.float(), want.float()
-    if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
-        raise AssertionError(f"{label}: non-finite logits")
-    rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
-    flip = g.argmax(-1) != w.argmax(-1)
-    top2 = w.topk(2, dim=-1).values
-    gap = top2[..., 0] - top2[..., 1]
+    v = want.shape[-1]
+    gr, wr = got.reshape(-1, v), want.reshape(-1, v)
+    sq_d = sq_w = 0.0
+    max_d = max_w = 0.0
+    flips, gaps = [], []
+    for r0 in range(0, wr.shape[0], LOGIT_ROWS):
+        g, w = gr[r0:r0 + LOGIT_ROWS].float(), wr[r0:r0 + LOGIT_ROWS].float()
+        if not (bool(torch.isfinite(g).all())
+                and bool(torch.isfinite(w).all())):
+            raise AssertionError(f"{label}: non-finite logits")
+        diff = g - w
+        sq_d += float(diff.double().square().sum())
+        sq_w += float(w.double().square().sum())
+        max_d = max(max_d, float(diff.abs().max()))
+        max_w = max(max_w, float(w.abs().max()))
+        flips.append(g.argmax(-1) != w.argmax(-1))
+        top2 = w.topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        del g, w, diff
+    flip, gap = torch.cat(flips), torch.cat(gaps)
+    rel = (sq_d / sq_w) ** 0.5
     at_flip = (f"median {float(gap[flip].median()):.4f}, max "
                f"{float(gap[flip].max()):.4f}" if bool(flip.any())
                else "no flips")
-    text = (f"relative L2 {rel:.3e}, max abs {float((g - w).abs().max()):.3e}"
-            f" (logits' max abs {float(w.abs().max()):.2f}), top-1 "
-            f"agreement {1 - float(flip.float().mean()):.4f}; top-1/top-2 "
-            f"gap of the reference where the argmax flips: {at_flip} "
-            f"(median over all positions {float(gap.median()):.4f})")
+    text = (f"relative L2 {rel:.3e}, max abs {max_d:.3e} (logits' max abs "
+            f"{max_w:.2f}), top-1 agreement "
+            f"{1 - float(flip.float().mean()):.4f}; top-1/top-2 gap of the "
+            f"reference where the argmax flips: {at_flip} (median over all "
+            f"positions {float(gap.median()):.4f})")
     return rel, text
 
 
@@ -938,11 +1089,12 @@ def wrong_attention(attention, **override):
         attention.flash_attention = kernel
 
 
-def lm_phases(torch, dev, seed, runtime) -> dict:
+def lm_phases(torch, dev, seed, runtime) -> list[dict]:
     """Phases 9-11: flash_attention against plain and timed; llama3-8b
     prefill at [1, 8192] with the kernel against the plain chunked path;
     ``LMDecoder`` serving 8 requests, its decode logits against the
-    forward's. Returns flash_attention's record."""
+    forward's. Returns flash_attention's records: llama3-8b's shape, then
+    gemma3-27b's and kimi-k2's (their launches left to phases 16, 18)."""
     from repro_torch.configs import llama3_8b
     from repro_torch.models.transformer import attention, lm
     from repro_torch.serve import LMDecoder
@@ -951,6 +1103,10 @@ def lm_phases(torch, dev, seed, runtime) -> dict:
     bench = Bench(torch, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     rec = flash_phase(torch, dev, gen, bench)
+    torch.cuda.empty_cache()
+    shapes = [flash_model_shape(torch, dev, gen, bench, label, shape)
+              for label, shape in (("gemma3-27b prefill", GEMMA_ATTN),
+                                   ("kimi-k2 prefill", KIMI_ATTN))]
     log(f"  phase 9 in {time.perf_counter() - t_lm:.1f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     del bench
@@ -1058,7 +1214,393 @@ def lm_phases(torch, dev, seed, runtime) -> dict:
         f"{float(greedy.float().mean()):.4f}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     log(f"  LM phases 9-11 in {time.perf_counter() - t_lm:.1f} s")
-    return rec
+    return [rec, *shapes]
+
+
+def draw_model(torch, dev, lm, cfg, seed, label):
+    """``lm.init_params`` of ``cfg`` on the card from the seed, its size
+    printed; the allocator's peak statistics reset first."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}, "
+        f"{cfg.dtype}: drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {n} parameters "
+        f"({cfg.param_count()} by the config, {cfg.active_param_count()} "
+        f"active a token), {nbytes} bytes ({nbytes / 2**30:.2f} GiB)")
+    return params
+
+
+def check_peak(torch, dev, label: str) -> float:
+    """The allocator's peak since the last reset, in GiB; raises at or
+    past MODEL_PEAK_GIB."""
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if peak >= MODEL_PEAK_GIB:
+        raise AssertionError(f"{label}: the allocator's peak {peak:.2f} GiB "
+                             f"is not under {MODEL_PEAK_GIB} GiB")
+    return peak
+
+
+@contextlib.contextmanager
+def attention_calls(attention):
+    """Records (window, head dim) of each flash_attention call the model
+    makes (the wrapper still counts its own launches)."""
+    kernel = attention.flash_attention
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((kw.get("window"), q.shape[-1]))
+        return kernel(q, k, v, **kw)
+
+    attention.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        attention.flash_attention = kernel
+
+
+@contextlib.contextmanager
+def moe_assignments(torch, ffn):
+    """Counts, on the card, the (token, k) assignments of each MoE call
+    and those its capacity keeps: yields a list of (assignments, kept
+    tensor, capacity, the expert ids [T, k])."""
+    real = ffn._dispatch_compute
+    seen = []
+
+    def spy(x, idx, w, w1, w3, w2, capacity):
+        flat = idx.reshape(-1)
+        counts = torch.zeros(w1.shape[0], dtype=torch.int64,
+                             device=idx.device).index_add_(
+            0, flat, torch.ones_like(flat))
+        seen.append((flat.numel(), counts.clamp(max=capacity).sum(),
+                     capacity, idx))
+        return real(x, idx, w, w1, w3, w2, capacity)
+
+    ffn._dispatch_compute = spy
+    try:
+        yield seen
+    finally:
+        ffn._dispatch_compute = real
+
+
+def dropped_text(seen) -> str:
+    total = sum(n for n, _, _, _ in seen)
+    kept = sum(int(k) for _, k, _, _ in seen)
+    caps = sorted({c for _, _, c, _ in seen})
+    return (f"{total - kept} of {total} (token, expert) assignments dropped "
+            f"({(total - kept) / max(total, 1):.4f}) at capacity "
+            f"{', '.join(map(str, caps))} over {len(seen)} MoE calls")
+
+
+def routing_flips(seen, n_moe, batch, seq) -> tuple[int, int]:
+    """``moe_assignments`` of one forward over [batch, seq] tokens (its
+    first ``n_moe`` calls) then ``seq`` decode steps of the same tokens
+    -> (token-layers whose decode step chose another set of experts than
+    the forward, token-layers)."""
+    fwd = [s[3].sort(dim=1).values for s in seen[:n_moe]]
+    dec = [s[3].sort(dim=1).values for s in seen[n_moe:]]
+    flips = 0
+    for i in range(seq):
+        for layer in range(n_moe):
+            rows = fwd[layer].view(batch, seq, -1)[:, i]
+            flips += int((rows != dec[i * n_moe + layer]).any(1).sum())
+    return flips, batch * seq * n_moe
+
+
+def decode_vs_forward(torch, dev, gen, lm, ffn, params, cfg, label):
+    """MLA_CHECK_BATCH sequences of MLA_CHECK_POS tokens: decode logits
+    against ``forward(use_kernel=True)``'s -> (relative L2, text), the
+    text with the token-layers routed differently."""
+    toks = torch.randint(0, cfg.vocab, (MLA_CHECK_BATCH, MLA_CHECK_POS),
+                         generator=gen, device=dev)
+    with moe_assignments(torch, ffn) as seen:
+        full, _ = lm.forward(params, toks, cfg, use_kernel=True)
+        cache = lm.init_cache(cfg, MLA_CHECK_BATCH, MLA_CHECK_POS,
+                              device=dev)
+        dec = torch.stack([lm.decode_step(params, cache, toks[:, i:i + 1],
+                                          i, cfg)[0]
+                           for i in range(MLA_CHECK_POS)], dim=1)
+    rel, text = logit_distance(torch, label, dec, full)
+    flips, n = routing_flips(seen, lm.n_scan_layers(cfg),
+                             MLA_CHECK_BATCH, MLA_CHECK_POS)
+    return rel, (f"{text}; {flips} of {n} token-layers routed to another "
+                 f"set of experts than the forward's; {dropped_text(seen)}")
+
+
+def timed_prefills(torch, lm, params, tokens, cfg, runs=3) -> str:
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        lm.forward(params, tokens, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return ", ".join(f"{t:.1f} ms ({tokens.numel() / t * 1e3:.0f} tokens/s)"
+                     for t in times)
+
+
+def serve_model(torch, dev, gen, LMDecoder, params, cfg, label,
+                runs=2) -> None:
+    """``LMDecoder(batch=8)``: 8 requests of 32-token prompts, 32 greedy
+    tokens each, ``runs`` times; prints ms a decode step."""
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN),
+                            generator=gen, device=dev)
+    steps = PROMPT_LEN + NEW_TOKENS
+    dec = LMDecoder(params, cfg, batch=SERVE_BATCH, max_seq=steps)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        toks = dec.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if toks.shape != (SERVE_BATCH, steps) or not bool(
+            torch.equal(toks[:, :PROMPT_LEN], prompts.to(torch.int32))):
+        raise AssertionError(f"{label} LMDecoder: tokens of the wrong shape "
+                             "or prompts not kept")
+    log(f"  LMDecoder(batch={SERVE_BATCH}, max_seq={steps}): "
+        f"{SERVE_BATCH} requests of {PROMPT_LEN}-token prompts, "
+        f"{NEW_TOKENS} greedy tokens each ({steps} decode steps): "
+        + ", ".join(f"{t:.0f} ms ({t / steps:.2f} ms per decode step)"
+                    for t in times))
+
+
+def gemma_phase(torch, dev, seed, runtime, gen) -> int:
+    """Phase 16: gemma3-27b at full width and depth: prefill [1, 8192]
+    with the kernel (62 launches, the 52 local layers windowed) against
+    the plain path; two wrong paths; ``LMDecoder``; then a 6-layer cut
+    (one LLLLLG period) decodes 1,088 positions and its logits past the
+    window are held to its own forward's. Returns the prefill's
+    flash_attention launches."""
+    from repro_torch.configs import gemma3_27b
+    from repro_torch.models.transformer import attention, lm
+    from repro_torch.serve import LMDecoder
+    t_phase = time.perf_counter()
+    cfg = gemma3_27b.CONFIG
+    wins = lm.layer_windows(cfg)
+    n_local = int((wins > 0).sum())
+    params = draw_model(torch, dev, lm, cfg, seed, "16 gemma3-27b")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    with attention_calls(attention) as seen:
+        logits_k, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    windowed = sum(w == cfg.local_window for w, _ in seen)
+    log(f"  launches of one forward [1, {LM_SEQ}], use_kernel=True: "
+        f"{launches}; flash_attention calls with window "
+        f"{cfg.local_window}: {windowed}, without: "
+        f"{sum(w is None for w, _ in seen)}")
+    if launches["flash_attention"] != cfg.n_layers or len(seen) != \
+            cfg.n_layers or windowed != n_local:
+        raise AssertionError(
+            f"gemma3-27b prefill: {launches['flash_attention']} "
+            f"flash_attention launches ({windowed} windowed), not "
+            f"{cfg.n_layers} ({n_local})")
+    t0 = time.perf_counter()
+    logits_p, _ = lm.forward(params, tokens, cfg, use_kernel=False)
+    torch.cuda.synchronize()
+    log(f"  logits {tuple(logits_k.shape)} {logits_k.dtype}, kernel path vs "
+        f"plain path ({time.perf_counter() - t0:.2f} s): "
+        + lm_agreement(torch, "gemma3-27b prefill kernel vs plain",
+                       logits_k, logits_p))
+    del logits_k
+    # the bound must reject the local layers run global; the global
+    # layers windowed is printed
+    for label, override, must_fail in (
+            ("local layers global", dict(window=None), True),
+            ("global layers windowed", dict(window=cfg.local_window),
+             False)):
+        with wrong_attention(attention, **override):
+            logits_w, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+        rel, text = logit_distance(torch, label, logits_w, logits_p)
+        del logits_w
+        log(f"  known-wrong path, {label}, vs plain path: {text}")
+        if must_fail and rel <= LM_REL_L2:
+            raise AssertionError(f"the logit bound {LM_REL_L2} does not "
+                                 f"reject gemma3-27b with the {label}")
+    del logits_p
+    log(f"  prefill [1, {LM_SEQ}], use_kernel=True, 3 runs: "
+        + timed_prefills(torch, lm, params, tokens, cfg))
+    serve_model(torch, dev, gen, LMDecoder, params, cfg, "gemma3-27b")
+    peak = check_peak(torch, dev, "gemma3-27b")
+    log(f"  peak device memory {peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- the ring wraps: one LLLLLG period at full width
+    cut = dataclasses.replace(cfg, n_layers=GEMMA_RING_LAYERS)
+    params = draw_model(torch, dev, lm, cut, seed,
+                        f"16 gemma3-27b, {GEMMA_RING_LAYERS}-layer cut")
+    toks = torch.randint(0, cfg.vocab, (1, GEMMA_RING_POS), generator=gen,
+                         device=dev)
+    fwd, _ = lm.forward(params, toks, cut, use_kernel=True)
+    cache = lm.init_cache(cut, 1, GEMMA_RING_POS, device=dev)
+    w = cfg.local_window
+    tail = []
+    t0 = time.perf_counter()
+    for i in range(GEMMA_RING_POS):
+        logits, cache = lm.decode_step(params, cache, toks[:, i:i + 1], i,
+                                       cut)
+        if i >= w:
+            tail.append(logits)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"  {GEMMA_RING_POS} decode steps at batch 1 "
+        f"({dt * 1e3 / GEMMA_RING_POS:.2f} ms a step; local caches of {tuple(cache['k_local'].shape)}, the "
+        f"ring wraps at position {w}); decode logits at positions {w}-"
+        f"{GEMMA_RING_POS - 1} vs forward(use_kernel=True): "
+        + lm_agreement(torch, "gemma3-27b ring decode vs forward",
+                       torch.stack(tail, dim=1), fwd[:, w:]))
+    peak = check_peak(torch, dev, "gemma3-27b cut")
+    log(f"  peak device memory {peak:.2f} GiB; phase 16 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params, cache, fwd, tail
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def deepseek_phase(torch, dev, seed, runtime, gen) -> None:
+    """Phase 17: deepseek-v2-lite-16b at full width and depth: prefill [1,
+    8192] (no kernel launch: MLA has none) run twice, bitwise equal, with
+    the MoE's dropped share; ``LMDecoder``; decode against forward at
+    capacity_factor 64, in bf16 (printed) and in float32 (held to the
+    logit bound)."""
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.models.transformer import ffn, lm
+    from repro_torch.serve import LMDecoder
+    t_phase = time.perf_counter()
+    cfg = deepseek_v2_lite_16b.CONFIG
+    params = draw_model(torch, dev, lm, cfg, seed, "17 deepseek-v2-lite-16b")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    with moe_assignments(torch, ffn) as seen:
+        la, aux_a = lm.forward(params, tokens, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"deepseek prefill launched {launches}: MLA "
+                             "and MoE have no kernel")
+    t0 = time.perf_counter()
+    lb, aux_b = lm.forward(params, tokens, cfg, use_kernel=True)
+    torch.cuda.synchronize()
+    t_run = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(la, lb) and torch.equal(aux_a, aux_b)):
+        raise AssertionError("deepseek prefill: two runs differ")
+    if la.shape != (1, LM_SEQ, cfg.vocab) or not bool(
+            torch.isfinite(la).all()):
+        raise AssertionError("deepseek prefill: logits not finite or of "
+                             "the wrong shape")
+    log(f"  prefill [1, {LM_SEQ}]: launches {launches}; two runs bitwise "
+        f"equal (logits {tuple(la.shape)} {la.dtype}, aux "
+        f"{float(aux_a):.4f}); the second {t_run:.1f} ms "
+        f"({LM_SEQ / t_run * 1e3:.0f} tokens/s); " + dropped_text(seen))
+    del la, lb
+    log(f"  prefill [1, {LM_SEQ}], 3 runs: "
+        + timed_prefills(torch, lm, params, tokens, cfg))
+    with moe_assignments(torch, ffn) as seen:
+        serve_model(torch, dev, gen, LMDecoder, params, cfg,
+                    "deepseek", runs=1)
+    log("  the decoder's MoE: " + dropped_text(seen))
+    serve_model(torch, dev, gen, LMDecoder, params, cfg, "deepseek",
+                runs=1)
+    # decode (MLA's absorbed form) against forward: in bf16 a rounding
+    # moves a router's top-6 of 64 now and then, and a token routed to
+    # another expert set takes another FFN (printed); the bound is held in
+    # float32 at the same widths, where such flips are rare
+    chk = dataclasses.replace(cfg, capacity_factor=MLA_CHECK_CF)
+    _, text = decode_vs_forward(torch, dev, gen, lm, ffn, params, chk,
+                                "deepseek decode vs forward, bf16")
+    log(f"  decode (MLA absorbed) vs forward, bf16, capacity_factor "
+        f"{MLA_CHECK_CF}, batch {MLA_CHECK_BATCH}, {MLA_CHECK_POS} "
+        f"positions: {text}")
+    peak = check_peak(torch, dev, "deepseek-v2-lite-16b")
+    log(f"  peak device memory {peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(chk, dtype="float32")
+    params = draw_model(torch, dev, lm, f32, seed,
+                        "17 deepseek-v2-lite-16b, float32")
+    rel, text = decode_vs_forward(torch, dev, gen, lm, ffn, params, f32,
+                                  "deepseek decode vs forward, float32")
+    log(f"  the same in float32: {text}")
+    if rel > LM_REL_L2:
+        raise AssertionError(f"deepseek decode vs forward, float32: rel L2 "
+                             f"{rel:.3e} beyond {LM_REL_L2}")
+    peak = check_peak(torch, dev, "deepseek-v2-lite-16b float32")
+    log(f"  peak device memory {peak:.2f} GiB; phase 17 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+
+def kimi_phase(torch, dev, seed, runtime, gen) -> int:
+    """Phase 18: kimi-k2-1t-a32b at full width cut to its dense layer and
+    one MoE layer of 384 experts: prefill [1, 8192] with the kernel (2
+    launches at head dim 112) against the plain path; ``LMDecoder``.
+    Returns the prefill's flash_attention launches."""
+    from repro_torch.configs import kimi_k2_1t_a32b
+    from repro_torch.models.transformer import attention, ffn, lm
+    from repro_torch.serve import LMDecoder
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(kimi_k2_1t_a32b.CONFIG, n_layers=KIMI_LAYERS)
+    params = draw_model(torch, dev, lm, cfg, seed,
+                        f"18 kimi-k2-1t-a32b, {KIMI_LAYERS}-layer cut")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    with attention_calls(attention) as seen, \
+            moe_assignments(torch, ffn) as moe:
+        logits_k, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    log(f"  launches of one forward [1, {LM_SEQ}], use_kernel=True: "
+        f"{launches}; head dims of the calls {[d for _, d in seen]}; "
+        + dropped_text(moe))
+    if launches["flash_attention"] != KIMI_LAYERS or \
+            [d for _, d in seen] != [cfg.d_head] * KIMI_LAYERS:
+        raise AssertionError(f"kimi prefill: {launches['flash_attention']} "
+                             f"flash_attention launches, not {KIMI_LAYERS} "
+                             f"at head dim {cfg.d_head}")
+    t0 = time.perf_counter()
+    logits_p, _ = lm.forward(params, tokens, cfg, use_kernel=False)
+    torch.cuda.synchronize()
+    log(f"  logits {tuple(logits_k.shape)} {logits_k.dtype}, kernel path vs "
+        f"plain path ({time.perf_counter() - t0:.2f} s): "
+        + lm_agreement(torch, "kimi-k2 prefill kernel vs plain", logits_k,
+                       logits_p))
+    del logits_k, logits_p
+    log(f"  prefill [1, {LM_SEQ}], use_kernel=True, 3 runs: "
+        + timed_prefills(torch, lm, params, tokens, cfg))
+    serve_model(torch, dev, gen, LMDecoder, params, cfg, "kimi-k2")
+    peak = check_peak(torch, dev, "kimi-k2-1t-a32b")
+    log(f"  peak device memory {peak:.2f} GiB; phase 18 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def lm_family_phases(torch, dev, seed, runtime, records) -> None:
+    """Phases 16-18, each model drawn from the seed in bf16 and freed
+    before the next; fills the launches of phase 9's gemma3-27b and
+    kimi-k2 records."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    by_name = {r["name"]: r for r in records}
+    by_name["flash_attention (gemma3-27b prefill)"]["launches"] = \
+        gemma_phase(torch, dev, seed, runtime, gen)
+    deepseek_phase(torch, dev, seed, runtime, gen)
+    by_name["flash_attention (kimi-k2 prefill)"]["launches"] = \
+        kimi_phase(torch, dev, seed, runtime, gen)
+    log(f"  LM phases 16-18 in {time.perf_counter() - t0:.1f} s")
 
 
 def collection(torch, dev, args):
@@ -3112,7 +3654,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. the LM path: flash_attention against plain, prefill, serving
-    record.append(lm_phases(torch, dev, args.seed, runtime))
+    lm_records = lm_phases(torch, dev, args.seed, runtime)
+    record.extend(lm_records)
+    torch.cuda.empty_cache()
+
+    # ---- 16-18. gemma3-27b, deepseek-v2-lite-16b, kimi-k2-1t-a32b
+    lm_family_phases(torch, dev, args.seed, runtime, lm_records)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": record}), flush=True)

@@ -85,12 +85,28 @@ class TransformerConfig:
         return (emb + self.n_layers * attn + n_dense * dense_ffn
                 + n_moe * per_moe + self.n_layers * 2 * d + d)
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        full = self.param_count()
+        n_moe = self.n_layers - self.n_dense_layers
+        all_experts = n_moe * self.n_experts * 3 * d * self.moe_d_ff
+        active = n_moe * (self.moe_top_k + self.n_shared_experts) * 3 * d \
+            * self.moe_d_ff
+        return full - all_experts + active
+
 
 # id -> module; modules define CONFIG, SHAPES, REDUCED. Only the ids whose
-# model the port runs (the dense GQA family).
+# model the port runs: the five LM archs (the GNN and recsys families and
+# the retrieval config are not registered).
 ARCH_REGISTRY: dict[str, str] = {
-    "llama3-8b": "repro_torch.configs.llama3_8b",
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "llama3-8b": "repro_torch.configs.llama3_8b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 

@@ -52,10 +52,16 @@
 //   pair live: no mask test), edge (the diagonal, a window's edge, Sk:
 //   one live() per score, masked scores -inf so exp2 gives exactly 0) or
 //   empty of live pairs (no product; it still releases the stage).
-// * bf16, D 16 and 32: fa_bf16_kernel, 4 warps of 16 q rows each over
-//   64-row q tiles, Q in registers as mma.sync m16n8k16 A fragments, K and
-//   V tiles of 64 x D staged synchronously in shared memory with rows
-//   padded by 8 elements (conflict-free fragment loads).
+// * bf16, D 16, 32 and 112: fa_bf16_kernel, 4 warps of 16 q rows each
+//   over 64-row q tiles, Q in registers as mma.sync m16n8k16 A fragments,
+//   K and V tiles of 64 x D staged synchronously in shared memory with rows
+//   padded by 8 elements (conflict-free fragment loads: a padded row is
+//   D + 8 halves, 12, 20 or 60 words, so the 8 rows of a fragment load
+//   start on 8 distinct 4-word bank groups). D 112 (kimi-k2's heads) is 7
+//   k-steps of 16; its two tiles take 30,720 B of static shared memory and
+//   its rows of 224 B keep the 16-byte loads aligned, so q, k and v are
+//   read in place as at the other head dims. The wgmma kernel reads
+//   64-column TMA boxes and stays at D 64 and 128.
 // * float32: FMA outside the tensor cores (the kernel's float32 tests and
 //   checks, not the model's bf16 path). 64 q rows x 4 lanes per block;
 //   lane c of a row holds dims c, c + 4, ... of q and the accumulator, a
@@ -730,7 +736,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bf16,
             dim3 grid, const Shape& s, cudaStream_t stream) {
   if (bf16) {
-    if constexpr (D <= 32)        // D 64 and 128 take fa_wgmma_kernel
+    if constexpr (D <= 32 || D == 112)  // D 64 and 128 take fa_wgmma_kernel
       fa_bf16_kernel<D><<<grid, kWarps * 32, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
@@ -863,7 +869,7 @@ extern "C" int flash_attention_wgmma_launch(
                   : launch_wgmma<64>(qm, km, vm, o, grid, s, stream);
 }
 
-// float32 (D 16-128) and bf16 with D 16 or 32.
+// float32 (D 16, 32, 64, 112, 128) and bf16 with D 16, 32 or 112.
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int bf16, int B,
@@ -880,6 +886,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 16: return launch<16>(q, k, v, o, bf16, grid, s, stream);
     case 32: return launch<32>(q, k, v, o, bf16, grid, s, stream);
     case 64: return launch<64>(q, k, v, o, bf16, grid, s, stream);
+    case 112: return launch<112>(q, k, v, o, bf16, grid, s, stream);
     case 128: return launch<128>(q, k, v, o, bf16, grid, s, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -13,8 +13,9 @@ Hkv)`` for q head h.
 
 ``route`` names the kernel a CUDA call takes: bf16 with D 64 or 128 the
 TMA + ``wgmma`` kernel, whose tensor maps are encoded in the C entry
-point from ``tma_geometry``'s dims, byte strides and box; bf16 with D 16
-or 32 the ``mma.sync`` kernel; float32 the FMA kernel.
+point from ``tma_geometry``'s dims, byte strides and box; bf16 with D 16,
+32 or 112 the ``mma.sync`` kernel; float32 the FMA kernel (every D of
+``HEAD_DIMS``).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_ref)
 from repro_torch.kernels.runtime import require
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 _MAX_Q_TILES = 65535          # grid.y of q tiles
 # the wgmma kernel: 128 q rows per block and keys per tile, read by TMA
@@ -80,8 +81,8 @@ def _check(q, k, v, window) -> None:
 
 def route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     """The kernel a CUDA call takes and its q rows per block: ("wgmma",
-    128) for bf16 with D 64 or 128, ("mma_sync", 64) for bf16 with D 16
-    or 32, ("fma", 64) for float32."""
+    128) for bf16 with D 64 or 128, ("mma_sync", 64) for bf16 with D 16,
+    32 or 112, ("fma", 64) for float32."""
     if dtype == torch.bfloat16:
         return ("wgmma", TMA_ROWS) if d in WGMMA_HEAD_DIMS else ("mma_sync",
                                                                  64)

@@ -1,1 +1,1 @@
-"""Models of the port: the dense GQA decoder family (``transformer``)."""
+"""Models of the port: the decoder-only LM family (``transformer``)."""

@@ -1,2 +1,3 @@
-"""The dense GQA decoder (llama3 / phi3): RoPE, SwiGLU, GQA attention with
-the flash_attention kernel on prefill, and KV-cache decode."""
+"""The decoder of the five LM archs: RoPE, SwiGLU and MoE FFNs, GQA
+attention (the flash_attention kernel on prefill, Gemma's local:global
+windows) and MLA, and cached decode."""

@@ -1,15 +1,19 @@
-"""GQA attention (port of the GQA half of
-``repro/models/transformer/attention.py``; MLA waits, ROADMAP Queue 1).
+"""Attention layers: GQA (optionally sliding-window) and MLA (port of
+``repro/models/transformer/attention.py``).
 
-Two execution paths:
-  * prefill: full-sequence attention. ``use_kernel=True`` runs the
-    flash_attention kernel (the JAX package's ``use_pallas``);
-    ``use_kernel=False`` is the plain q-chunked path (``_sdpa_chunked``:
-    exact float32 softmax one query tile at a time).
-  * decode: one token against a KV cache, plain tensor ops as in the JAX
+Two execution paths per layer:
+  * prefill: full-sequence attention. GQA with ``use_kernel=True`` runs
+    the flash_attention kernel (the JAX package's ``use_pallas``), with a
+    static window on Gemma's local layers; ``use_kernel=False`` is the
+    plain q-chunked path (``_sdpa_chunked``: exact float32 softmax one
+    query tile at a time). MLA has no kernel in either package: its full
+    ``[B, h, S, S]`` float32 scores are computed as the JAX package
+    computes them.
+  * decode: one token against a cache, plain tensor ops as in the JAX
     package. The JAX one-hot cache update (``x * 1 + y * 0``) becomes an
     index write into the cache in place; for finite values both give the
-    same cache.
+    same cache. GQA decode takes Gemma's ring buffers (slot ``pos % T``);
+    MLA decode is the absorbed form over the latent cache.
 
 The JAX package's ``shard(...)`` constraints are no-ops without a mesh
 and have no counterpart here. Its ``repeat`` of the kv heads (for tensor
@@ -23,7 +27,8 @@ from torch import nn
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.transformer.ffn import linear
+from repro_torch.models.common import rms_norm
+from repro_torch.models.transformer.ffn import draw, linear
 from repro_torch.models.transformer.rope import apply_rope
 
 NEG = -1e30
@@ -103,29 +108,138 @@ def gqa_forward(p: GQA, x: torch.Tensor, positions: torch.Tensor,
 
 
 def gqa_decode(p: GQA, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, cfg: TransformerConfig):
-    """One-token global GQA against a cache, written in place.
+               cache_v: torch.Tensor, cfg: TransformerConfig, *,
+               window: int = 0):
+    """One-token GQA against a cache, written in place.
 
-    x [B, 1, d]; pos: the step index (the same for every sequence), below
-    T; cache_k/v [B, T, KV, Dh]. Returns (out [B, 1, d], cache_k,
-    cache_v). (The JAX function's ``window`` and ring buffers serve
-    Gemma's local layers, which are not ported.)"""
+    x [B, 1, d]; pos: the step index (the same for every sequence);
+    cache_k/v [B, T, KV, Dh], T the maximum sequence or a ring buffer's
+    window. Returns (out [B, 1, d], cache_k, cache_v). The step writes
+    slot ``pos % T``. Keys are rotated before they are cached, so a
+    ring's slot order does not matter; validity does: a ring (``0 <
+    T <= window``) holds slots ``<= pos`` and all T once ``pos >= T``,
+    a full-length cache slots ``<= pos`` and, with a window, ``> pos -
+    window``."""
     b = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // kv
+    t = cache_k.shape[1]
     pos_b = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q = apply_rope(p.wq(x).reshape(b, 1, h, dh), pos_b, cfg.rope_theta)
     k_new = apply_rope(p.wk(x).reshape(b, 1, kv, dh), pos_b, cfg.rope_theta)
     v_new = p.wv(x).reshape(b, 1, kv, dh)
 
-    cache_k[:, pos] = k_new[:, 0]
-    cache_v[:, pos] = v_new[:, 0]
+    slot = pos % t
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
 
     qg = q.reshape(b, kv, g, dh)
     sc = torch.einsum("bkgd,btkd->bkgt", qg.float(),
                       cache_k.float()) * dh ** -0.5
-    valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
+    slot_pos = torch.arange(t, device=x.device)
+    if 0 < window and t <= window:
+        valid = (slot_pos <= pos) | (pos >= t)          # ring buffer
+    else:
+        valid = slot_pos <= pos
+        if window > 0:
+            valid &= slot_pos > pos - window            # windowed full cache
     pr = torch.softmax(torch.where(valid, sc, NEG), dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", pr, cache_v.float())
     o = o.reshape(b, 1, h * dh).to(x.dtype)
     return p.wo(o), cache_k, cache_v
+
+
+# ------------------------------------------------------------ MLA layer
+
+class MLA(nn.Module):
+    """The JAX package's ``init_mla`` as a module (DeepSeek-V2's latent
+    attention). ``wq`` [h*(nd+rd), d], ``w_dkv`` [r, d], ``w_kr`` [rd, d]
+    and ``wo`` [d, h*vd] are ``nn.Linear``s (the transposes of the JAX
+    leaves); ``w_uk`` [r, h*nd] and ``w_uv`` [r, h*vd] keep the JAX
+    layout, which the absorbed decode views as [r, h, nd]; ``kv_norm``
+    [r] is a float32 RMS-norm gain."""
+
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype,
+                 device: torch.device,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+        s = d ** -0.5
+        self.wq = linear(d, h * (nd + rd), dtype, device, generator, s)
+        self.w_dkv = linear(d, r, dtype, device, generator, s)
+        self.w_kr = linear(d, rd, dtype, device, generator, s)
+        self.w_uk = draw((r, h * nd), r ** -0.5, dtype, device, generator)
+        self.w_uv = draw((r, h * vd), r ** -0.5, dtype, device, generator)
+        self.wo = linear(h * vd, d, dtype, device, generator, s)
+        self.kv_norm = nn.Parameter(torch.zeros(r, dtype=torch.float32,
+                                                device=device),
+                                    requires_grad=False)
+
+
+def mla_forward(p: MLA, x: torch.Tensor, positions: torch.Tensor,
+                cfg: TransformerConfig) -> torch.Tensor:
+    """Full-sequence MLA. x [B, S, d] -> [B, S, d]. The scores ``(q_nope
+    k_nope + q_rope k_rope) * (nd + rd) ** -0.5`` are the full [B, h, S,
+    S] in float32, as in the JAX package; the sum, scale and mask run in
+    place to keep one such tensor beside the softmax's."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = p.wq(x).reshape(b, s, h, nd + rd)
+    q_nope = q[..., :nd]
+    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
+
+    c_kv = rms_norm(p.w_dkv(x), p.kv_norm, cfg.norm_eps)          # [B,S,r]
+    k_rope = apply_rope(p.w_kr(x)[:, :, None, :], positions,
+                        cfg.rope_theta)                           # [B,S,1,rd]
+    k_nope = (c_kv @ p.w_uk).reshape(b, s, h, nd)
+    v = (c_kv @ p.w_uv).reshape(b, s, h, vd)
+
+    sc = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+    sc += torch.einsum("bshd,btd->bhst", q_rope.float(),
+                       k_rope[:, :, 0].float())
+    sc *= (nd + rd) ** -0.5
+    pos = torch.arange(s, device=x.device)
+    sc.masked_fill_(pos[None, :] > pos[:, None], NEG)
+    pr = torch.softmax(sc, dim=-1)
+    del sc
+    o = torch.einsum("bhst,bthd->bshd", pr, v.float())
+    return p.wo(o.reshape(b, s, h * vd).to(x.dtype))
+
+
+def mla_decode(p: MLA, x: torch.Tensor, pos: int, cache_ckv: torch.Tensor,
+               cache_kr: torch.Tensor, cfg: TransformerConfig):
+    """Absorbed MLA decode, O(T * r) a step: only the latent ``c_kv`` [B,
+    T, r] and the shared rotary key [B, T, rd] are cached (written in
+    place at slot ``pos < T``); ``w_uk`` is folded into q and ``w_uv``
+    into the output. Returns (out [B, 1, d], cache_ckv, cache_kr)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    t = cache_ckv.shape[1]
+    pos_b = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q = p.wq(x).reshape(b, 1, h, nd + rd)
+    q_nope = q[:, 0, :, :nd]                                      # [B,h,nd]
+    q_rope = apply_rope(q[..., nd:], pos_b, cfg.rope_theta)[:, 0]  # [B,h,rd]
+
+    c_new = rms_norm(p.w_dkv(x), p.kv_norm, cfg.norm_eps)         # [B,1,r]
+    kr_new = apply_rope(p.w_kr(x)[:, :, None, :], pos_b,
+                        cfg.rope_theta)[:, :, 0, :]               # [B,1,rd]
+    cache_ckv[:, pos] = c_new[:, 0]
+    cache_kr[:, pos] = kr_new[:, 0]
+
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(),
+                         p.w_uk.reshape(r, h, nd).float())
+    ckv = cache_ckv.float()
+    sc = (torch.einsum("bhr,btr->bht", q_lat, ckv)
+          + torch.einsum("bhd,btd->bht", q_rope.float(),
+                         cache_kr.float())) * (nd + rd) ** -0.5
+    valid = torch.arange(t, device=x.device) <= pos
+    pr = torch.softmax(torch.where(valid, sc, NEG), dim=-1)
+    o_lat = torch.einsum("bht,btr->bhr", pr, ckv)                 # [B,h,r]
+    o = torch.einsum("bhr,rhd->bhd", o_lat,
+                     p.w_uv.reshape(r, h, vd).float())
+    return p.wo(o.reshape(b, 1, h * vd).to(x.dtype)), cache_ckv, cache_kr

@@ -43,8 +43,10 @@ class LMDecoder:
                  max_seq: int):
         self.params = params
         self.cfg = cfg
+        self.batch = batch
         self.max_seq = max_seq
         self.device = params.embed.device
+        # any of lm.init_cache's layouts (GQA, Gemma's dual cache, MLA)
         self.cache = lm.init_cache(cfg, batch, max_seq, device=self.device)
 
     def generate(self, prompts: torch.Tensor | np.ndarray, n_steps: int, *,
@@ -59,9 +61,9 @@ class LMDecoder:
         JAX's tokens."""
         prompts = torch.as_tensor(prompts, device=self.device).to(torch.int32)
         b, plen = prompts.shape
-        if b != self.cache["k"].shape[1]:
+        if b != self.batch:
             raise ValueError(f"generate: {b} prompts for a decoder of batch "
-                             f"{self.cache['k'].shape[1]}")
+                             f"{self.batch}")
         if plen == 0 or plen + n_steps > self.max_seq:
             raise ValueError(f"generate: prompt length {plen} plus {n_steps} "
                              f"steps must lie in 1..max_seq {self.max_seq}")

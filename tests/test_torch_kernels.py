@@ -533,10 +533,12 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_flash_attention_route_and_tiles():
     """bf16 heads of 64 and 128 take the TMA + wgmma kernel in 128-row q
-    tiles; bf16 16/32 the mma.sync kernel and float32 the FMA kernel, in
-    64-row tiles."""
+    tiles; bf16 16/32/112 the mma.sync kernel and float32 the FMA kernel,
+    in 64-row tiles."""
     assert route(torch.bfloat16, 128) == ("wgmma", 128)
     assert route(torch.bfloat16, 64) == ("wgmma", 128)
+    assert route(torch.bfloat16, 112) == ("mma_sync", 64)
+    assert route(torch.float32, 112) == ("fma", 64)
     assert route(torch.bfloat16, 32) == ("mma_sync", 64)
     assert route(torch.bfloat16, 16) == ("mma_sync", 64)
     assert route(torch.float32, 128) == ("fma", 64)
@@ -719,7 +721,7 @@ def assert_attention_close(got, want, q, k, v, *, causal, window=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("case", ["causal-gqa", "window", "noncausal",
                                   "ragged-sk"])
 def test_flash_attention_kernel_matches_plain_on_card(dtype, dh, case):
@@ -762,6 +764,25 @@ def test_flash_attention_kernel_reads_strided_projections_on_card():
     bad = torch.zeros(1, 2, 8, 24, device=dev)
     with pytest.raises(ValueError, match="head dim 24"):
         flash_attention(bad, bad, bad)
+
+
+@pytest.mark.gpu
+def test_flash_attention_d112_reads_kimi_projections_on_card():
+    """kimi-k2's heads (D 112, 64 q heads over 8 kv heads) as [B, S, H, D]
+    projections viewed [B, H, S, D]: 224-byte rows read in place by the
+    mma.sync kernel, one launch, against the plain version."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(1, 300, 64, 112, generator=g, device=dev).bfloat16()
+    kv = torch.randn(1, 300, 8, 112, generator=g, device=dev).bfloat16()
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    before = runtime.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, k, causal=True)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q.contiguous(), k.contiguous(),
+                               k.contiguous(), causal=True)
+    assert_attention_close(got, want, q, k, k, causal=True)
 
 
 @pytest.mark.gpu

@@ -23,6 +23,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.configs import deepseek_v2_lite_16b as j_deepseek
+from repro.configs import gemma3_27b as j_gemma
+from repro.configs import get_arch as j_get_arch
+from repro.configs import kimi_k2_1t_a32b as j_kimi
 from repro.configs import llama3_8b as j_llama
 from repro.configs import phi3_medium_14b as j_phi3
 from repro.models.common import rms_norm as j_rms_norm
@@ -34,7 +38,8 @@ from repro.models.transformer.ffn import swiglu as j_swiglu
 from repro.models.transformer.rope import apply_rope as j_apply_rope
 from repro.serve.engine import LMDecoder as JLMDecoder
 from repro_torch.configs import get_arch, list_archs
-from repro_torch.configs import llama3_8b, phi3_medium_14b
+from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_27b,
+                                 kimi_k2_1t_a32b, llama3_8b, phi3_medium_14b)
 from repro_torch.kernels import runtime
 from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import lm
@@ -46,6 +51,12 @@ from repro_torch.serve import LMDecoder
 RTOL, ATOL = 2e-5, 2e-5
 ARCHS = {"llama3-8b": (llama3_8b, j_llama),
          "phi3-medium-14b": (phi3_medium_14b, j_phi3)}
+# every LM arch of the JAX package (the fixture below runs the dense two;
+# tests/test_torch_lm_families.py the other three)
+ALL_ARCHS = {**ARCHS, "gemma3-27b": (gemma3_27b, j_gemma),
+             "deepseek-v2-lite-16b": (deepseek_v2_lite_16b, j_deepseek),
+             "kimi-k2-1t-a32b": (kimi_k2_1t_a32b, j_kimi)}
+UNPORTED_IDS = ("gin-tu", "sasrec", "bst", "fm", "wide-deep")
 
 
 def _np(a) -> np.ndarray:
@@ -76,35 +87,34 @@ def _tokens(cfg, b, s, seed=0):
 
 # ------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("arch", list(ALL_ARCHS))
 def test_configs_match_jax(arch):
-    port, ref = ARCHS[arch]
+    port, ref = ALL_ARCHS[arch]
     for name in ("CONFIG", "REDUCED"):
         mine, theirs = getattr(port, name), getattr(ref, name)
         assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
         assert mine.param_count() == theirs.param_count()
+        assert mine.active_param_count() == theirs.active_param_count()
     assert [(c.name, c.kind, c.dims, c.skip is None) for c in port.SHAPES] \
         == [(c.name, c.kind, c.dims, c.skip is None) for c in ref.SHAPES]
     assert get_arch(arch) is port
 
 
 def test_llama3_8b_size_and_unported_arch_ids():
+    """The port registers the JAX package's five LM ids; the GNN and
+    recsys ids (registered there) raise here, naming the five."""
     assert llama3_8b.CONFIG.param_count() == 8_030_261_248
-    assert list_archs() == ["llama3-8b", "phi3-medium-14b"]
-    with pytest.raises(KeyError, match="llama3-8b.*phi3-medium-14b"):
-        get_arch("gemma3-27b")
+    assert list_archs() == sorted(ALL_ARCHS)
+    assert {j_get_arch(a).CONFIG.family for a in ALL_ARCHS} == {"lm"}
+    with pytest.raises(KeyError, match="deepseek.*gemma3.*kimi.*llama3.*phi3"):
+        get_arch("gin-tu")
 
 
-@pytest.mark.parametrize("change,what", [
-    (dict(moe=True, n_experts=4, moe_top_k=2, moe_d_ff=32), "MoE"),
-    (dict(mla=True, kv_lora_rank=16), "MLA"),
-    (dict(local_per_global=5, local_window=16), "local:global")])
-def test_unported_configs_raise(change, what):
-    cfg = dataclasses.replace(llama3_8b.REDUCED, **change)
-    for call in (lambda: lm.init_params(cfg, device="cpu"),
-                 lambda: lm.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            call()
+@pytest.mark.parametrize("arch", UNPORTED_IDS)
+def test_unported_configs_raise(arch):
+    assert j_get_arch(arch).CONFIG.family in ("gnn", "recsys")
+    with pytest.raises(KeyError, match="not ported"):
+        get_arch(arch)
 
 
 # -------------------------------------------------------------- layers

@@ -103,7 +103,15 @@ def _errors(fn, *args):
 
 
 @pytest.mark.parametrize("case", sorted(STALE))
-def test_validate_tuned_index_raises_as_reference(small_index, case):
+def test_validate_tuned_index_raises_as_reference(small_index, case,
+                                                  monkeypatch):
+    # the "selector" message lists the registered selectors, and
+    # tests/test_retrieval.py registers a test-only one in the JAX
+    # registry for the rest of its worker's session: read the JAX message
+    # without the selectors that tests registered
+    from repro.retrieval import selector as jsel
+    monkeypatch.setattr(jsel, "_SELECTORS", {
+        k: v for k, v in jsel._SELECTORS.items() if not k.startswith("_test")})
     jindex = small_index[0]
     jt, pt = both(**STALE[case])
     jbad = dataclasses.replace(jindex, tuned=(jt,))

@@ -202,6 +202,37 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    kernel (2 launches at head dim 112, asserted) and on the plain path,
    logits compared; three timed runs; ``LMDecoder``.
 Each of phases 16-18 holds the allocator's peak under 70 GiB.
+19. Seismic's serving CLI, ``repro_torch.launch.serve.main`` (run after
+   phase 18): at its defaults (8,192 docs, d 2048, 256 queries), at
+   ``CLI_WIDE`` (262,144 docs, d 30522, 256 queries) and at ``CLI_WIDE``
+   with 4 doc shards (``search_shards`` in this process), with launch
+   counts set to 0 just before and read just after each. Asserted:
+   summary_dot and gather_dot_cand launched, every id valid, the answer
+   held to the plain path (use_kernel=False, fuse 0) on the same index
+   and queries (ids equal except at ties, ``docs_evaluated`` equal).
+   Printed: ms to answer, recall@10 beside the plain path's, docs
+   evaluated;
+20. llama3-8b training (``configs/llama3_8b.CONFIG`` at full width cut to
+   4 layers, 1.92B parameters, bf16, remat "dots"): AdamW
+   (``repro_torch.train``) on [4, 4096] batches (train_4k's sequence
+   length) from ``lm_token_stream`` through ``PrefetchLoader``, in 4
+   microbatches. Asserted: ``loss_fn(use_kernel=True)`` raises under
+   autograd; every loss finite; on one repeated batch the loss after 5
+   steps below step 0's; 2 steps, ``CheckpointManager.save_async``, a
+   restore into freshly drawn parameters and 2 more steps bitwise equal
+   to 4 uninterrupted steps (parameters; moments by a fingerprint of
+   their bits); the allocator's peak under 70 GiB. Printed: ms a step
+   (steps 1-3 after a warm step), tokens/s, model FLOP/s (6 x parameters
+   x tokens / step time) as a share of the bf16 dense peak, the
+   checkpoint's size and save / load seconds;
+21. deepseek-v2-lite-16b training at full width cut to 2 layers (the
+   dense layer and one MoE layer: 64 experts, top 6, 2 shared, MLA;
+   1.09B parameters, bf16): two steps on [2, 4096] in 2 microbatches.
+   Asserted: finite losses and aux, the aux loss's gradient reaches the
+   router, the router's first moment non-zero, the peak under 70 GiB.
+   Printed: ms a step. Then llama3-8b and deepseek-v2-lite-16b REDUCED
+   in float32 train 3 steps on the card and on the CPU from the same
+   parameters and batches, held to the bounds below.
 
 The index and query widths come from ``configs/seismic_msmarco``
 (``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED`` is
@@ -252,6 +283,13 @@ decodes of phases 16 and 17 to their forwards: gemma3-27b's 62 layers
 add up to about ``sqrt(620) * 2**-9 ~ 4.9 %``, inside it; its local
 layers run global has to fail it. deepseek's two prefills are compared
 bitwise: no sum of the MoE runs on atomics.
+
+Training, the card against the CPU (float32, TF32 off): losses within
+``rtol`` 1e-4; parameters after n steps 99.9 % within ``5e-3 * lr * n``
+and all within ``lr * n / 4``. The two run the same float32 sums in
+another order, and AdamW's normalised step (about ``lr`` an element) can
+flip where a gradient is near zero; the CPU tests hold the port to the
+JAX package with the same bounds (``tests/test_torch_train.py``).
 """
 from __future__ import annotations
 
@@ -399,6 +437,14 @@ MODEL_PEAK_GIB = 70.0
 GEMMA_ATTN = (1, 32, 16, LM_SEQ, 128, 1024)
 KIMI_ATTN = (1, 64, 8, LM_SEQ, 112, None)
 PLAIN_HEADS = 16
+# phase 19: Seismic's serving CLI at its defaults and at MS MARCO's vocabulary
+# over 262,144 docs (alone and in 4 doc shards)
+CLI_WIDE = ["--n-docs", "262144", "--dim", str(DIM), "--queries", "256"]
+# phases 20-21: llama3-8b at full width cut to 4 layers (32 with AdamW's
+# state need about 128 GB) on train_4k's sequence length, 4 x 4096 tokens a
+# step in 4 microbatches; deepseek-v2-lite-16b on [2, 4096]
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 4, 4096, 4
+TRAIN_LR = 1e-3
 
 
 def log(*parts) -> None:
@@ -1331,7 +1377,9 @@ def decode_vs_forward(torch, dev, gen, lm, ffn, params, cfg, label):
                  f"set of experts than the forward's; {dropped_text(seen)}")
 
 
-def timed_prefills(torch, lm, params, tokens, cfg, runs=3) -> str:
+def timed_prefills(torch, lm, params, tokens, cfg,
+                   runs=3) -> tuple[str, list[float]]:
+    """``runs`` timed prefills: (their line, the ms of each)."""
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
@@ -1339,7 +1387,30 @@ def timed_prefills(torch, lm, params, tokens, cfg, runs=3) -> str:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return ", ".join(f"{t:.1f} ms ({tokens.numel() / t * 1e3:.0f} tokens/s)"
-                     for t in times)
+                     for t in times), times
+
+
+def router_share(torch, dev, ffn, cfg, prefill_ms: list[float]) -> str:
+    """The MoE router's float64 product (``ffn.router_logits``) at the
+    prefill's [LM_SEQ, d_model] x [d_model, n_experts]: CUDA-event mean
+    of 5 runs after a warm one, L2 flushed, and its share of the median
+    prefill over the config's MoE layers."""
+    import numpy as np
+    x = torch.randn(LM_SEQ, cfg.d_model, device=dev,
+                    dtype=getattr(torch, cfg.dtype))
+    w = torch.randn(cfg.d_model, cfg.n_experts, device=dev)
+    ms = Bench(torch, dev).ms(lambda: ffn.router_logits(w, x), iters=5,
+                              warmup=1)
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    flop = 2 * LM_SEQ * cfg.d_model * cfg.n_experts
+    share = n_moe * ms / float(np.median(prefill_ms))
+    del x, w
+    torch.cuda.empty_cache()
+    return (f"the router's float64 product [{LM_SEQ}, {cfg.d_model}] x "
+            f"[{cfg.d_model}, {cfg.n_experts}] ({flop / 1e9:.1f} GFLOP) "
+            f"{ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s) x {n_moe} MoE "
+            f"layers = {n_moe * ms:.2f} ms, {share:.4f} of the median "
+            f"prefill")
 
 
 def serve_model(torch, dev, gen, LMDecoder, params, cfg, label,
@@ -1425,7 +1496,7 @@ def gemma_phase(torch, dev, seed, runtime, gen) -> int:
                                  f"reject gemma3-27b with the {label}")
     del logits_p
     log(f"  prefill [1, {LM_SEQ}], use_kernel=True, 3 runs: "
-        + timed_prefills(torch, lm, params, tokens, cfg))
+        + timed_prefills(torch, lm, params, tokens, cfg)[0])
     serve_model(torch, dev, gen, LMDecoder, params, cfg, "gemma3-27b")
     peak = check_peak(torch, dev, "gemma3-27b")
     log(f"  peak device memory {peak:.2f} GiB")
@@ -1502,8 +1573,9 @@ def deepseek_phase(torch, dev, seed, runtime, gen) -> None:
         f"{float(aux_a):.4f}); the second {t_run:.1f} ms "
         f"({LM_SEQ / t_run * 1e3:.0f} tokens/s); " + dropped_text(seen))
     del la, lb
-    log(f"  prefill [1, {LM_SEQ}], 3 runs: "
-        + timed_prefills(torch, lm, params, tokens, cfg))
+    text, times = timed_prefills(torch, lm, params, tokens, cfg)
+    log(f"  prefill [1, {LM_SEQ}], 3 runs: {text}; "
+        + router_share(torch, dev, ffn, cfg, times))
     with moe_assignments(torch, ffn) as seen:
         serve_model(torch, dev, gen, LMDecoder, params, cfg,
                     "deepseek", runs=1)
@@ -1577,8 +1649,9 @@ def kimi_phase(torch, dev, seed, runtime, gen) -> int:
         + lm_agreement(torch, "kimi-k2 prefill kernel vs plain", logits_k,
                        logits_p))
     del logits_k, logits_p
-    log(f"  prefill [1, {LM_SEQ}], use_kernel=True, 3 runs: "
-        + timed_prefills(torch, lm, params, tokens, cfg))
+    text, times = timed_prefills(torch, lm, params, tokens, cfg)
+    log(f"  prefill [1, {LM_SEQ}], use_kernel=True, 3 runs: {text}; "
+        + router_share(torch, dev, ffn, cfg, times))
     serve_model(torch, dev, gen, LMDecoder, params, cfg, "kimi-k2")
     peak = check_peak(torch, dev, "kimi-k2-1t-a32b")
     log(f"  peak device memory {peak:.2f} GiB; phase 18 in "
@@ -3518,6 +3591,336 @@ def sharded_stages(torch, dev, args, runtime, smi, kept, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: Seismic's serving CLI, LM training on one card
+# ---------------------------------------------------------------------------
+
+def cli_phase(torch, dev, runtime) -> dict:
+    """Phase 19: ``repro_torch.launch.serve.main`` at its defaults, at
+    CLI_WIDE and at CLI_WIDE with 4 doc shards. Each run's launches
+    counted (summary_dot and gather_dot_cand asserted), every id valid,
+    its answer held to the plain path (use_kernel=False, fuse 0) on the
+    same index and queries, both recalls printed. Returns the launches
+    by kernel name."""
+    from repro_torch.core.distributed import search_shards
+    from repro_torch.core.oracle import mean_recall_at_k
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import SeismicServer
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in runtime.LAUNCHES}
+    for label, argv in (("defaults", []), ("wide", CLI_WIDE),
+                        (f"wide, {N_SHARDS} doc shards",
+                         CLI_WIDE + ["--doc-shards", str(N_SHARDS)])):
+        args = serve.parse_args(argv)
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        out = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(runtime.LAUNCHES)
+        for name, n in launches.items():
+            total[name] += n
+        if not (launches["summary_dot"] and launches["gather_dot_cand"]):
+            raise AssertionError(f"serve CLI ({label}) launched {launches}: "
+                                 "summary_dot and gather_dot_cand expected")
+        ids, q = out["ids"], out["queries"]
+        n_docs = args.n_docs
+        if ids.shape != (args.queries, args.k) or bool(
+                ((ids < 0) | (ids >= n_docs)).any()):
+            raise AssertionError(f"serve CLI ({label}): ids of shape "
+                                 f"{tuple(ids.shape)} or outside "
+                                 f"[0, {n_docs})")
+        plain_p = serve.search_params(args, use_kernel=False, fuse_level=0)
+        if args.doc_shards > 1:
+            ref = search_shards(out["index"], q, plain_p)
+        else:
+            ref = as_triple(SeismicServer(out["index"], plain_p,
+                                          max_batch=min(args.queries, 256))
+                            .search(q))
+        if not torch.equal(ref[2].to(torch.int32), out["docs_evaluated"]):
+            raise AssertionError(f"serve CLI ({label}): docs_evaluated "
+                                 "differs from the plain path's")
+        rows = check_against_plain(torch, f"serve CLI ({label})",
+                                   (out["scores"], ids), ref, args.k)
+        plain_recall = mean_recall_at_k(ref[1], out["exact_ids"])
+        log(f"[19 serve CLI, {label}] argv {argv or '(defaults)'}: "
+            f"{args.n_docs} docs, d {args.dim}, {args.queries} queries, "
+            f"k {args.k}, budget {args.budget}, cut {args.cut}: "
+            f"{out['seconds'] * 1e3:.1f} ms to answer "
+            f"({out['seconds'] / args.queries * 1e6:.0f} us a query), "
+            f"{wall:.1f} s in all; recall@{args.k} {out['recall']:.4f} "
+            f"(plain path {plain_recall:.4f}); docs evaluated (mean) "
+            f"{float(out['docs_evaluated'].float().mean()):.1f}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; rows whose ids "
+            f"differ from the plain path (at ties) {rows}")
+        del out, ref, q
+        torch.cuda.empty_cache()
+    log(f"  phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def state_fingerprint(torch, opt) -> list[int]:
+    """A bitwise fingerprint of AdamW's moments: per tensor, the sum of
+    its float32 bit patterns weighted by position (mod 65521)."""
+    out = []
+    for k in ("m", "v"):
+        for t in opt[k].values():
+            bits = t.view(torch.int32).reshape(-1).long()
+            w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            out.append(int((bits * w).sum()))
+            del bits, w
+    return out
+
+
+def train_phase(torch, dev, seed, smi) -> None:
+    """Phase 20: llama3-8b at full width cut to TRAIN_LAYERS layers (bf16,
+    remat as configured) trains on [TRAIN_BATCH, TRAIN_SEQ] batches from
+    ``lm_token_stream`` through ``PrefetchLoader`` in TRAIN_MICRO
+    microbatches. Asserted: ``loss_fn(use_kernel=True)`` raises under
+    autograd; every loss finite; on one repeated batch the loss after 5
+    steps below step 0's; 2 steps, ``save_async``, a restore into freshly
+    drawn parameters and 2 more steps bitwise equal to 4 uninterrupted
+    steps; the allocator's peak under MODEL_PEAK_GIB. Printed: ms a step,
+    tokens/s and model FLOP/s as a share of the bf16 dense peak."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import llama3_8b
+    from repro_torch.data.pipeline import PrefetchLoader, lm_token_stream
+    from repro_torch.launch.train import load_state, state_tree
+    from repro_torch.models.transformer import lm
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama3_8b.CONFIG, n_layers=TRAIN_LAYERS)
+    params = draw_model(torch, dev, lm, cfg, seed,
+                        f"20 llama3-8b training, {TRAIN_LAYERS}-layer cut")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=100)
+    step_fn = make_train_step(lambda p, b: lm.loss_fn(p, b, cfg), opt_cfg,
+                              microbatches=TRAIN_MICRO)
+    loader = PrefetchLoader(lm_token_stream(cfg.vocab, TRAIN_BATCH,
+                                            TRAIN_SEQ, seed=seed),
+                            prefetch=2)
+    stream = iter(loader)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                next(stream).items()} for _ in range(5)]
+    loader.close()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    try:
+        lm.loss_fn(params, {k: v[:1] for k, v in batches[0].items()}, cfg,
+                   use_kernel=True)
+    except RuntimeError as exc:
+        if "no backward" not in str(exc):
+            raise
+        log(f"  loss_fn(use_kernel=True) under autograd raises: {exc}")
+    else:
+        raise AssertionError("loss_fn(use_kernel=True) ran under autograd")
+
+    def run(p, o, bs, timed=False):
+        losses, times = [], []
+        for b in bs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step_fn(p, o, b)
+            loss = float(m["loss"])          # a host read: the step's end
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(loss):
+                raise AssertionError(f"llama3-8b training: loss {loss}")
+            losses.append(loss)
+        return p, o, losses, times
+
+    # one repeated batch: the loss must fall; steps 1-3 timed
+    opt = init_opt_state(params)
+    params, opt, losses, times = run(params, opt, [batches[0]] * 6)
+    log(f"  6 steps on one repeated batch [{TRAIN_BATCH}, {TRAIN_SEQ}] in "
+        f"{TRAIN_MICRO} microbatches (AdamW lr {TRAIN_LR}, warmup 2): "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; ms a step "
+        + ", ".join(f"{t:.1f}" for t in times))
+    if not losses[5] < losses[0]:
+        raise AssertionError(f"llama3-8b training: loss after 5 steps "
+                             f"{losses[5]:.4f} not below step 0's "
+                             f"{losses[0]:.4f}")
+    ms = float(np.mean(times[1:4]))
+    n = cfg.param_count()
+    flops = 6 * n * tokens / (ms / 1e3)
+    log(f"  [train] ms a step (steps 1-3 after a warm step 0): {ms:.1f} "
+        f"({', '.join(f'{t:.1f}' for t in times[1:4])}); tokens/s "
+        f"{tokens / ms * 1e3:.0f}; model FLOP/s (6 x {n} parameters x "
+        f"{tokens} tokens / step time) {flops / 1e12:.1f} T, "
+        f"{flops / BF16_OPS_PER_S:.4f} of the bf16 dense peak "
+        f"{BF16_OPS_PER_S / 1e12:.0f} T; card {smi}")
+    peak = check_peak(torch, dev, "llama3-8b training")
+    log(f"  peak device memory {peak:.2f} GiB")
+
+    # resume: 4 uninterrupted steps against 2 + save + restore + 2
+    ckpt_dir = ROOT / "build" / "smoke_train_ckpt"   # the smoke's own
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    opt = init_opt_state(params)
+    params, opt, l4, _ = run(params, opt, batches[1:5])
+    want = [p.detach().clone() for p in params.parameters()]
+    want_fp, want_step = state_fingerprint(torch, opt), int(opt["step"])
+    del params, opt
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    opt = init_opt_state(params)
+    params, opt, l2, _ = run(params, opt, batches[1:3])
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+    t0 = time.perf_counter()
+    mgr.save_async(2, state_tree(params, opt))
+    t_snap = time.perf_counter() - t0
+    del params, opt
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, seed=seed + 1, device=dev)   # fresh draws
+    opt = init_opt_state(params)
+    mgr.wait()
+    t_save = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    restored, step = mgr.restore_latest(
+        state_tree(params, opt, device="meta"), device="cpu")
+    load_state(restored, params, opt)
+    del restored
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    params, opt, l2b, _ = run(params, opt, batches[3:5])
+    same = all(torch.equal(a, b) for a, b in zip(params.parameters(), want))
+    same_opt = state_fingerprint(torch, opt) == want_fp \
+        and int(opt["step"]) == want_step
+    log(f"  resume: 4 steps, losses {', '.join(f'{x:.4f}' for x in l4)}; "
+        f"2 steps ({', '.join(f'{x:.4f}' for x in l2)}), save_async "
+        f"(host snapshot {t_snap:.1f} s, written {t_save:.1f} s, "
+        f"{size / 2**30:.2f} GiB), restored step {step} into fresh draws "
+        f"({t_load:.1f} s), 2 steps ({', '.join(f'{x:.4f}' for x in l2b)}):"
+        f" parameters bitwise equal {same}, moments and step equal "
+        f"{same_opt}")
+    if not (same and same_opt and l2 + l2b == l4):
+        raise AssertionError("llama3-8b training: the resumed run is not "
+                             "bitwise the uninterrupted one")
+    peak = check_peak(torch, dev, "llama3-8b training")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del params, opt, want, batches
+    torch.cuda.empty_cache()
+    log(f"  peak device memory {peak:.2f} GiB; phase 20 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def deepseek_train_phase(torch, dev, seed, gen) -> None:
+    """Phase 21: deepseek-v2-lite-16b at full width cut to its dense
+    layer and one MoE layer (64 experts, top 6, 2 shared, MLA), bf16:
+    one warm and one timed microbatched step on [2, TRAIN_SEQ] (2
+    microbatches). Asserted: finite loss and aux, the aux loss's gradient
+    reaches the router (and the step's first moment of the router is
+    non-zero), the allocator's peak under MODEL_PEAK_GIB."""
+    import numpy as np
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.models.transformer import lm
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(deepseek_v2_lite_16b.CONFIG, n_layers=2)
+    params = draw_model(torch, dev, lm, cfg, seed,
+                        "21 deepseek-v2-lite-16b training, 2-layer cut")
+    toks = torch.randint(0, cfg.vocab, (2, TRAIN_SEQ + 1), generator=gen,
+                         device=dev)
+    batch = dict(tokens=toks[:, :-1].to(torch.int32).contiguous(),
+                 labels=toks[:, 1:].to(torch.int32).contiguous())
+    router = params.layers[0].ffn.router
+    _, aux = lm.forward_train(params, batch["tokens"][:1], cfg)
+    (g,) = torch.autograd.grad(aux, [router])
+    if not (bool(torch.isfinite(aux)) and bool(g.abs().sum() > 0)):
+        raise AssertionError(f"deepseek training: aux {float(aux)}, its "
+                             "gradient does not reach the router")
+    log(f"  aux of one [1, {TRAIN_SEQ}] forward {float(aux.detach()):.4f}; "
+        f"|d aux / d router| sum {float(g.abs().sum()):.4e}")
+    del aux, g
+    opt = init_opt_state(params)
+    step_fn = make_train_step(lambda p, b: lm.loss_fn(p, b, cfg),
+                              AdamWConfig(lr=TRAIN_LR, warmup_steps=2),
+                              microbatches=2)
+    times, losses = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    m_router = opt["m"]["layers.0.ffn.router"]
+    if not (np.isfinite(losses).all() and bool(m_router.abs().sum() > 0)):
+        raise AssertionError(f"deepseek training: losses {losses}, router "
+                             "moment zero")
+    peak = check_peak(torch, dev, "deepseek-v2-lite-16b training")
+    log(f"  [train] 2 steps on [2, {TRAIN_SEQ}] in 2 microbatches: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; ms a step "
+        f"{times[0]:.1f} (warm), {times[1]:.1f}; tokens/s "
+        f"{2 * TRAIN_SEQ / times[1] * 1e3:.0f}; router's first moment "
+        f"non-zero; peak device memory {peak:.2f} GiB; phase 21 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params, opt, m
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu_phase(torch, dev, seed) -> None:
+    """llama3-8b and deepseek-v2-lite-16b REDUCED in float32: 3 train
+    steps on the card and on the CPU from the same parameters and
+    batches. Losses within ``rtol`` 1e-4; parameters after 3 steps 99.9 %
+    within 5e-3 lr a step and all within lr / 4 a step, the bounds the
+    CPU tests hold the port to JAX with (tests/test_torch_train.py): the
+    same float32 sums in another order (TF32 is off), which AdamW's
+    normalised step can turn into a flipped step of about lr on an
+    element whose gradient is near zero."""
+    from repro_torch.configs import deepseek_v2_lite_16b, llama3_8b
+    from repro_torch.data.pipeline import lm_token_stream
+    from repro_torch.models.transformer import lm
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    for mod in (llama3_8b, deepseek_v2_lite_16b):
+        cfg = mod.REDUCED
+        ocfg = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=20)
+        step_fn = make_train_step(lambda p, b: lm.loss_fn(p, b, cfg), ocfg,
+                                  microbatches=2)
+        gen = lm_token_stream(cfg.vocab, 4, 32, seed=seed)()
+        batches = [next(gen) for _ in range(3)]
+        out = {}
+        for where in ("cpu", dev):
+            params = lm.init_params(cfg, seed=seed, device="cpu").to(where)
+            opt = init_opt_state(params)
+            losses = []
+            for b in batches:
+                params, opt, m = step_fn(params, opt, {
+                    k: torch.from_numpy(v).to(where) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+            out[str(where)] = (losses, [p.detach().cpu() for p in
+                                        params.parameters()])
+        (lc, pc), (lg, pg) = out["cpu"], out[str(dev)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        worst, share = 0.0, 0.0
+        for a, b in zip(pg, pc):
+            d = (a - b).abs()
+            worst = max(worst, float(d.max()))
+            share = max(share, float((d > 5e-3 * ocfg.lr * 3).float().mean()))
+        log(f"  card vs CPU, {cfg.name}, float32, 3 steps: losses card "
+            f"{', '.join(f'{x:.6f}' for x in lg)}, CPU "
+            f"{', '.join(f'{x:.6f}' for x in lc)} (max rel {rel:.2e}); "
+            f"parameters max |diff| {worst:.3e} = {worst / ocfg.lr:.4f} lr, "
+            f"share beyond 5e-3 lr a step {share:.2e}")
+        if rel > 1e-4 or worst > 0.25 * ocfg.lr * 3 or share > 1e-3:
+            raise AssertionError(f"{cfg.name}: card and CPU training differ "
+                                 "beyond the bound")
+
+
+def train_phases(torch, dev, seed, smi) -> None:
+    """Phases 20 and 21, then the card against the CPU."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_phase(torch, dev, seed, smi)
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    deepseek_train_phase(torch, dev, seed, gen)
+    card_vs_cpu_phase(torch, dev, seed)
+    log(f"  training phases 20-21 in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1 << 20,
@@ -3660,6 +4063,16 @@ def main() -> int:
 
     # ---- 16-18. gemma3-27b, deepseek-v2-lite-16b, kimi-k2-1t-a32b
     lm_family_phases(torch, dev, args.seed, runtime, lm_records)
+    torch.cuda.empty_cache()
+
+    # ---- 19. Seismic's serving CLI
+    cli = cli_phase(torch, dev, runtime)
+    for rec in record:
+        rec["launches"] += cli.get(rec["name"], 0)
+    torch.cuda.empty_cache()
+
+    # ---- 20-21. LM training on one card
+    train_phases(torch, dev, args.seed, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": record}), flush=True)

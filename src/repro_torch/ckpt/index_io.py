@@ -17,25 +17,12 @@ import os
 import shutil
 
 import numpy as np
-import torch
 
 from repro_torch.core.types import SeismicIndex, index_from_arrays
+from repro_torch.device import host_array
 from repro_torch.tune.policy import TunedPolicy
 
 _INDEX_MANIFEST = "seismic_index.json"
-
-
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as the array ``np.savez`` gets from the JAX package: a
-    bfloat16 tensor as 2-byte void items (``|V2``, which is how
-    ``np.savez`` stores an ``ml_dtypes.bfloat16`` array), a uint16 one
-    through its int16 bits."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.dtype("V2"))
-    if t.dtype == torch.uint16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
 
 
 def save_index(path: str, index: SeismicIndex, *, step: int = 0) -> str:
@@ -55,11 +42,11 @@ def save_index(path: str, index: SeismicIndex, *, step: int = 0) -> str:
     final = os.path.join(path, f"index_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    arrays = dict(fwd_coords=_numpy(index.fwd.coords),
-                  fwd_vals=_numpy(index.fwd.vals))
+    arrays = dict(fwd_coords=host_array(index.fwd.coords),
+                  fwd_vals=host_array(index.fwd.vals))
     for name, t in index._tensor_fields().items():
         if t is not None:
-            arrays[name] = _numpy(t)
+            arrays[name] = host_array(t)
     np.savez(os.path.join(tmp, "index.npz"), **arrays)
     manifest = dict(step=step, dim=index.dim,
                     config=dataclasses.asdict(index.config))

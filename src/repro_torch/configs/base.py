@@ -3,9 +3,10 @@
 A copy of ``TransformerConfig``, ``ShapeCell`` and ``lm_shapes`` of the
 JAX package's ``configs/base.py`` (same field names, defaults and
 ``param_count``), kept here so that the port imports nothing of it.
-``get_arch`` knows only the ids whose model the port runs; the fields
-``remat``, ``unroll_layers``, ``seq_parallel`` and ``sharding_mode`` are
-kept for parity and have no effect in the port's inference path.
+``get_arch`` knows only the ids whose model the port runs. ``remat``
+sets what the training path recomputes (``lm.forward_train``); the
+fields ``unroll_layers``, ``seq_parallel`` and ``sharding_mode`` are
+kept for parity and have no effect in the port.
 """
 from __future__ import annotations
 

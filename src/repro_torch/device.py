@@ -37,7 +37,15 @@ def on_stream(stream):
 
 
 def host_array(a) -> np.ndarray:
-    """A tensor (on any device) or an array-like as a numpy array."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+    """A tensor (on any device) or an array-like as a numpy array. numpy
+    has no bfloat16: a bf16 tensor comes back as its 2-byte items
+    (``V2``), the bits of an ``ml_dtypes.bfloat16`` array, and a uint16
+    one through its int16 bits."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    t = a.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()

@@ -146,7 +146,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: float | None = None, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D] (Hq % Hkv == 0) -> q-shaped,
-    in q's dtype; ``sm_scale`` defaults to ``D ** -0.5``."""
+    in q's dtype; ``sm_scale`` defaults to ``D ** -0.5``.
+
+    Inference only: the kernel has no backward (nor has the JAX one), so
+    under autograd, with an input that requires grad, this raises on
+    every device rather than hand back an output detached from q, k and
+    v; training runs the plain attention path."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it without autograd "
+            "(torch.no_grad) or train on the plain attention path "
+            "(use_kernel=False)")
     _check(q, k, v, window)
     if runtime.use_plain(q, k, v):
         return flash_attention_ref(q, k, v, sm_scale=sm_scale, causal=causal,

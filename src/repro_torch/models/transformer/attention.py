@@ -98,9 +98,10 @@ def gqa_forward(p: GQA, x: torch.Tensor, positions: torch.Tensor,
                             window=window if window > 0 else None)
         o = o.transpose(1, 2).reshape(b, s, h * dh)
     else:
-        if g > 1:
-            k = k.repeat_interleave(g, dim=2)
-            v = v.repeat_interleave(g, dim=2)
+        if g > 1:   # the JAX ``repeat``; a broadcast, so its backward is a
+            #         sum over the group, not the atomic adds of an index
+            k = k[:, :, :, None].expand(b, s, kv, g, dh).reshape(b, s, h, dh)
+            v = v[:, :, :, None].expand(b, s, kv, g, dh).reshape(b, s, h, dh)
         o = _sdpa_chunked(q.reshape(b, s, h, 1, dh), k, v, causal=True,
                           window=window, q_chunk=cfg.attn_q_chunk)
         o = o.reshape(b, s, h * dh)
@@ -174,16 +175,15 @@ class MLA(nn.Module):
         self.w_uv = draw((r, h * vd), r ** -0.5, dtype, device, generator)
         self.wo = linear(h * vd, d, dtype, device, generator, s)
         self.kv_norm = nn.Parameter(torch.zeros(r, dtype=torch.float32,
-                                                device=device),
-                                    requires_grad=False)
+                                                device=device))
 
 
 def mla_forward(p: MLA, x: torch.Tensor, positions: torch.Tensor,
                 cfg: TransformerConfig) -> torch.Tensor:
     """Full-sequence MLA. x [B, S, d] -> [B, S, d]. The scores ``(q_nope
     k_nope + q_rope k_rope) * (nd + rd) ** -0.5`` are the full [B, h, S,
-    S] in float32, as in the JAX package; the sum, scale and mask run in
-    place to keep one such tensor beside the softmax's."""
+    S] in float32, as in the JAX package; without autograd the sum, scale
+    and mask run in place to keep one such tensor beside the softmax's."""
     b, s, _ = x.shape
     h = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -198,11 +198,19 @@ def mla_forward(p: MLA, x: torch.Tensor, positions: torch.Tensor,
     v = (c_kv @ p.w_uv).reshape(b, s, h, vd)
 
     sc = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
-    sc += torch.einsum("bshd,btd->bhst", q_rope.float(),
-                       k_rope[:, :, 0].float())
-    sc *= (nd + rd) ** -0.5
+    rope = torch.einsum("bshd,btd->bhst", q_rope.float(),
+                        k_rope[:, :, 0].float())
     pos = torch.arange(s, device=x.device)
-    sc.masked_fill_(pos[None, :] > pos[:, None], NEG)
+    future = pos[None, :] > pos[:, None]
+    if torch.is_grad_enabled():
+        # no tensor written in place: autograd, and remat's saved products
+        # (``lm.forward_train``), read them again in the backward pass
+        sc = ((sc + rope) * (nd + rd) ** -0.5).masked_fill(future, NEG)
+    else:
+        sc += rope
+        sc *= (nd + rd) ** -0.5
+        sc.masked_fill_(future, NEG)
+    del rope
     pr = torch.softmax(sc, dim=-1)
     del sc
     o = torch.einsum("bhst,bthd->bshd", pr, v.float())

@@ -19,7 +19,6 @@ under a mesh waits for the port of ``distributed/sharding.py``.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -35,7 +34,7 @@ _DRAW_ELEMS = 1 << 26
 def draw(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
          device: torch.device, generator: torch.Generator | None,
          ) -> nn.Parameter:
-    """An inference parameter of ``shape`` drawn as the JAX package draws
+    """A parameter of ``shape`` drawn as the JAX package draws
     it: float32 standard normal times ``scale``, then cast; drawn along
     the first axis in chunks of at most ``_DRAW_ELEMS`` float32 values
     (an expert stack of kimi-k2 is 22.5 GB in float32). Without a
@@ -49,12 +48,12 @@ def draw(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
             w[i:i + n].copy_(torch.randn(
                 (n, *shape[1:]), generator=generator, device=device,
                 dtype=torch.float32).mul_(scale))
-    return nn.Parameter(w, requires_grad=False)
+    return nn.Parameter(w)
 
 
 def linear(d_in: int, d_out: int, dtype: torch.dtype, device: torch.device,
            generator: torch.Generator | None, scale: float) -> nn.Linear:
-    """A bias-free inference ``nn.Linear`` whose ``[d_out, d_in]`` weight
+    """A bias-free ``nn.Linear`` whose ``[d_out, d_in]`` weight
     comes from ``draw`` (left uninitialised without a generator)."""
     lin = nn.utils.skip_init(nn.Linear, d_in, d_out, bias=False,
                              device=device, dtype=dtype)
@@ -98,27 +97,24 @@ class MoE(nn.Module):
                              generator) if cfg.n_shared_experts else None
 
 
-@contextlib.contextmanager
-def _full_float32(t: torch.Tensor):
-    """Float32 products on ``t``'s device in full float32: selection by
-    the router is discontinuous, so TF32 (about three decimal digits)
-    could pick other experts than the reference does."""
-    if t.device.type != "cuda" or not torch.backends.cuda.matmul.allow_tf32:
-        yield
-        return
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = True
+def router_logits(router_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x [T, d] -> the float32 router logits [T, E]: the product in
+    float64, rounded once to float32. Selection by the router is
+    discontinuous, so the product must be full float32 or better on every
+    device, whatever the caller set for float32 products (TF32 keeps about
+    three decimal digits and could pick other experts than the reference
+    does); a float64 product reads and writes no process-wide flag, so
+    threads that route at once cannot change each other's precision. It
+    is differentiable (training goes through it): the gradients flow back
+    in float64 and round to each input's dtype."""
+    return (x.double() @ router_w.double()).float()
 
 
 def _route(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
     """x [T, d] -> (expert_idx [T, k] int64, weights [T, k] float32,
     aux_loss). The top-k is a stable descending sort: the lowest expert
     first among equal probabilities, as ``lax.top_k``."""
-    with _full_float32(x):
-        logits = x.float() @ router_w                        # [T, E]
+    logits = router_logits(router_w, x)                     # [T, E]
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = w[:, :top_k], idx[:, :top_k]

@@ -1,5 +1,5 @@
 """Decoder-only LM of the five LM archs: port of
-``repro/models/transformer/lm.py``'s inference path.
+``repro/models/transformer/lm.py``.
 
 One code base covers:
   * GQA (phi3 / llama3 / kimi / gemma) and MLA (deepseek-v2) attention,
@@ -10,27 +10,34 @@ One code base covers:
     static window on prefill, and a dual cache on decode (ring buffers of
     the window for local layers, full-length caches for global ones).
 
-Prefill entry: ``forward(params, tokens, cfg, use_kernel=...)``; decode
-entry: ``decode_step(params, cache, tokens, pos, cfg)``. Inference only:
-parameters carry no gradient, and the JAX package's ``remat`` and
-``unroll_layers`` (how a training step is compiled) have no counterpart.
-The ``lax.scan`` over stacked layers becomes a loop over an
-``nn.ModuleList`` with static per-layer windows: the JAX package's
-unrolled path, which its scanned path equals (``_block_windowed`` masks
-a global layer with a window of ``S + 1``, which masks nothing more than
-causality); ``lax.cond`` on Gemma's layer kind becomes the loop's
-branch. ``params_from_jax`` unstacks the JAX pytree.
+Train entry: ``loss_fn(params, batch, cfg)`` over ``forward_train``,
+which carries gradients (with ``cfg.remat`` per block); prefill entry:
+``forward(params, tokens, cfg, use_kernel=...)``, ``forward_train``
+without autograd; decode entry: ``decode_step(params, cache, tokens,
+pos, cfg)``, also without autograd. The ``lax.scan`` over stacked layers
+becomes a loop over an ``nn.ModuleList`` with static per-layer windows:
+the JAX package's unrolled path, which its scanned path equals
+(``_block_windowed`` masks a global layer with a window of ``S + 1``,
+which masks nothing more than causality); ``lax.cond`` on Gemma's layer
+kind becomes the loop's branch, and ``unroll_layers`` (how XLA compiles
+the stack) has no counterpart. ``params_from_jax`` unstacks the JAX
+pytree and ``params_to_jax`` restacks it (``to_jax_layout`` /
+``load_jax_layout`` do the same for any tree that mirrors the
+parameters, such as AdamW's moments).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import TransformerConfig
-from repro_torch.device import resolve_device
-from repro_torch.models.common import rms_norm
+from repro_torch.device import host_array, resolve_device
+from repro_torch.models.common import cross_entropy, rms_norm
 from repro_torch.models.transformer.attention import (GQA, MLA, gqa_decode,
                                                       gqa_forward,
                                                       mla_decode,
@@ -38,11 +45,12 @@ from repro_torch.models.transformer.attention import (GQA, MLA, gqa_decode,
 from repro_torch.models.transformer.ffn import (MoE, SwiGLU, draw,
                                                 moe_forward, swiglu)
 
+AUX_COEF = 0.01
+
 
 def _norm(d: int, device: torch.device) -> nn.Parameter:
     """An RMS-norm gain, float32 zeros as in the JAX package."""
-    return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device))
 
 
 def n_scan_layers(cfg: TransformerConfig) -> int:
@@ -139,23 +147,69 @@ def _block(layer: Block, x: torch.Tensor, positions: torch.Tensor,
     return x + out, aux
 
 
-@torch.no_grad()
-def forward(params: LM, tokens: torch.Tensor, cfg: TransformerConfig, *,
-            use_kernel: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+# the products remat="dots" keeps (the JAX ``dots_saveable`` policy)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _remat(fn, cfg: TransformerConfig):
+    """``fn`` (one block) under ``cfg.remat``, mapped from the JAX
+    package's ``jax.checkpoint`` policies: "none" keeps every activation;
+    "full" (``nothing_saveable``) keeps the block's inputs only and runs
+    it again in the backward pass; "dots" (``dots_saveable``) is a
+    selective checkpoint that keeps the outputs of the matrix products
+    (``_DOTS``) and recomputes the rest. Remat changes memory, never
+    numbers. Without autograd there is nothing to keep: ``fn`` as is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)  # no draws
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, list(_DOTS))
+    elif cfg.remat != "full":
+        raise ValueError(f"remat must be 'none', 'dots' or 'full', got "
+                         f"{cfg.remat!r}")
+    return functools.partial(_ckpt.checkpoint, fn, **kw)
+
+
+def forward_train(params: LM, tokens: torch.Tensor, cfg: TransformerConfig,
+                  *, use_kernel: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V], the MoE layers' summed aux loss,
-    float32; 0 without MoE)."""
+    float32; 0 without MoE), with gradients where autograd is on (each
+    block under ``cfg.remat``). ``use_kernel=True`` raises under autograd:
+    the flash_attention kernel has no backward, and training runs the
+    plain attention path, as the JAX package's does."""
     b, s = tokens.shape
     x = F.embedding(tokens.long(), params.embed)
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(_block, cfg)
     if params.dense0 is not None:
-        x, _ = _block(params.dense0, x, positions, 0, cfg, use_kernel)
+        x, _ = block(params.dense0, x, positions, 0, cfg, use_kernel)
     for layer, w in zip(params.layers, layer_windows(cfg)):
-        x, aux = _block(layer, x, positions, int(w), cfg, use_kernel)
+        x, aux = block(layer, x, positions, int(w), cfg, use_kernel)
         if aux is not None:
             aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return F.linear(x, params.out_embed), aux_total
+
+
+@torch.no_grad()
+def forward(params: LM, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            use_kernel: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``forward_train`` without autograd: the prefill entry."""
+    return forward_train(params, tokens, cfg, use_kernel=use_kernel)
+
+
+def loss_fn(params: LM, batch: dict, cfg: TransformerConfig, *,
+            use_kernel: bool = False) -> torch.Tensor:
+    """batch = {"tokens": [B, S], "labels": [B, S]} (labels -1 = pad) ->
+    the float32 mean cross entropy plus ``AUX_COEF`` times the MoE aux
+    loss."""
+    logits, aux = forward_train(params, batch["tokens"], cfg,
+                                use_kernel=use_kernel)
+    return cross_entropy(logits, batch["labels"]) + AUX_COEF * aux
 
 
 # --------------------------------------------------------------- decode
@@ -255,7 +309,85 @@ def decode_step(params: LM, cache: dict, tokens: torch.Tensor, pos: int,
     return F.linear(x, params.out_embed)[:, 0], cache
 
 
-# ------------------------------------------------------ weights from JAX
+# ------------------------------------------------------ the JAX layout
+
+def jax_path(name: str) -> tuple[tuple[str, ...], int | None, bool]:
+    """A parameter's name in ``LM`` -> (its path in the JAX package's
+    ``init_params`` pytree, its index on the stacked layer axis or None,
+    whether the JAX leaf is its transpose). ``layers.3.attn.wq.weight`` is
+    ``("layers", "attn", "wq")``, layer 3, transposed: an ``nn.Linear``
+    weight is ``[out, in]`` where the JAX leaf is ``[in, out]``; every
+    other parameter keeps the JAX layout."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] == "layers":
+        layer, parts = int(parts[1]), ["layers"] + parts[2:]
+    transpose = parts[-1] == "weight"
+    return tuple(parts[:-1] if transpose else parts), layer, transpose
+
+
+def to_jax_layout(named: dict, *, device=None) -> dict:
+    """A tree that mirrors the parameters, as a dict of tensors keyed by
+    parameter name (``dict(params.named_parameters())``, or AdamW's ``m``
+    and ``v``), in the JAX package's layout: nested dicts, the layers
+    stacked on a leading axis, the ``nn.Linear`` weights transposed; each
+    leaf keeps its tensor's dtype. ``device`` is where the leaves are
+    built (None: each tensor's own); a leaf that is neither stacked nor
+    transposed may be the tensor itself."""
+    out: dict = {}
+    stacks: dict[tuple[str, ...], list] = {}
+    for name, t in named.items():
+        path, layer, transpose = jax_path(name)
+        t = t.detach() if device is None else t.detach().to(device)
+        t = t.T if transpose else t
+        if layer is None:
+            _set_in(out, path, t)
+        else:
+            stacks.setdefault(path, []).append((layer, t))
+    for path, items in stacks.items():
+        items.sort(key=lambda it: it[0])
+        if [i for i, _ in items] != list(range(len(items))):
+            raise ValueError(f"to_jax_layout: layers of {'.'.join(path)} "
+                             f"are {[i for i, _ in items]}")
+        _set_in(out, path, torch.stack([t for _, t in items]))
+    return out
+
+
+def load_jax_layout(tree: dict, named: dict) -> None:
+    """Copy a tree in the JAX package's layout (numpy arrays or tensors;
+    a JAX bf16 array widened to float32, which is exact) into the
+    tensors of ``named`` (keyed by parameter name), in place, each cast
+    to its tensor's dtype. Raises on a top-level key that differs, or a
+    shape."""
+    want = {jax_path(n)[0][0] for n in named}
+    if set(tree) != want:
+        raise ValueError(f"load_jax_layout: top-level keys {sorted(tree)}, "
+                         f"expected {sorted(want)}")
+    with torch.no_grad():
+        for name, dst in named.items():
+            path, layer, transpose = jax_path(name)
+            src = tree
+            for key in path:
+                src = src[key]
+            if layer is not None:
+                src = src[layer]
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.array(src))   # a writable copy
+            # to the device first: a transpose there is a fast copy
+            src = src.to(dst.device)
+            src = src.T if transpose else src
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"load_jax_layout: {name}: shape "
+                                 f"{tuple(src.shape)} where "
+                                 f"{tuple(dst.shape)} is expected")
+            dst.copy_(src)
+
+
+def _set_in(tree: dict, path: tuple[str, ...], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
 
 def params_from_jax(tree: dict, cfg: TransformerConfig,
                     device: str | torch.device | None = None) -> LM:
@@ -268,53 +400,32 @@ def params_from_jax(tree: dict, cfg: TransformerConfig,
     ``kv_norm`` and the router). (``np.asarray`` of a JAX bf16 array is
     an ``ml_dtypes`` array that ``torch.from_numpy`` refuses: widen it to
     float32 first, which is exact.)"""
-    dev = resolve_device(device)
-    params = LM(cfg, dev)
-    want = {"embed", "out_embed", "final_norm", "layers"} \
-        | ({"dense0"} if has_dense0(cfg) else set())
-    if set(tree) != want:
-        raise ValueError(f"params_from_jax: top-level keys {sorted(tree)}, "
-                         f"expected {sorted(want)}")
-
-    def put(dst: torch.Tensor, src, transpose: bool = False) -> None:
-        t = torch.from_numpy(np.array(src))            # a writable copy
-        t = t.T if transpose else t
-        if tuple(t.shape) != tuple(dst.shape):
-            raise ValueError(f"params_from_jax: shape {tuple(t.shape)} "
-                             f"where {tuple(dst.shape)} is expected")
-        dst.copy_(t)
-
-    def load(block: Block, lt: dict, i: int | None) -> None:
-        def leaf(a):
-            return a if i is None else a[i]
-
-        put(block.attn_norm, leaf(lt["attn_norm"]))
-        put(block.ffn_norm, leaf(lt["ffn_norm"]))
-        for name, src in lt["attn"].items():
-            dst = getattr(block.attn, name)
-            if isinstance(dst, nn.Linear):
-                put(dst.weight, leaf(src), transpose=True)
-            else:                                   # w_uk, w_uv, kv_norm
-                put(dst, leaf(src))
-        ffn = lt["ffn"]
-        if isinstance(block.ffn, MoE):
-            for name in ("router", "w1", "w3", "w2"):
-                put(getattr(block.ffn, name), leaf(ffn[name]))
-            if block.ffn.shared is not None:
-                for name in ("w1", "w2", "w3"):
-                    put(getattr(block.ffn.shared, name).weight,
-                        leaf(ffn["shared"][name]), transpose=True)
-        else:
-            for name in ("w1", "w2", "w3"):
-                put(getattr(block.ffn, name).weight, leaf(ffn[name]),
-                    transpose=True)
-
-    with torch.no_grad():
-        put(params.embed, tree["embed"])
-        put(params.out_embed, tree["out_embed"])
-        put(params.final_norm, tree["final_norm"])
-        for i, layer in enumerate(params.layers):
-            load(layer, tree["layers"], i)
-        if params.dense0 is not None:
-            load(params.dense0, tree["dense0"], None)
+    params = LM(cfg, resolve_device(device))
+    load_jax_layout(tree, dict(params.named_parameters()))
     return params
+
+
+def params_to_jax(params: LM, cfg: TransformerConfig) -> dict:
+    """The inverse of ``params_from_jax``: the JAX package's
+    ``init_params`` pytree as numpy arrays on the host, the layers
+    restacked, the projections transposed back, each leaf in its JAX
+    dtype (a bf16 leaf as an ``ml_dtypes.bfloat16`` array, the JAX
+    package's numpy type for it)."""
+    if len(params.layers) != n_scan_layers(cfg):
+        raise ValueError(f"params_to_jax: {len(params.layers)} layers where "
+                         f"{cfg.name} has {n_scan_layers(cfg)}")
+    tree = to_jax_layout(dict(params.named_parameters()), device="cpu")
+    return _map_leaves(tree, _host_numpy)
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    a = host_array(t.contiguous()).copy()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes      # the JAX package's bf16 numpy type
+        return a.view(ml_dtypes.bfloat16)
+    return a
+
+
+def _map_leaves(tree: dict, fn) -> dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}

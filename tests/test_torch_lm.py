@@ -59,6 +59,16 @@ ALL_ARCHS = {**ARCHS, "gemma3-27b": (gemma3_27b, j_gemma),
 UNPORTED_IDS = ("gin-tu", "sasrec", "bst", "fm", "wide-deep")
 
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """These tests hold the inference path, which runs without autograd
+    (``forward`` and ``decode_step`` are no-grad entry points): the
+    parameters carry gradients, so a layer called directly runs under
+    ``torch.no_grad`` here too."""
+    with torch.no_grad():
+        yield
+
 def _np(a) -> np.ndarray:
     """A JAX array as float32 numpy (bf16 widens exactly)."""
     a = np.asarray(a)
@@ -303,7 +313,7 @@ def test_init_params_is_seeded_and_counts_like_the_config():
     b = lm.init_params(cfg, seed=5, device="cpu")
     c = lm.init_params(cfg, seed=6, device="cpu")
     assert sum(p.numel() for p in a.parameters()) == cfg.param_count()
-    assert all(not p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())   # trainable
     assert torch.equal(a.layers[1].ffn.w3.weight, b.layers[1].ffn.w3.weight)
     assert not torch.equal(a.embed, c.embed)
     assert torch.count_nonzero(a.layers[0].attn_norm) == 0

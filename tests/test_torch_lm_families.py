@@ -54,6 +54,16 @@ SEQ = {"gemma3-27b": 40, "deepseek-v2-lite-16b": 12, "kimi-k2-1t-a32b": 12}
 STEPS = {"gemma3-27b": 24, "deepseek-v2-lite-16b": 8, "kimi-k2-1t-a32b": 8}
 
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """These tests hold the inference path, which runs without autograd
+    (``forward`` and ``decode_step`` are no-grad entry points): the
+    parameters carry gradients, so a layer called directly runs under
+    ``torch.no_grad`` here too."""
+    with torch.no_grad():
+        yield
+
 def _np(a) -> np.ndarray:
     """A JAX array as float32 numpy (bf16 widens exactly)."""
     a = np.asarray(a)
@@ -151,7 +161,7 @@ def test_large_draws_are_chunked_and_seeded(monkeypatch):
     a = ffn.draw((5, 4, 8), 0.5, torch.float32, torch.device("cpu"), gen)
     gen = torch.Generator().manual_seed(0)
     b = torch.randn((10, 4, 8), generator=gen)[:5] * 0.5
-    assert a.shape == (5, 4, 8) and not a.requires_grad
+    assert a.shape == (5, 4, 8) and a.requires_grad      # trainable
     torch.testing.assert_close(a.data, b, rtol=0, atol=0)
 
 

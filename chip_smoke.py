@@ -232,7 +232,39 @@ Each of phases 16-18 holds the allocator's peak under 70 GiB.
    router, the router's first moment non-zero, the peak under 70 GiB.
    Printed: ms a step. Then llama3-8b and deepseek-v2-lite-16b REDUCED
    in float32 train 3 steps on the card and on the CPU from the same
-   parameters and batches, held to the bounds below.
+   parameters and batches, held to the bounds below;
+22. the recsys family at the full CONFIGs of ``configs/fm.py``,
+   ``wide_deep.py``, ``sasrec.py`` and ``bst.py`` (float32), through
+   ``get_bundle`` and ``make_batch``, every ``RECSYS_SHAPES`` cell:
+   train_batch (65,536) 3 AdamW steps (lr 1e-3) on one repeated batch,
+   twice from one seed; serve_p99 (512) against the port on the CPU with
+   the same parameters; serve_bulk (262,144) examples/s; retrieval_cand
+   (1,000,448 candidates; bst 65,536 at a time) latency, its first 4,096
+   candidates' scores and top-10 against the CPU, fm's and sasrec's
+   ``[C, D] @ [D]`` shortcut against their full scoring (``forward``,
+   ``serve_step``) of all candidates. Then the SASRec -> Seismic bridge
+   (``examples/recsys_retrieval.py``) on sasrec's 1,000,448-row item
+   table: [relu(x); relu(-x)] sparsified to 16 non-zeros, ``build_index``
+   with the example's knobs and lam 20,000, the states of 256 histories
+   searched by ``search_batch`` at the port's defaults with launch counts
+   set to 0 just before and read just after (summary_dot and
+   gather_dot_cand asserted), held to the plain path (ids except at ties,
+   ``docs_evaluated`` equal), the top-10 overlap with brute force over the
+   dense table printed. Asserted besides: losses finite and the loss
+   after the steps below step 0's, the two runs' parameters bitwise
+   equal, every allocator peak under 70 GiB;
+23. gin-tu at its CONFIG (5 layers, d_hidden 64) over every
+   ``GNN_SHAPES`` cell through ``make_batch``: 3 AdamW steps (lr 3e-5)
+   twice from one seed (bitwise equal, the loss falls); full_graph_sm and
+   molecule held to the CPU (step 0's gradients, 3 steps' losses and
+   parameters); minibatch_lg (170,496 padded nodes, 168,960 edges, d_feat
+   602); ogb_products (2,449,408 nodes, 61,859,328 edges) one forward
+   without autograd, its aggregate at 4,096 sampled nodes held to float64
+   sums on the host, then the steps; then ``random_graph`` at
+   minibatch_lg's 232,965 nodes with a tenth of its edges (11,461,589,
+   mean in-degree 49, above the fanout of 15), ``CSRGraph`` and
+   ``sample_subgraph`` (1,024 seeds, fanout (15, 10)), and 3 steps twice
+   on that batch. Printed: ms a step, peak GiB, the host's seconds.
 
 The index and query widths come from ``configs/seismic_msmarco``
 (``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED`` is
@@ -289,7 +321,23 @@ Training, the card against the CPU (float32, TF32 off): losses within
 and all within ``lr * n / 4``. The two run the same float32 sums in
 another order, and AdamW's normalised step (about ``lr`` an element) can
 flip where a gradient is near zero; the CPU tests hold the port to the
-JAX package with the same bounds (``tests/test_torch_train.py``).
+JAX package with the same bounds (``tests/test_torch_train.py``). For
+gin-tu (phase 23) the leaves are small (molecule's second layer has 4,096
+weights, where 5 flipped elements pass 0.1 %), so step 0's gradients
+are held instead, per leaf within 2e-5 of its largest, beside the
+losses and the ``lr * n / 4`` bound.
+
+The recsys and GNN families (phases 22-23), float32, TF32 off: the card
+against the CPU ``allclose(rtol=1e-4, atol=1e-4)`` (the longest dot is
+wide-deep's first layer, 1,293 terms: two orders of a float32 sum differ
+by far less); fm's and sasrec's shortcut against their full scoring
+within ``atol`` 1e-5 (the same products, the pair term's sums in another
+order); top-10 ids equal except at ties; gin's aggregate against float64
+host sums within ``n * 2**-24 * sum|terms|`` for a node of in-degree n
+(float32 sums of n terms in any order); repeated runs bitwise: no atomic
+add on these paths (embedding lookups sort their ids in the backward,
+gin's sums run over edges sorted by destination and, backward, by
+source).
 """
 from __future__ import annotations
 
@@ -445,6 +493,26 @@ CLI_WIDE = ["--n-docs", "262144", "--dim", str(DIM), "--queries", "256"]
 # step in 4 microbatches; deepseek-v2-lite-16b on [2, 4096]
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 4, 4096, 4
 TRAIN_LR = 1e-3
+# phases 22-23: the recsys and GNN families at their configs' full widths
+# (configs/fm.py, wide_deep.py, sasrec.py, bst.py, gin_tu.py) over every
+# cell of RECSYS_SHAPES and GNN_SHAPES; 3 AdamW steps a training cell
+RECSYS_ARCHS = ("fm", "wide-deep", "sasrec", "bst")
+FAMILY_LR, FAMILY_STEPS = 1e-3, 3
+# GIN sums neighbours and readouts without a norm, so its logits grow with
+# degree and graph size: at lr 1e-3 AdamW's first step took molecule's loss
+# from 7.1 to 52.8 on the card (the JAX package's smoke checks finiteness
+# only); at 3e-5 each cell's loss falls step by step
+GNN_LR = 3e-5
+FAMILY_RTOL = FAMILY_ATOL = 1e-4    # the card against the CPU, float32
+FAMILY_SHORTCUT_ATOL = 1e-5         # fm's / sasrec's shortcut vs full scoring
+CPU_SLICE = 4096                    # retrieval candidates held to the CPU
+GNN_GRAD_ATOL = 2e-5                # of a leaf's largest gradient
+GNN_CHECK_NODES = 4096              # ogb_products' aggregate vs the host
+GRAPH_EDGE_CUT = 10                 # the sampled graph: a tenth of the edges
+# the SASRec -> Seismic bridge (examples/recsys_retrieval.py): its knobs,
+# lam raised with the item count (16 of 100 coordinates a row: ~160,000
+# postings a list, of which 20,000 keep the example's share)
+BRIDGE_USERS, BRIDGE_NNZ, BRIDGE_LAM = 256, 16, 20000
 
 
 def log(*parts) -> None:
@@ -3921,6 +3989,483 @@ def train_phases(torch, dev, seed, smi) -> None:
     log(f"  training phases 20-21 in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phases 22-23: the recsys and GNN families at their configs' full widths
+
+
+def family_module(cfg):
+    """The port's model module of a recsys or GNN config."""
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.recsys import bst, fm, sasrec, wide_deep
+    if cfg.family == "gnn":
+        return gin
+    return {"fm-2way": fm, "concat": wide_deep, "self-attn-seq": sasrec,
+            "transformer-seq": bst}[cfg.interaction]
+
+
+def to_cpu(cfg, params):
+    """A copy of a family's parameters on the CPU, through the JAX layout
+    (``params_to_jax`` then ``params_from_jax``)."""
+    mod = family_module(cfg)
+    return mod.params_from_jax(mod.params_to_jax(params, cfg), cfg,
+                               device="cpu")
+
+
+def family_train(torch, dev, bundle, cfg, dims, batch, seed, label, lr):
+    """FAMILY_STEPS AdamW steps at ``lr`` on one repeated batch from the
+    seed's draws, twice. Asserted: every loss finite, the loss after the steps
+    below step 0's, the two runs' parameters bitwise equal. Returns
+    (the second run's parameters, its losses, the loss after, ms of each
+    step)."""
+    import numpy as np
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    loss_fn = bundle.step(cfg, dims, "train")
+    step_fn = make_train_step(loss_fn, AdamWConfig(
+        lr=lr, warmup_steps=1, total_steps=100))
+    runs = []
+    for _ in range(2):
+        params = bundle.init(seed, cfg, dims, device=dev)
+        opt = init_opt_state(params)
+        losses, times = [], []
+        for _ in range(FAMILY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))      # a host read: the step's end
+            times.append((time.perf_counter() - t0) * 1e3)
+        del opt, m
+        with torch.no_grad():
+            after = float(loss_fn(params, batch))
+        if not (np.isfinite(losses + [after]).all() and after < losses[0]):
+            raise AssertionError(f"{label}: losses {losses}, then {after}: "
+                                 "not finite or not falling")
+        if runs:
+            same = all(torch.equal(a, b) for a, b in
+                       zip(runs[0], params.parameters()))
+            if not (same and losses == runs[1]):
+                raise AssertionError(f"{label}: two runs of {FAMILY_STEPS} "
+                                     "steps from one seed differ")
+            return params, losses, after, times
+        runs = [[p.detach().clone() for p in params.parameters()], losses]
+        del params
+        torch.cuda.empty_cache()
+
+
+def timed_ms(torch, fn, runs: int = 3) -> tuple[list[float], object]:
+    """Host-clock ms of ``fn()`` ended by a synchronize, ``runs`` times
+    (the first warm); returns (the times, the last result)."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def family_close(torch, label, got, want, rtol=FAMILY_RTOL,
+                 atol=FAMILY_ATOL) -> float:
+    """``allclose`` of the card's float32 output against the CPU's (or
+    another path's); returns the max abs difference, raises beyond."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, or not finite")
+    err = (got - want).abs()
+    if bool((err > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"{label}: max abs difference "
+                             f"{float(err.max()):.3e} beyond rtol={rtol} "
+                             f"atol={atol}")
+    return float(err.max())
+
+
+def topk_agree(torch, label, got, want, k: int = 10) -> int:
+    """The card's top-k ids of a score vector against the CPU's: at each
+    rank the CPU's score of the card's id equals the CPU's own (ids may
+    differ only at ties). Returns the ranks whose ids differ."""
+    want = want.double().cpu()
+    g = torch.topk(got.double().cpu(), k).indices
+    w = torch.topk(want, k).indices
+    if bool(((want[g] - want[w]).abs()
+             > FAMILY_ATOL + FAMILY_RTOL * want[w].abs()).any()):
+        raise AssertionError(f"{label}: top-{k} ids differ from the CPU's "
+                             "beyond ties")
+    return int((g != w).sum())
+
+
+def recsys_arch(torch, dev, seed, runtime, smi, arch) -> dict:
+    """Phase 22 for one recsys arch at its full CONFIG: train_batch (3
+    AdamW steps twice), serve_p99 (against the CPU), serve_bulk
+    (examples/s) and retrieval_cand (latency; a 4,096-candidate slice
+    against the CPU, fm's and sasrec's shortcut against the full
+    scoring); sasrec then runs the Seismic bridge. Returns the kernel
+    launches (the bridge's)."""
+    import numpy as np
+    from repro_torch.models.api import get_bundle
+    bundle = get_bundle(arch)
+    cfg, mod = bundle.config, family_module(bundle.config)
+    cells = {c.name: c for c in bundle.shapes}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_arch = time.perf_counter()
+
+    def batch_of(cell, seed_):
+        c = cells[cell]
+        return bundle.make_batch(np.random.default_rng(seed_), cfg, c.dims,
+                                 c.kind, device=dev)
+
+    train = batch_of("train_batch", seed)
+    params, losses, after, times = family_train(
+        torch, dev, bundle, cfg, {}, train, seed, f"22 {arch} train_batch",
+        FAMILY_LR)
+    n = sum(p.numel() for p in params.parameters())
+    b = cells["train_batch"].dims["batch"]
+    ms = float(np.mean(times[1:]))
+    log(f"[22 {arch}] {cfg.name}, {cfg.interaction}, embed_dim "
+        f"{cfg.embed_dim}: {n} parameters ({n * 4 / 2**30:.2f} GiB float32); "
+        f"train_batch [{b}]: {FAMILY_STEPS} AdamW steps (lr {FAMILY_LR}) on "
+        f"one repeated batch, losses {', '.join(f'{x:.6f}' for x in losses)}"
+        f", then {after:.6f}; two runs from seed {seed} bitwise equal; ms a "
+        f"step {', '.join(f'{t:.1f}' for t in times)} ({ms:.2f} after the "
+        f"warm step, {b / ms * 1e3:.0f} examples/s); card {smi}")
+    del train
+    cpu_params = to_cpu(cfg, params)
+
+    # serve_p99: the card against the port on the CPU, same parameters
+    serve = bundle.step(cfg, {}, "serve")
+    p99 = batch_of("serve_p99", seed + 1)
+    times, got = timed_ms(torch, lambda: serve(params, p99))
+    want = serve(cpu_params, {k: v.cpu() for k, v in p99.items()})
+    err = family_close(torch, f"22 {arch} serve_p99 card vs CPU", got, want)
+    log(f"  serve_p99 [{cells['serve_p99'].dims['batch']}]: ms "
+        f"{', '.join(f'{t:.2f}' for t in times)}; card vs CPU (float32, "
+        f"full width) max abs difference {err:.3e} (rtol {FAMILY_RTOL}, "
+        f"atol {FAMILY_ATOL})")
+    del p99, got, want
+
+    # serve_bulk: examples/s
+    bulk = batch_of("serve_bulk", seed + 2)
+    nb = cells["serve_bulk"].dims["batch"]
+    times, got = timed_ms(torch, lambda: serve(params, bulk))
+    ms = float(np.mean(times[1:]))
+    log(f"  serve_bulk [{nb}]: ms {', '.join(f'{t:.1f}' for t in times)}; "
+        f"{nb / ms * 1e3:.0f} examples/s after the warm run; output "
+        f"{tuple(got.shape)} finite {bool(torch.isfinite(got).all())}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"22 {arch} serve_bulk: not finite")
+    del bulk, got
+
+    # retrieval_cand: latency, a slice against the CPU, the shortcuts
+    retrieve = bundle.step(cfg, {}, "retrieval")
+    rb = batch_of("retrieval_cand", seed + 3)
+    times, scores = timed_ms(torch, lambda: retrieve(params, rb))
+    c = rb["cand"].shape[0]
+    ms = float(np.mean(times[1:]))
+    sl = {k: (v[:CPU_SLICE] if k == "cand" else v).cpu()
+          for k, v in rb.items()}
+    want = retrieve(cpu_params, sl)
+    err = family_close(torch, f"22 {arch} retrieval slice card vs CPU",
+                       scores[:CPU_SLICE], want)
+    ranks = topk_agree(torch, f"22 {arch} retrieval slice",
+                       scores[:CPU_SLICE], want)
+    top = torch.topk(scores, 10)
+    text = ""
+    with torch.no_grad():
+        if arch == "fm":
+            ids = torch.cat([rb["cand"][:, None],
+                             rb["ids"].expand(c, -1)], 1)
+            full = mod.forward(params, ids, rb["dense"].expand(c, -1), cfg)
+        elif arch == "sasrec":
+            full = mod.serve_step(params, dict(seq=rb["seq"],
+                                               cand=rb["cand"][None]), cfg)[0]
+        else:
+            full = None
+    if full is not None:
+        ferr = family_close(torch, f"22 {arch} shortcut vs full scoring",
+                            scores, full, atol=FAMILY_SHORTCUT_ATOL)
+        text = (f"; the [C, D] @ [D] shortcut against the full scoring of "
+                f"all {c} candidates max abs difference {ferr:.3e}")
+        del full
+    log(f"  retrieval_cand [{c} candidates]: ms "
+        f"{', '.join(f'{t:.1f}' for t in times)} ({ms:.1f} after the warm "
+        f"run, {c / ms * 1e3:.3g} candidates/s); top-10 scores "
+        f"{', '.join(f'{x:.4f}' for x in top.values.tolist())}; the first "
+        f"{CPU_SLICE} candidates against the CPU: max abs difference "
+        f"{err:.3e}, top-10 ranks with other ids (ties) {ranks}{text}")
+    del rb, scores, want, top
+    launches = {}
+    if arch == "sasrec":
+        launches = seismic_bridge(torch, dev, params, cfg, seed, runtime, smi)
+    peak = check_peak(torch, dev, f"22 {arch}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    log(f"  {arch}: peak device memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t_arch:.1f} s")
+    return launches
+
+
+def seismic_bridge(torch, dev, params, cfg, seed, runtime, smi) -> dict:
+    """The SASRec -> Seismic bridge (``examples/recsys_retrieval.py``) at
+    sasrec's full CONFIG: the padded item table as [relu(x); relu(-x)]
+    (d = 2 x embed_dim), ``sparsify`` to BRIDGE_NNZ non-zeros, indexed by
+    ``build_index`` with the example's knobs but lam BRIDGE_LAM; the last
+    states of BRIDGE_USERS histories, sparsified the same way, searched by
+    ``search_batch`` at the port's defaults with launch counts set to 0
+    just before and read just after (summary_dot and gather_dot_cand
+    asserted). Asserted: ids as the plain path's except at ties,
+    ``docs_evaluated`` equal. Printed: the top-10 overlap with brute force
+    over the dense table (no threshold). Returns the launches."""
+    import numpy as np
+    from repro_torch.core import (SearchParams, SeismicConfig, build_index,
+                                  search_batch)
+    from repro_torch.models.recsys import sasrec
+    from repro_torch.sparse.ops import sparsify
+
+    def nonneg(x):
+        return torch.cat([x.clamp_min(0), (-x).clamp_min(0)], dim=1)
+
+    table = params["item_emb"].detach()
+    t0 = time.perf_counter()
+    items = sparsify(nonneg(table), BRIDGE_NNZ)
+    icfg = SeismicConfig(lam=BRIDGE_LAM, beta=8, alpha=0.5, block_cap=32,
+                         summary_nnz=32)
+    index = build_index(items, icfg, list_chunk=16)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 22)
+    seqs = torch.from_numpy(rng.integers(
+        1, cfg.n_items, (BRIDGE_USERS, cfg.seq_len)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        states = sasrec.forward(params, seqs, cfg)[:, -1]
+    queries = sparsify(nonneg(states), BRIDGE_NNZ)
+    p = SearchParams()
+    search_batch(index, queries, p)                      # warm
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    got = search_batch(index, queries, p)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(runtime.LAUNCHES)
+    if not (launches["summary_dot"] and launches["gather_dot_cand"]):
+        raise AssertionError(f"22 bridge launched {launches}: summary_dot "
+                             "and gather_dot_cand expected")
+    ref = search_batch(index, queries, SearchParams(use_kernel=False,
+                                                    fuse_level=0))
+    if not torch.equal(got[2].to(torch.int64), ref[2].to(torch.int64)):
+        raise AssertionError("22 bridge: docs_evaluated differs from the "
+                             "plain path's")
+    rows = check_against_plain(torch, "22 bridge", (got[0], got[1]),
+                               (ref[0], ref[1]), p.k)
+    with torch.no_grad():
+        brute = torch.topk(states @ table.T, p.k).indices
+    overlap = np.mean([len(set(a) & set(b)) / p.k for a, b in
+                       zip(got[1].tolist(), brute.tolist())])
+    log(f"  [22 bridge] sasrec's item table {tuple(table.shape)} as "
+        f"[relu(x); relu(-x)], {BRIDGE_NNZ} non-zeros a row, indexed in "
+        f"{t_build:.1f} s (lam {BRIDGE_LAM}, beta 8, alpha 0.5, block_cap "
+        f"32, summary_nnz 32: {icfg.n_blocks} blocks a list); "
+        f"{BRIDGE_USERS} user states searched at the port's defaults in "
+        f"{ms:.2f} ms; launches { {k: v for k, v in launches.items() if v} };"
+        f" ids as the plain path's (rows differing at ties {rows}), "
+        f"docs_evaluated equal (mean "
+        f"{float(got[2].float().mean()):.1f} of {table.shape[0]} items); "
+        f"top-10 overlap with brute force over the dense table "
+        f"{overlap:.4f}; card {smi}")
+    del index, items, queries, got, ref, brute, states
+    return launches
+
+
+def recsys_phase(torch, dev, seed, runtime, smi) -> dict:
+    """Phase 22: fm, wide-deep, sasrec and bst at their full CONFIGs.
+    Returns the kernel launches (the bridge's)."""
+    t0 = time.perf_counter()
+    launches = {}
+    for arch in RECSYS_ARCHS:
+        for name, n in recsys_arch(torch, dev, seed, runtime, smi,
+                                   arch).items():
+            launches[name] = launches.get(name, 0) + n
+    log(f"  phase 22 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def aggregate_check(torch, dev, gin, feats, edges, seed) -> str:
+    """gin's aggregate of the features at GNN_CHECK_NODES sampled nodes
+    against float64 sums on the host: each within ``n * 2**-24 *
+    sum|terms|`` (float32 sums of n terms, in any order)."""
+    import numpy as np
+    n = feats.shape[0]
+    with torch.no_grad():
+        agg = gin._aggregate(feats, edges, n)
+    nodes = np.random.default_rng(seed).choice(n, GNN_CHECK_NODES,
+                                               replace=False)
+    e = edges.cpu().numpy()
+    picked = np.zeros(n, bool)
+    picked[nodes] = True
+    keep = picked[e[:, 1]]
+    src, dst = e[keep, 0], e[keep, 1]
+    f = feats.cpu().numpy().astype(np.float64)
+    pos = np.full(n, -1)
+    pos[nodes] = np.arange(nodes.size)
+    want = np.zeros((nodes.size, f.shape[1]))
+    mass = np.zeros_like(want)
+    np.add.at(want, pos[dst], f[src])
+    np.add.at(mass, pos[dst], np.abs(f[src]))
+    deg = np.bincount(pos[dst], minlength=nodes.size)[:, None]
+    got = agg[torch.from_numpy(nodes).to(dev)].double().cpu().numpy()
+    err = np.abs(got - want)
+    bound = deg * 2.0 ** -24 * mass + 1e-30
+    if (err > bound).any():
+        raise AssertionError(f"23 ogb_products aggregate: "
+                             f"{int((err > bound).sum())} elements beyond "
+                             "n 2^-24 sum|terms|")
+    return (f"the aggregate at {nodes.size} sampled nodes (in-degree "
+            f"{int(deg.min())}-{int(deg.max())}) against float64 sums on the "
+            f"host: max abs difference {err.max():.3e}, at most "
+            f"{float((err / bound).max()):.3f} of the bound n 2^-24 "
+            "sum|terms|")
+
+
+def gnn_card_vs_cpu(torch, bundle, cfg, dims, batch, params, label) -> str:
+    """Step 0's gradients of the card and the CPU from the same
+    parameters and batch, per leaf within ``GNN_GRAD_ATOL`` of its
+    largest element; then FAMILY_STEPS steps on each, losses within
+    ``rtol`` 1e-4 and every parameter within ``lr * n / 4`` (GNN_LR).
+    ``params`` are the parameters as drawn (not stepped)."""
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    loss_fn = bundle.step(cfg, dims, "train")
+    cpu_params = to_cpu(cfg, params)           # before the card's steps
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    sides = {}
+    for where, p, b in (("card", params, batch),
+                        ("cpu", cpu_params, cpu_batch)):
+        named = dict(p.named_parameters())
+        grads = torch.autograd.grad(loss_fn(p, b), list(named.values()))
+        grads = [g.cpu() for g in grads]
+        step_fn = make_train_step(loss_fn, AdamWConfig(
+            lr=GNN_LR, warmup_steps=1, total_steps=100))
+        opt = init_opt_state(p)
+        losses = []
+        for _ in range(FAMILY_STEPS):
+            p, opt, m = step_fn(p, opt, b)
+            losses.append(float(m["loss"]))
+        sides[where] = (grads, losses, [x.detach().cpu()
+                                        for x in p.parameters()])
+    (gc_, lc, pc), (gg, lg, pg) = sides["cpu"], sides["card"]
+    gerr = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(gg, gc_))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    worst = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
+    if gerr > GNN_GRAD_ATOL or rel > 1e-4 \
+            or worst > 0.25 * GNN_LR * FAMILY_STEPS:
+        raise AssertionError(f"{label}: card and CPU differ beyond the bound "
+                             f"(gradients {gerr:.2e} of the leaf's largest, "
+                             f"losses {rel:.2e}, parameters {worst:.2e})")
+    return (f"card vs CPU: step 0's gradients within {gerr:.2e} of each "
+            f"leaf's largest, losses card {', '.join(f'{x:.6f}' for x in lg)}"
+            f" CPU {', '.join(f'{x:.6f}' for x in lc)} (max rel {rel:.2e}), "
+            f"parameters max |diff| {worst:.2e} = "
+            f"{worst / GNN_LR:.4f} lr")
+
+
+def gnn_phase(torch, dev, seed, smi) -> None:
+    """Phase 23: gin-tu at its CONFIG over the four GNN_SHAPES cells
+    through ``make_batch`` (3 steps twice, bitwise; full_graph_sm and
+    molecule against the CPU; ogb_products' forward and its aggregate
+    against float64 host sums), then one step on a batch drawn by
+    ``sample_subgraph`` from ``random_graph`` at minibatch_lg's nodes
+    with a tenth of its edges."""
+    import numpy as np
+    from repro_torch.data.pipeline import random_graph
+    from repro_torch.models.api import get_bundle
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.gnn.sampler import CSRGraph, sample_subgraph
+    bundle = get_bundle("gin-tu")
+    cfg = bundle.config
+    t_phase = time.perf_counter()
+    for cell in bundle.shapes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_cell = time.perf_counter()
+        dims = cell.dims
+        t0 = time.perf_counter()
+        batch = bundle.make_batch(np.random.default_rng(seed), cfg, dims,
+                                  cell.kind, device=dev)
+        t_batch = time.perf_counter() - t0
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        extra = ""
+        if cell.name == "ogb_products":
+            params = bundle.init(seed, cfg, dims, device=dev)
+            with torch.no_grad():
+                times, h = timed_ms(torch, lambda: gin.forward(
+                    params, batch["feats"], batch["edges"], cfg), runs=2)
+            agg = aggregate_check(torch, dev, gin, batch["feats"],
+                                  batch["edges"], seed)
+            extra = (f"; forward (no autograd) ms "
+                     f"{', '.join(f'{t:.1f}' for t in times)}; {agg}")
+            del params, h
+        if cell.name in ("full_graph_sm", "molecule"):
+            params = bundle.init(seed, cfg, dims, device=dev)
+            extra = "; " + gnn_card_vs_cpu(torch, bundle, cfg, dims, batch,
+                                           params, f"23 gin-tu {cell.name}")
+            del params
+        params, losses, after, times = family_train(
+            torch, dev, bundle, cfg, dims, batch, seed,
+            f"23 gin-tu {cell.name}", GNN_LR)
+        peak = check_peak(torch, dev, f"23 gin-tu {cell.name}")
+        log(f"[23 gin-tu {cell.name}] {cfg.n_layers} layers, d_hidden "
+            f"{cfg.d_hidden}, batch {shapes} (made in {t_batch:.1f} s): "
+            f"{FAMILY_STEPS} AdamW steps (lr {GNN_LR}), losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}, then {after:.6f}; "
+            f"two runs bitwise equal; ms a step "
+            f"{', '.join(f'{t:.1f}' for t in times)}; peak device memory "
+            f"{peak:.2f} GiB{extra}; {time.perf_counter() - t_cell:.1f} s; "
+            f"card {smi}")
+        del params, batch
+    # a batch drawn by the sampler from a community graph
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    d = {c.name: c.dims for c in bundle.shapes}["minibatch_lg"]
+    n_edges = d["n_edges"] // GRAPH_EDGE_CUT
+    t0 = time.perf_counter()
+    g = random_graph(d["n_nodes"], n_edges, d["d_feat"], d["n_classes"],
+                     seed=seed)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = CSRGraph(d["n_nodes"] + 1, g["edges"].astype(np.int64))
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(d["n_nodes"], d["batch_nodes"], replace=False)
+    sub = sample_subgraph(rng, csr, seeds, tuple(d["fanout"]), g["feats"],
+                          g["labels"])
+    t_sample = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in sub.items()}
+    real_edges = int((sub["edges"][:, 0] != sub["feats"].shape[0] - 1).sum())
+    params, losses, after, times = family_train(
+        torch, dev, bundle, cfg, d, batch, seed, "23 gin-tu sampled batch",
+        GNN_LR)
+    peak = check_peak(torch, dev, "23 gin-tu sampled batch")
+    log(f"[23 gin-tu sampled] random_graph({d['n_nodes']} nodes, {n_edges} "
+        f"edges: a tenth of minibatch_lg's, mean in-degree "
+        f"{n_edges / d['n_nodes']:.1f}) in {t_graph:.1f} s; CSRGraph and "
+        f"sample_subgraph ({d['batch_nodes']} seeds, fanout "
+        f"{tuple(d['fanout'])}) in {t_sample:.1f} s: "
+        f"{ {k: v.shape for k, v in sub.items()} }, {real_edges} sampled "
+        f"edges; {FAMILY_STEPS} steps twice bitwise, losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}, then {after:.6f}; ms a "
+        f"step {', '.join(f'{t:.1f}' for t in times)}; peak {peak:.2f} GiB")
+    del params, batch, g, csr, sub
+    torch.cuda.empty_cache()
+    log(f"  phase 23 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def family_phases(torch, dev, seed, runtime, smi) -> dict:
+    """Phases 22 and 23; returns phase 22's kernel launches."""
+    launches = recsys_phase(torch, dev, seed, runtime, smi)
+    gnn_phase(torch, dev, seed, smi)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1 << 20,
@@ -4073,6 +4618,12 @@ def main() -> int:
 
     # ---- 20-21. LM training on one card
     train_phases(torch, dev, args.seed, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 22-23. the recsys and GNN families at full width
+    families = family_phases(torch, dev, args.seed, runtime, smi)
+    for rec in record:
+        rec["launches"] += families.get(rec["name"], 0)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's LM phases alone, on one GPU.
+"""chip_smoke.py's LM and model-family phases alone, on one GPU.
 
-    python3 scripts/lm_phases.py [--train]
+    python3 scripts/lm_phases.py [--train | --families]
 
 Run from the repository root. It builds the CUDA kernels, prints
 flash_attention's ptxas report, then runs chip_smoke.py's phases 9-11
@@ -11,7 +11,10 @@ gemma3-27b's and kimi-k2's shapes; llama3-8b prefill and serving),
 serving at full width) and 20-21 (llama3-8b and deepseek-v2-lite-16b
 training at full width, and the card against the CPU), with TF32 off as
 the smoke sets it, and prints flash_attention's records. With
-``--train`` it runs phases 20-21 alone; with ``--profile`` it then
+``--train`` it runs phases 20-21 alone, with ``--families`` phases 22-23
+alone (the recsys and GNN families at full width, and the SASRec ->
+Seismic bridge, which launches summary_dot and gather_dot_cand); with
+``--profile`` it then
 traces one of phase 20's train steps (llama3-8b, 4 layers, [4, 4096] in
 4 microbatches, after a warm step) under ``torch.profiler`` and prints
 the device time by kernel, grouped, and the device's busy share of the
@@ -89,6 +92,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="phases 20-21 (training) alone")
+    ap.add_argument("--families", action="store_true",
+                    help="phases 22-23 (recsys and GNN families) alone")
     ap.add_argument("--profile", action="store_true",
                     help="then trace one phase-20 train step")
     args = ap.parse_args()
@@ -113,6 +118,12 @@ def main() -> int:
             cs.log(f"  flash_attention: {line.strip()}")
     cs.log(f"build {time.perf_counter() - t0:.1f} s")
     smi = cs.nvidia_smi_name_power()
+    if args.families:
+        launches = cs.family_phases(torch, dev, 0, runtime, smi)
+        cs.log("phases 22-23 launched "
+               f"{ {k: v for k, v in launches.items() if v} }")
+        cs.log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if not args.train:
         records = cs.lm_phases(torch, dev, 0, runtime)
         torch.cuda.empty_cache()

@@ -1,12 +1,15 @@
 """Architecture configs of the ported model families.
 
-A copy of ``TransformerConfig``, ``ShapeCell`` and ``lm_shapes`` of the
+A copy of ``TransformerConfig``, ``GNNConfig``, ``RecsysConfig``,
+``ShapeCell``, ``lm_shapes``, ``GNN_SHAPES`` and ``RECSYS_SHAPES`` of the
 JAX package's ``configs/base.py`` (same field names, defaults and
 ``param_count``), kept here so that the port imports nothing of it.
-``get_arch`` knows only the ids whose model the port runs. ``remat``
-sets what the training path recomputes (``lm.forward_train``); the
-fields ``unroll_layers``, ``seq_parallel`` and ``sharding_mode`` are
-kept for parity and have no effect in the port.
+``ARCH_REGISTRY`` holds the JAX package's eleven ids. ``remat`` sets what
+the training path recomputes (``lm.forward_train``); the fields
+``unroll_layers``, ``seq_parallel``, ``sharding_mode`` and GNNConfig's
+``aggregate_mode`` (which selects a sharded layer only under a mesh) are
+kept for parity and have no effect in the port, nor ``learn_eps``, which
+the JAX forward does not read either.
 """
 from __future__ import annotations
 
@@ -99,15 +102,63 @@ class TransformerConfig:
         return full - all_experts + active
 
 
-# id -> module; modules define CONFIG, SHAPES, REDUCED. Only the ids whose
-# model the port runs: the five LM archs (the GNN and recsys families and
-# the retrieval config are not registered).
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"
+    learn_eps: bool = True
+    n_classes: int = 16
+    mlp_layers: int = 2
+    dtype: str = "float32"
+    aggregate_mode: str = "psum"     # "psum" | "shard": mesh layouts only
+
+    @property
+    def family(self) -> str:
+        return "gnn"
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    interaction: str                 # "fm-2way" | "concat" | "self-attn-seq" | "transformer-seq"
+    embed_dim: int
+    n_sparse: int = 0                # categorical fields (fm / wide-deep)
+    table_rows: tuple = ()           # per-field vocab sizes
+    n_dense_feat: int = 0
+    mlp_dims: tuple = ()
+    # sequence models (sasrec / bst)
+    seq_len: int = 0
+    n_items: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    dtype: str = "float32"
+
+    @property
+    def family(self) -> str:
+        return "recsys"
+
+    def total_rows(self) -> int:
+        return sum(self.table_rows) + self.n_items
+
+
+ArchConfig = TransformerConfig | GNNConfig | RecsysConfig
+
+# id -> module; modules define CONFIG, SHAPES, REDUCED: the JAX package's
+# eleven ids, the paper's own system as a selectable arch among them
 ARCH_REGISTRY: dict[str, str] = {
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "gin-tu": "repro_torch.configs.gin_tu",
+    "sasrec": "repro_torch.configs.sasrec",
+    "bst": "repro_torch.configs.bst",
+    "fm": "repro_torch.configs.fm",
+    "wide-deep": "repro_torch.configs.wide_deep",
+    "seismic-msmarco": "repro_torch.configs.seismic_msmarco",
 }
 
 
@@ -116,10 +167,9 @@ def list_archs() -> list[str]:
 
 
 def get_arch(arch_id: str):
-    """The config module of a ported arch id (CONFIG, SHAPES, REDUCED)."""
+    """The config module of an arch id (CONFIG, SHAPES, REDUCED)."""
     if arch_id not in ARCH_REGISTRY:
-        raise KeyError(f"arch '{arch_id}' is not ported; ported: "
-                       f"{list_archs()}")
+        raise KeyError(f"unknown arch '{arch_id}'; known: {list_archs()}")
     return importlib.import_module(ARCH_REGISTRY[arch_id])
 
 
@@ -136,3 +186,25 @@ def lm_shapes(long_ok: bool, why_not: str = "") -> list[ShapeCell]:
     cells.append(ShapeCell("long_500k", "decode",
                            dict(seq_len=524288, global_batch=1), skip=skip))
     return cells
+
+
+GNN_SHAPES = [
+    ShapeCell("full_graph_sm", "train",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7)),
+    ShapeCell("minibatch_lg", "train",
+              dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                   fanout=(15, 10), d_feat=602, n_classes=41)),
+    ShapeCell("ogb_products", "train",
+              dict(n_nodes=2449029, n_edges=61859140, d_feat=100,
+                   n_classes=47)),
+    ShapeCell("molecule", "train",
+              dict(n_nodes=30, n_edges=64, batch=128, d_feat=16,
+                   n_classes=2)),
+]
+
+RECSYS_SHAPES = [
+    ShapeCell("train_batch", "train", dict(batch=65536)),
+    ShapeCell("serve_p99", "serve", dict(batch=512)),
+    ShapeCell("serve_bulk", "serve", dict(batch=262144)),
+    ShapeCell("retrieval_cand", "retrieval", dict(batch=1, n_candidates=1000000)),
+]

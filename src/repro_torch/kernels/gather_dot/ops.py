@@ -8,6 +8,8 @@
                            sentinel ids (>= n_docs) score -inf, and a
                            tile of all-sentinel ids is skipped whole
 ``cand_tiles_processed``   which tiles the candidate kernel processes
+``gather_dot``             single-query [N, nnz] compatibility API: the
+                           batched kernel with Q = 1
 
 Coordinates may be int32 or uint16 (a compact forward index); values
 f32, bf16, or u8 with per-row (scale, zero). CPU tensors take the plain
@@ -21,7 +23,8 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
-                                                gather_dot_cand_ref)
+                                                gather_dot_cand_ref,
+                                                gather_dot_ref)
 from repro_torch.kernels.runtime import require
 
 # The candidate kernel's tile, defined here only: one thread block (256
@@ -165,6 +168,17 @@ def cand_tiles_processed(cand: torch.Tensor, n_docs: int,
     return live.any(dim=3).any(dim=1)
 
 
-__all__ = ["gather_dot_batch", "gather_dot_cand_batch",
-           "cand_tiles_processed", "gather_dot_batch_ref",
+def gather_dot(q_dense: torch.Tensor, coords: torch.Tensor,
+               vals: torch.Tensor) -> torch.Tensor:
+    """Single-query sparse·dense scoring [N, nnz] -> [N] (pre-batch
+    compatibility): ``gather_dot_batch`` with Q = 1."""
+    require(q_dense.dim() == 1 and coords.dim() == 2,
+            f"gather_dot: q_dense [d] and coords [N, nnz] expected, got "
+            f"{tuple(q_dense.shape)} and {tuple(coords.shape)}")
+    return gather_dot_batch(q_dense[None].contiguous(), coords[None],
+                            vals[None])[0]
+
+
+__all__ = ["gather_dot", "gather_dot_batch", "gather_dot_cand_batch",
+           "cand_tiles_processed", "gather_dot_ref", "gather_dot_batch_ref",
            "gather_dot_cand_ref", "CAND_TILE_Q", "CAND_TILE_N"]

@@ -20,6 +20,12 @@ def _dot(q_dense, coords, vals, scale, zero):
     return (gathered * v).sum(dim=-1)
 
 
+def gather_dot_ref(q_dense: torch.Tensor, coords: torch.Tensor,
+                   vals: torch.Tensor) -> torch.Tensor:
+    """Single query: scores[n] = sum_j q_dense[coords[n, j]] * vals[n, j]."""
+    return (q_dense[widen_coords(coords)] * vals.to(q_dense.dtype)).sum(dim=-1)
+
+
 def gather_dot_batch_ref(q_dense: torch.Tensor, coords: torch.Tensor,
                          vals: torch.Tensor, scale: torch.Tensor | None = None,
                          zero: torch.Tensor | None = None) -> torch.Tensor:

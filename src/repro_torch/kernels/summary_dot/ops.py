@@ -2,6 +2,8 @@
 
 ``summary_dot_batch``  [Q, L, S] quantized summaries -> [Q, L] routing
                        scores, one launch for the whole query batch.
+``summary_dot``        single-query [cut, nb, S] compatibility API: the
+                       batched kernel with Q = 1.
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
 kernel or raise. The TPU wrapper's padding to (8, 128) tiles is gone:
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.kernels import row_tiles, runtime
 from repro_torch.kernels.runtime import require
-from repro_torch.kernels.summary_dot.ref import summary_dot_batch_ref
+from repro_torch.kernels.summary_dot.ref import (summary_dot_batch_ref,
+                                                 summary_dot_ref)
 
 _ready = False
 
@@ -93,4 +96,22 @@ def summary_dot_batch(q_dense: torch.Tensor, sum_coords: torch.Tensor,
     return out
 
 
-__all__ = ["summary_dot_batch", "summary_dot_batch_ref", "geometry"]
+def summary_dot(q_dense: torch.Tensor, sum_coords: torch.Tensor,
+                sum_q: torch.Tensor, sum_scale: torch.Tensor,
+                sum_zero: torch.Tensor) -> torch.Tensor:
+    """Single-query routing scores [cut, nb] (pre-batch compatibility):
+    ``summary_dot_batch`` with Q = 1."""
+    require(q_dense.dim() == 1 and sum_coords.dim() == 3,
+            f"summary_dot: q_dense [d] and sum_coords [cut, nb, S] expected, "
+            f"got {tuple(q_dense.shape)} and {tuple(sum_coords.shape)}")
+    cut, nb, s = sum_coords.shape
+    r = summary_dot_batch(q_dense[None].contiguous(),
+                          sum_coords.reshape(1, cut * nb, s),
+                          sum_q.reshape(1, cut * nb, s),
+                          sum_scale.reshape(1, cut * nb),
+                          sum_zero.reshape(1, cut * nb))
+    return r[0].reshape(cut, nb)
+
+
+__all__ = ["summary_dot", "summary_dot_batch", "summary_dot_batch_ref",
+           "summary_dot_ref", "geometry"]

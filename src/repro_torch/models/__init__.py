@@ -1,1 +1,2 @@
-"""Models of the port: the decoder-only LM family (``transformer``)."""
+"""Models of the port: the decoder-only LM family (``transformer``), the
+GNN family (``gnn``) and the recsys family (``recsys``)."""

@@ -26,29 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import TransformerConfig
-
-# float32 values drawn at a time: bounds the scratch of a large draw
-_DRAW_ELEMS = 1 << 26
-
-
-def draw(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
-         device: torch.device, generator: torch.Generator | None,
-         ) -> nn.Parameter:
-    """A parameter of ``shape`` drawn as the JAX package draws
-    it: float32 standard normal times ``scale``, then cast; drawn along
-    the first axis in chunks of at most ``_DRAW_ELEMS`` float32 values
-    (an expert stack of kimi-k2 is 22.5 GB in float32). Without a
-    generator it is left uninitialised (to be loaded)."""
-    w = torch.empty(shape, dtype=dtype, device=device)
-    if generator is not None:
-        row = math.prod(shape[1:])
-        step = max(1, _DRAW_ELEMS // max(row, 1))
-        for i in range(0, shape[0], step):
-            n = min(step, shape[0] - i)
-            w[i:i + n].copy_(torch.randn(
-                (n, *shape[1:]), generator=generator, device=device,
-                dtype=torch.float32).mul_(scale))
-    return nn.Parameter(w)
+from repro_torch.models.common import draw
 
 
 def linear(d_in: int, d_out: int, dtype: torch.dtype, device: torch.device,

@@ -31,12 +31,16 @@ try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
     from repro.kernels.flash_attention import flash_attention as jax_flash
     from repro.kernels.gather_dot.ops import \
         cand_tiles_processed as jax_tiles
+    from repro.kernels.gather_dot.ops import gather_dot as jax_gather_dot_one
     from repro.kernels.gather_dot.ops import gather_dot_batch as jax_gather_dot
+    from repro.kernels.gather_dot.ref import gather_dot_ref as jax_gather_ref
     from repro.kernels.gather_dot.ops import gather_dot_cand_batch as jax_cand
     from repro.kernels.refine_fused import refine_round_batch as jax_refine
     from repro.kernels.router_fused import router_flat_batch as jax_flat
     from repro.kernels.router_fused import router_hier_batch as jax_hier
+    from repro.kernels.summary_dot.ops import summary_dot as jax_summary_one
     from repro.kernels.summary_dot.ops import summary_dot_batch as jax_summary
+    from repro.kernels.summary_dot.ref import summary_dot_ref as jax_summary_ref
 except ModuleNotFoundError:
     jnp = None
 from repro_torch.kernels import row_tiles, runtime
@@ -47,10 +51,11 @@ from repro_torch.kernels.flash_attention.ops import (TMA_BOX_COLS, TMA_ROWS,
                                                      wgmma_config)
 from repro_torch.kernels.gather_dot.ops import (CAND_TILE_N, CAND_TILE_Q,
                                                 cand_tiles_processed,
-                                                gather_dot_batch,
+                                                gather_dot, gather_dot_batch,
                                                 gather_dot_cand_batch)
 from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
-                                                gather_dot_cand_ref)
+                                                gather_dot_cand_ref,
+                                                gather_dot_ref)
 from repro_torch.kernels.refine_fused.ops import refine_round_batch
 from repro_torch.kernels.refine_fused.ref import refine_round_ref
 from repro_torch.core.build import sample_rep_pos
@@ -62,8 +67,9 @@ from repro_torch.kernels.router_fused.ops import (flat_geometry,
 from repro_torch.kernels.router_fused.ref import (router_flat_ref,
                                                   router_hier_ref)
 from repro_torch.kernels.summary_dot.ops import geometry as summary_geometry
-from repro_torch.kernels.summary_dot.ops import summary_dot_batch
-from repro_torch.kernels.summary_dot.ref import summary_dot_batch_ref
+from repro_torch.kernels.summary_dot.ops import summary_dot, summary_dot_batch
+from repro_torch.kernels.summary_dot.ref import (summary_dot_batch_ref,
+                                                 summary_dot_ref)
 from repro_torch.sparse.ops import take_rows
 from repro_torch.sparse.quant import quantize_u8
 
@@ -167,6 +173,41 @@ def test_summary_dot_plain_matches_pallas(qn, l, s, d):
                        jnp.asarray(scale), jnp.asarray(zero))
     got = summary_dot_batch(_t(q), _t(coords), _t(u8), _t(scale), _t(zero))
     assert_scores(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cut,nb,s,d", [(8, 12, 32, 1024), (1, 4, 8, 128),
+                                        (16, 20, 64, 4096)])
+def test_summary_dot_single_query_shim_matches_jax(cut, nb, s, d):
+    """``summary_dot`` (Q = 1 through the batched wrapper) and
+    ``summary_dot_ref`` against the JAX package's shim and oracle, on the
+    JAX sweep's shapes (tests/test_kernels.py)."""
+    q, coords, u8, scale, zero = summary_inputs(1, cut * nb, s, d,
+                                                seed=cut * nb)
+    args = (q[0], coords.reshape(cut, nb, s), u8.reshape(cut, nb, s),
+            scale.reshape(cut, nb), zero.reshape(cut, nb))
+    want = jax_summary_one(*map(jnp.asarray, args))
+    assert_scores(summary_dot(*map(_t, args)).numpy(), np.asarray(want))
+    assert_scores(summary_dot_ref(*map(_t, args)).numpy(),
+                  np.asarray(jax_summary_ref(*map(jnp.asarray, args))))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("n,nnz,d", [(128, 16, 512), (256, 96, 4096),
+                                     (384, 33, 1000), (5, 8, 64)])
+def test_gather_dot_single_query_shim_matches_jax(n, nnz, d, kind):
+    """``gather_dot`` (Q = 1 through the batched wrapper) and
+    ``gather_dot_ref`` against the JAX package's shim and oracle, on the
+    JAX sweep's shapes, float32 queries."""
+    q = np.random.default_rng(n + nnz).lognormal(0, 1, d).astype(np.float32)
+    coords, vals, _, _ = row_inputs((n, nnz), d, kind, seed=n)
+    jc, jv, _, _ = as_jax(coords, vals, "bf16" if kind == "bf16" else None,
+                          None)
+    tc, tv, _, _ = as_torch(coords, vals, "bf16" if kind == "bf16" else None,
+                            None)
+    want = jax_gather_dot_one(jnp.asarray(q), jc, jv)
+    assert_scores(gather_dot(_t(q), tc, tv).numpy(), np.asarray(want))
+    assert_scores(gather_dot_ref(_t(q), tc, tv).numpy(),
+                  np.asarray(jax_gather_ref(jnp.asarray(q), jc, jv)))
 
 
 @pytest.mark.parametrize("kind", VAL_KINDS)
@@ -603,6 +644,28 @@ def test_summary_dot_kernel_matches_plain_on_card():
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["summary_dot"] == before + 1
     assert_scores(got.cpu().numpy(), summary_dot_batch_ref(*args).cpu())
+
+
+@pytest.mark.gpu
+def test_single_query_shims_launch_the_batched_kernels_on_card():
+    """``summary_dot`` and ``gather_dot`` with Q = 1 launch kernels a and
+    b once each and agree with their single-query plain versions."""
+    dev = _cuda()
+    q, coords, u8, scale, zero = summary_inputs(1, 12 * 40, 96, 30522)
+    args = [_t(q[0]).to(dev)] + [_t(x.reshape(12, 40, *x.shape[2:])).to(dev)
+                                 for x in (coords, u8, scale, zero)]
+    before = dict(runtime.LAUNCHES)
+    got = summary_dot(*args)
+    q32 = _t(np.random.default_rng(4).lognormal(0, 1, 30522)
+             .astype(np.float32)).to(dev)
+    rc, rv, _, _ = as_torch(*row_inputs((700, 128), 30522, "f32"))
+    scores = gather_dot(q32, rc.to(dev), rv.to(dev))
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["summary_dot"] == before["summary_dot"] + 1
+    assert runtime.LAUNCHES["gather_dot"] == before["gather_dot"] + 1
+    assert_scores(got.cpu().numpy(), summary_dot_ref(*args).cpu())
+    assert_scores(scores.cpu().numpy(),
+                  gather_dot_ref(q32, rc.to(dev), rv.to(dev)).cpu())
 
 
 @pytest.mark.gpu

@@ -241,6 +241,16 @@ def test_bundle_steps_match_jax():
 
 @pytest.mark.parametrize("arch", OTHER_IDS)
 def test_bundle_of_an_unported_family_raises(arch):
-    assert j_get_bundle(arch).family in ("gnn", "recsys")
-    with pytest.raises(KeyError, match="not ported"):
-        get_bundle(arch)
+    """The GNN and recsys ids (ported since the twelfth slice): the
+    bundle has JAX's family, configs and shape cells; an unknown id
+    raises ``KeyError``."""
+    mine, theirs = get_bundle(arch), j_get_bundle(arch)
+    assert mine.family == theirs.family and mine.family in ("gnn", "recsys")
+    assert dataclasses.asdict(mine.config) == dataclasses.asdict(
+        theirs.config)
+    assert dataclasses.asdict(mine.reduced) == dataclasses.asdict(
+        theirs.reduced)
+    assert [(c.name, c.dims) for c in mine.shapes] \
+        == [(c.name, c.dims) for c in theirs.shapes]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_bundle(arch + "-x")

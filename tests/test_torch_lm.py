@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from repro.configs import deepseek_v2_lite_16b as j_deepseek
 from repro.configs import gemma3_27b as j_gemma
 from repro.configs import get_arch as j_get_arch
+from repro.configs import list_archs as j_list_archs
 from repro.configs import kimi_k2_1t_a32b as j_kimi
 from repro.configs import llama3_8b as j_llama
 from repro.configs import phi3_medium_14b as j_phi3
@@ -111,20 +112,28 @@ def test_configs_match_jax(arch):
 
 
 def test_llama3_8b_size_and_unported_arch_ids():
-    """The port registers the JAX package's five LM ids; the GNN and
-    recsys ids (registered there) raise here, naming the five."""
+    """The port registers the JAX package's eleven ids (the five LM ones
+    among them); an unknown id raises, naming them."""
     assert llama3_8b.CONFIG.param_count() == 8_030_261_248
-    assert list_archs() == sorted(ALL_ARCHS)
-    assert {j_get_arch(a).CONFIG.family for a in ALL_ARCHS} == {"lm"}
-    with pytest.raises(KeyError, match="deepseek.*gemma3.*kimi.*llama3.*phi3"):
-        get_arch("gin-tu")
+    assert list_archs() == j_list_archs()
+    assert {get_arch(a).CONFIG.family for a in ALL_ARCHS} == {"lm"}
+    with pytest.raises(KeyError, match="bst.*deepseek.*gin-tu.*seismic"):
+        get_arch("gin")
 
 
 @pytest.mark.parametrize("arch", UNPORTED_IDS)
 def test_unported_configs_raise(arch):
-    assert j_get_arch(arch).CONFIG.family in ("gnn", "recsys")
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch(arch)
+    """The GNN and recsys ids (ported since the twelfth slice): the
+    port's CONFIG, REDUCED and SHAPES equal JAX's; an unknown id raises."""
+    mine, theirs = get_arch(arch), j_get_arch(arch)
+    assert mine.CONFIG.family == theirs.CONFIG.family in ("gnn", "recsys")
+    for name in ("CONFIG", "REDUCED"):
+        assert dataclasses.asdict(getattr(mine, name)) \
+            == dataclasses.asdict(getattr(theirs, name))
+    assert [(c.name, c.kind, c.dims) for c in mine.SHAPES] \
+        == [(c.name, c.kind, c.dims) for c in theirs.SHAPES]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch(arch.upper())
 
 
 # -------------------------------------------------------------- layers

@@ -39,6 +39,7 @@ from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_27b,
                                  kimi_k2_1t_a32b)
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import common
 from repro_torch.models.transformer import ffn, lm
 from repro_torch.models.transformer.attention import (MLA, mla_decode,
                                                       mla_forward)
@@ -155,8 +156,10 @@ def test_init_params_counts_like_the_config(arch):
 
 def test_large_draws_are_chunked_and_seeded(monkeypatch):
     """A draw beyond ``_DRAW_ELEMS`` float32 values goes in chunks along
-    its first axis; the same seed gives the same values."""
-    monkeypatch.setattr(ffn, "_DRAW_ELEMS", 64)
+    its first axis; the same seed gives the same values. (``draw`` lives
+    in ``models.common``, which every family draws with; ``ffn`` imports
+    it.)"""
+    monkeypatch.setattr(common, "_DRAW_ELEMS", 64)
     gen = torch.Generator().manual_seed(0)
     a = ffn.draw((5, 4, 8), 0.5, torch.float32, torch.device("cpu"), gen)
     gen = torch.Generator().manual_seed(0)

@@ -265,6 +265,30 @@ Each of phases 16-18 holds the allocator's peak under 70 GiB.
    mean in-degree 49, above the fanout of 15), ``CSRGraph`` and
    ``sample_subgraph`` (1,024 seeds, fanout (15, 10)), and 3 steps twice
    on that batch. Printed: ms a step, peak GiB, the host's seconds.
+24. model parallel on one card: the one-rank references first, then 4
+   ranks (this script started again with ``--mesh-rank``, its allocator
+   in expandable segments) sharing the card over gloo, every exchange
+   through host memory: (a) llama3-8b, 32 layers, bf16, tensor parallel
+   on (1, 4), prefill [1, 8192] with the kernel on each rank's 8 heads
+   (32 launches a rank, asserted), the gathered logits against the
+   one-rank prefill, and ``wo``'s partial sums left unreduced (must fail
+   the bound); (b) kimi-k2 cut to 2 layers, expert parallel over 4 (96
+   experts a rank): the prefill's all-to-all path against one rank
+   running ``moe_local`` on each shard's positions (2 launches a rank at
+   D 112), and its MoE layer on a decode batch of 8 (the token-poor path,
+   no all-to-all) against ``moe_local``; (c) llama3-8b cut to 2 layers
+   trains 2 steps of [4, 4096] on (2, 2) with ZeRO-1 against the
+   one-rank steps, then its checkpoint saved on (2, 2) (under
+   ``build/mesh_phase``, removed after) restores bitwise on one rank and
+   on (1, 2); (d) wide-deep at its CONFIG, tables row-sharded on (1, 4),
+   one step against one rank; gin-tu's minibatch_lg psum and shard modes
+   on (2, 2) against one rank; (e) ``compressed_psum`` over 4 ranks (an
+   int32 payload, JAX's error and bias bounds); (f) ``launch/train.py``
+   under ``torchrun --nproc-per-node 1`` (NCCL, a (1, 1) mesh) and
+   ``launch/serve.py --devices 4 --doc-shards 4`` at its defaults against
+   ``search_shards`` bitwise, a and c launched. The card's used memory
+   (every process) under 70 GiB throughout; each rank's ms and peak, the
+   backend beside every time.
 
 The index and query widths come from ``configs/seismic_msmarco``
 (``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED`` is
@@ -338,6 +362,23 @@ host sums within ``n * 2**-24 * sum|terms|`` for a node of in-degree n
 add on these paths (embedding lookups sort their ids in the backward,
 gin's sums run over edges sorted by destination and, backward, by
 source).
+
+Phase 24, the ranks against one rank (gloo over host memory): logits
+and the MoE layer within ``LM_REL_L2``, as above (the tensor-parallel
+partial sums change where bf16 rounds, and the all-reduce of bf16
+partials sums in float32); the known-wrong path must fail it. Training:
+each step's loss within ``rtol`` 1e-2 (a float32 mean over 16,384
+positions of the same bf16 logits' cross entropies); the parameter
+updates (after - before) within relative L2 2^-2 of the one-rank
+updates and every parameter within ``4 lr`` of the one-rank one: AdamW's
+first steps move an element by about its lr (5e-4, then 1e-3 under the
+2-step warmup) in the direction of its gradient's sign, which flips
+where a gradient lies within bf16 noise of 0, so two runs may differ by
+twice the sum of the two steps' lr (3e-3) plus a bf16 rounding of the
+element. wide-deep and gin-tu (float32): ``allclose(rtol=1e-4,
+atol=1e-4)``, the families' bound (the sharded lookup is exact; only the
+global norm's and the aggregate's sums change order). Checkpoints
+bitwise.
 """
 from __future__ import annotations
 
@@ -348,6 +389,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -503,6 +545,20 @@ FAMILY_LR, FAMILY_STEPS = 1e-3, 3
 # from 7.1 to 52.8 on the card (the JAX package's smoke checks finiteness
 # only); at 3e-5 each cell's loss falls step by step
 GNN_LR = 3e-5
+# phase 24: model parallel on one card, MESH_RANKS gloo ranks sharing it
+MESH_RANKS = 4
+MESH_TP, MESH_DP_TP, MESH_DATA = (1, 4), (2, 2), (4,)
+MESH_RESTORE = (1, 2)          # (c)'s checkpoint restored on two ranks
+MESH_TOKEN_POOR = 8            # (b): kimi's MoE layer on a decode batch
+MESH_TRAIN_LAYERS = 2          # (c): llama3-8b cut to 2 layers
+MESH_TRAIN_MICRO = 2           # (c): the ranks' microbatches of [4, 4096]
+MESH_LOSS_RTOL = 1e-2          # (c): each step's loss against one rank
+MESH_UPDATE_REL_L2 = 2 ** -2   # (c): the parameter updates against one rank
+MESH_UPDATE_MAX = 4 * TRAIN_LR  # (c): any parameter against one rank
+MESH_FAMILY_TOL = 1e-4         # (d): wide-deep and gin-tu, float32
+MESH_EF_ELEMS = 1 << 22        # (e): a gradient leaf of compressed_psum
+MESH_EF_ROUNDS = 30
+MESH_TIMEOUT = 900.0
 FAMILY_RTOL = FAMILY_ATOL = 1e-4    # the card against the CPU, float32
 FAMILY_SHORTCUT_ATOL = 1e-5         # fm's / sasrec's shortcut vs full scoring
 CPU_SLICE = 4096                    # retrieval candidates held to the CPU
@@ -966,11 +1022,35 @@ def attention_inputs(torch, dev, gen, b, hq, hkv, s, d, dtype):
     return randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
 
 
+def heads_vs_plain(torch, label, q, k, v, got, *, causal, window):
+    """flash_attention's output ``got`` on ``q``, ``k``, ``v`` (as they
+    were passed) against its plain version, 8 heads at a time, at
+    :func:`compare_attention`'s tolerance -> (max abs error, the worst
+    element's share of its tolerance)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_ref
+    err = worst = 0.0
+    hq, g = q.shape[1], q.shape[1] // k.shape[1]
+    for h0 in range(0, hq, 8):   # the plain scores, 8 heads at a time
+        h1 = min(h0 + 8, hq)
+        kh, vh = (x[:, h0 // g:(h1 - 1) // g + 1] for x in (k, v))
+        qh = q[:, h0:h1]
+        want = flash_attention_ref(qh, kh, vh, causal=causal, window=window)
+        row = None if q.dtype == torch.float32 else flash_attention_ref(
+            qh.float(), kh.float(), vh.float().abs(), causal=causal,
+            window=window)
+        e, w = compare_attention(
+            torch, f"flash_attention {label} (max|v| "
+            f"{float(vh.float().abs().max()):.3f})", got[:, h0:h1], want,
+            row)
+        err, worst = max(err, e), max(worst, w)
+        del want, row
+    return err, worst
+
+
 def flash_check(torch, dev, gen) -> float:
     """Phase 9, the check: flash_attention against its plain version on
     seeded inputs -> max abs error at the model's shape."""
-    from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                         flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # label, B, Hq, Hkv, S, D, dtype, causal, window
         ("llama3-8b prefill", 1, 32, 8, LM_SEQ, 128, bf16, True, None),
@@ -987,23 +1067,8 @@ def flash_check(torch, dev, gen) -> float:
     for label, b, hq, hkv, s, d, dt, causal, window in cases:
         q, k, v = attention_inputs(torch, dev, gen, b, hq, hkv, s, d, dt)
         got = flash_attention(q, k, v, causal=causal, window=window)
-        err = worst = 0.0
-        g = hq // hkv
-        for h0 in range(0, hq, 8):   # the plain scores, 8 heads at a time
-            h1 = min(h0 + 8, hq)
-            kh, vh = (x[:, h0 // g:(h1 - 1) // g + 1] for x in (k, v))
-            qh = q[:, h0:h1]
-            want = flash_attention_ref(qh, kh, vh, causal=causal,
-                                       window=window)
-            row = None if dt == f32 else flash_attention_ref(
-                qh.float(), kh.float(), vh.float().abs(), causal=causal,
-                window=window)
-            e, w = compare_attention(
-                torch, f"flash_attention {label} (max|v| "
-                f"{float(vh.float().abs().max()):.3f})", got[:, h0:h1], want,
-                row)
-            err, worst = max(err, e), max(worst, w)
-            del want, row
+        err, worst = heads_vs_plain(torch, label, q, k, v, got,
+                                    causal=causal, window=window)
         model_err = err if model_err is None else model_err
         log(f"  flash_attention {label}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
             f"{str(dt).split('.')[1]} causal={causal} window={window}: max "
@@ -2405,7 +2470,6 @@ def mutation_phase(torch, dev, args, runtime, smi, index, q_base) -> dict:
     inserts with auto-compaction, deletes, a final compaction, served
     through ``SeismicServer.apply_mutation`` at three points, a save and
     load. Returns the launches per kernel on the mutated index."""
-    import shutil
 
     from repro_torch.ckpt import load_index, save_index
     from repro_torch.core import build_index, make_mutable
@@ -3270,43 +3334,24 @@ def shard_rank(args) -> int:
     return 0
 
 
-def run_ranks(args, out: Path) -> list[dict]:
-    """Start the N_SHARDS ranks of :func:`shard_rank` on a free local port
-    and wait for all; every rank is ended before this returns. The ranks'
-    allocators map memory in expandable segments, so a rank's build
-    scratch leaves no cached blocks it cannot give back."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    out.mkdir(parents=True, exist_ok=True)
-    for f in out.iterdir():
-        f.unlink()
+def run_ranks(args, out: Path, n: int, flag: str, report: str,
+              extra=(), timeout: float = RANK_TIMEOUT) -> list[dict]:
+    """Start ``n`` ranks of this script (``flag`` i, a free local port,
+    ``--out out``) and wait for all; every rank is ended before this
+    returns. Their allocators map memory in expandable segments, so a
+    rank's scratch leaves no cached blocks it cannot give back. Returns
+    the reports ``out / report.format(rank)``."""
+    from repro_torch.launch.mesh import free_port, start_ranks
+    port = free_port()
     env = dict(os.environ,
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--n-docs",
-         str(args.n_docs), "--seed", str(args.seed), "--shard-rank",
-         str(r), "--port", str(port), "--out", str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env)
-        for r in range(N_SHARDS)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        raise AssertionError("a make_distributed_search rank failed:\n"
-                             + "\n".join(f"--- rank {r} (rc {p.returncode})"
-                                         f"\n{o[-4000:]}" for r, (p, o)
-                                         in enumerate(zip(procs, logs))))
-    return [json.loads((out / f"rank{r}.json").read_text())
-            for r in range(N_SHARDS)]
+    start_ranks([[sys.executable, str(ROOT / "chip_smoke.py"), "--n-docs",
+                  str(args.n_docs), "--seed", str(args.seed), flag, str(r),
+                  "--port", str(port), "--out", str(out), *extra]
+                 for r in range(n)], env=env, timeout=timeout,
+                what=f"a {flag} rank")
+    return [json.loads((out / report.format(r)).read_text())
+            for r in range(n)]
 
 
 class CardPeak:
@@ -3537,7 +3582,10 @@ def sharded_stages(torch, dev, args, runtime, smi, kept, card) -> dict:
     # (iii) make_distributed_search on N_SHARDS ranks over gloo
     card.stage("(iii)")
     t0 = time.perf_counter()
-    ranks = run_ranks(args, ROOT / "build" / "phase15")
+    out15 = ROOT / "build" / "phase15"
+    shutil.rmtree(out15, ignore_errors=True)
+    out15.mkdir(parents=True)
+    ranks = run_ranks(args, out15, N_SHARDS, "--shard-rank", "rank{}.json")
     card.stage("baselines")
     resident = sum(r["resident_gib"] for r in ranks)
     together = max(resident - r["resident_gib"] + r["peak_gib"]
@@ -3751,7 +3799,6 @@ def train_phase(torch, dev, seed, smi) -> None:
     drawn parameters and 2 more steps bitwise equal to 4 uninterrupted
     steps; the allocator's peak under MODEL_PEAK_GIB. Printed: ms a step,
     tokens/s and model FLOP/s as a share of the bf16 dense peak."""
-    import shutil
 
     import numpy as np
     from repro_torch.ckpt import CheckpointManager
@@ -4466,6 +4513,953 @@ def family_phases(torch, dev, seed, runtime, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 24
+
+class MeshAt:
+    """What ``sharding.local_part`` reads of a DeviceMesh, at one
+    position: the parent slices its one-rank results as a rank would."""
+
+    def __init__(self, shape, names, pos):
+        import numpy as np
+        self.mesh_dim_names, self.mesh = names, np.zeros(shape)
+        self.pos = dict(zip(names, pos))
+
+    def get_local_rank(self, name):
+        return self.pos[name]
+
+
+def positions(shape):
+    """Every mesh position of ``shape`` in rank order (row-major)."""
+    import itertools
+    return list(itertools.product(*(range(n) for n in shape)))
+
+
+def bits_fingerprint(torch, t) -> int:
+    """A bitwise fingerprint of one tensor: the sum of its 2- or 4-byte
+    bit patterns weighted by position (mod 65521)."""
+    v = t.detach().contiguous().reshape(-1)
+    v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return int((v.long() * w).sum())
+
+
+def mesh_train_batches(torch, dev, cfg, seed) -> list:
+    """Phase 24 (c)'s two [TRAIN_BATCH, TRAIN_SEQ] batches (the global
+    batch, on every rank as on the one rank)."""
+    from repro_torch.data.pipeline import lm_token_stream
+    stream = lm_token_stream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed)()
+    return [{k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+            for _ in range(2)]
+
+
+def mesh_family_cells():
+    """(wide-deep's bundle, config and train cell dims, gin-tu's bundle,
+    config and minibatch_lg dims)."""
+    from repro_torch.models.api import get_bundle
+    wd, gn = get_bundle("wide-deep"), get_bundle("gin-tu")
+    return (wd, wd.config, {c.name: c.dims for c in wd.shapes}["train_batch"],
+            gn, gn.config, {c.name: c.dims for c in gn.shapes}["minibatch_lg"])
+
+
+@contextlib.contextmanager
+def per_shard_moe(lm, ffn, shards: int, keep: list):
+    """The LM's MoE layers as expert parallelism over ``shards`` model
+    ranks computes them, in one process: ``moe_local`` on each shard's
+    positions (its own capacity), the aux loss their mean. The first MoE
+    layer's input and output go to ``keep``."""
+    import torch
+    real = lm.moe_forward
+
+    def per_shard(p, x, cfg, split=True):
+        b, s, d = x.shape
+        outs, auxs = [], []
+        for xs in x.chunk(shards, dim=1):
+            o, a = ffn.moe_local(p, xs.reshape(-1, d), cfg)
+            outs.append(o.reshape(b, -1, d))
+            auxs.append(a)
+        out = torch.cat(outs, dim=1)
+        if not keep:
+            keep.append((x, out))
+        return out, sum(auxs) / shards
+
+    lm.moe_forward = per_shard
+    try:
+        yield
+    finally:
+        lm.moe_forward = real
+
+
+@contextlib.contextmanager
+def first_attention(attention, keep: list, on: bool):
+    """When ``on``, the model's first flash_attention call kept in
+    ``keep``: its inputs as the model passed them (views of the rank's
+    local projections), its keywords and its output; every call runs as
+    it would (no launch is added)."""
+    real = attention.flash_attention
+
+    def kept(q, k, v, **kw):
+        o = real(q, k, v, **kw)
+        if not keep:
+            keep.append((q, k, v, kw, o))
+        return o
+
+    if on:
+        attention.flash_attention = kept
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def local_heads_check(torch, label, call) -> str:
+    """flash_attention on one rank's local heads, as the model's first
+    call passed them, against its plain version (phase 9's tolerance)."""
+    q, k, v, kw, o = call
+    err, worst = heads_vs_plain(torch, label, q, k, v, o,
+                                causal=kw["causal"], window=kw["window"])
+    views = ", ".join(f"{n} {list(t.shape)} strides {list(t.stride())}"
+                      f"{'' if t.is_contiguous() else ' (not contiguous)'}"
+                      for n, t in (("q", q), ("k", k), ("v", v)))
+    return (f"{views}: max abs err {err:.3e}, worst element at "
+            f"{worst:.3f} of its tolerance")
+
+
+@contextlib.contextmanager
+def wo_not_reduced(attention, parallel):
+    """A known-wrong tensor-parallel path: attention's ``wo`` partial sums
+    left on their ranks (no all-reduce)."""
+
+    class Shim:
+        def __getattr__(self, name):
+            return getattr(parallel, name)
+
+        @staticmethod
+        def leave(x, cfg):
+            return x
+
+    real = attention.parallel
+    attention.parallel = Shim()
+    try:
+        yield
+    finally:
+        attention.parallel = real
+
+
+def mesh_references(torch, dev, seed, out: Path) -> dict:
+    """Phase 24's one-rank results, computed before the ranks start (each
+    model freed after; big results kept on the host): (a) llama3-8b's
+    prefill logits; (b) kimi-k2's 2-layer prefill with its MoE layer run
+    per shard (``per_shard_moe``) and ``moe_local`` of a decode batch;
+    (c) two train steps of llama3-8b cut to 2 layers; (d) one wide-deep
+    step and gin-tu's minibatch_lg forward. Inputs the ranks need go to
+    ``out``."""
+    import numpy as np
+    from repro_torch.configs import kimi_k2_1t_a32b, llama3_8b
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.transformer import ffn, lm
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    refs: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    cfg = llama3_8b.CONFIG
+    params = draw_model(torch, dev, lm, cfg, seed,
+                        "24a llama3-8b, the one-rank reference")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen,
+                           device=dev)
+    torch.save(tokens.cpu(), out / "a_tokens.pt")
+    refs["a"] = lm.forward(params, tokens, cfg, use_kernel=True)[0].cpu()
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(kimi_k2_1t_a32b.CONFIG, n_layers=KIMI_LAYERS)
+    params = draw_model(torch, dev, lm, cfg, seed,
+                        "24b kimi-k2, the one-rank reference")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen,
+                           device=dev)
+    torch.save(tokens.cpu(), out / "b_tokens.pt")
+    keep: list = []
+    with per_shard_moe(lm, ffn, MESH_TP[1], keep):
+        refs["b"] = lm.forward(params, tokens, cfg, use_kernel=True)[0].cpu()
+    h, shard_out = keep.pop()
+    torch.save(h.cpu(), out / "b_moe_in.pt")
+    refs["b_moe"] = shard_out.cpu()
+    with torch.no_grad():     # the known-wrong capacity: all 8192 tokens'
+        refs["b_moe_global"] = ffn.moe_local(
+            params.layers[0].ffn, h.reshape(-1, cfg.d_model),
+            cfg)[0].reshape(h.shape).cpu()
+    refs["b_global"] = lm.forward(params, tokens, cfg,
+                                  use_kernel=True)[0].cpu()
+    del h, shard_out
+    x = torch.randn((MESH_TOKEN_POOR, cfg.d_model), generator=gen,
+                    device=dev).to(getattr(torch, cfg.dtype))
+    torch.save(x.cpu(), out / "b_decode.pt")
+    with torch.no_grad():
+        refs["b_decode"] = ffn.moe_local(params.layers[0].ffn, x,
+                                         cfg)[0].cpu()
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(llama3_8b.CONFIG, n_layers=MESH_TRAIN_LAYERS)
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    refs["c_p0"] = {n: p.detach().to("cpu", copy=True)
+                    for n, p in params.named_parameters()}
+    opt = init_opt_state(params)
+    step = make_train_step(lambda p, b: lm.loss_fn(p, b, cfg), AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=2, total_steps=100),
+        microbatches=TRAIN_MICRO)
+    refs["c_loss"] = []
+    for batch in mesh_train_batches(torch, dev, cfg, seed):
+        params, opt, m = step(params, opt, batch)
+        refs["c_loss"].append(float(m["loss"]))
+    refs["c_p2"] = {n: p.detach().cpu() for n, p in params.named_parameters()}
+    del params, opt, m
+    torch.cuda.empty_cache()
+
+    wd, wcfg, wdims, gn, gcfg, gdims = mesh_family_cells()
+    params = wd.init(seed, wcfg, wdims, device=dev)
+    batch = wd.make_batch(np.random.default_rng(seed), wcfg, wdims, "train",
+                          device=dev)
+    opt = init_opt_state(params)
+    params, opt, m = make_train_step(wd.step(wcfg, wdims, "train"),
+                                     AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                                 total_steps=100))(
+        params, opt, batch)
+    refs["d_loss"] = float(m["loss"])
+    refs["d_p1"] = {n: p.detach().cpu() for n, p in params.named_parameters()}
+    del params, opt, batch, m
+    params = gn.init(seed, gcfg, gdims, device=dev)
+    batch = gn.make_batch(np.random.default_rng(seed), gcfg, gdims, "train",
+                          device=dev)
+    with torch.no_grad():
+        refs["d_gin"] = gin.forward(params, batch["feats"], batch["edges"],
+                                    gcfg).cpu()
+    del params, batch
+    torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_rank(args) -> int:
+    """One rank of phase 24 (this script started again with
+    ``--mesh-rank``), sharing the card over gloo with the others: (a)
+    llama3-8b TP on MESH_TP, prefill with the kernel and the known-wrong
+    path, rank 0's first kernel call held to the plain version on the
+    same local views; (b) kimi-k2 EP on MESH_TP, prefill (the
+    three-dimensional path, rank 0's first kernel call checked as in
+    (a)), the MoE layer alone on the parent's input, and a decode batch
+    through it (the token-poor path); (c)
+    two ZeRO-1 train steps on MESH_DP_TP and a checkpoint of the state;
+    (d) one wide-deep step with its tables row-sharded on MESH_TP, gin-tu
+    psum and shard modes on MESH_DP_TP; (e) ``compressed_psum`` over
+    MESH_DATA. Results go to ``--out``; the checks are the parent's. With
+    ``--mesh-restore`` the rank instead restores (c)'s checkpoint on
+    MESH_RESTORE."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.configs import kimi_k2_1t_a32b, llama3_8b
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import set_mesh
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.train import (_sharded_state, load_state,
+                                          state_tree)
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.transformer import attention, ffn, lm, parallel
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.train.compression import compressed_psum
+
+    rank, out = args.mesh_rank, Path(args.out)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = 2 if args.mesh_restore else MESH_RANKS
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{args.port}", world_size=world, rank=rank)
+    names = ("data", "model")
+    rep: dict = dict(rank=rank, backend=dist.get_backend(), ms={}, peak={})
+
+    @contextlib.contextmanager
+    def stage(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        rep["ms"][name] = (time.perf_counter() - t0) * 1e3
+        rep["peak"][name] = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    cfg_c = dataclasses.replace(llama3_8b.CONFIG, n_layers=MESH_TRAIN_LAYERS)
+    if args.mesh_restore:
+        mesh = init_device_mesh("cpu", MESH_RESTORE, mesh_dim_names=names)
+        with set_mesh(mesh), stage("c restore (1, 2)"):
+            params = lm.init_params(cfg_c, seed=args.seed, device=dev,
+                                    mesh=mesh)
+            opt = init_opt_state(params, zero=True)
+            like, shardings = _sharded_state(cfg_c, params, opt, mesh)
+            tree, step = load_checkpoint(str(out / "ckpt"), like, device=dev,
+                                         shardings=shardings)
+            load_state(tree, params, opt)
+            del tree
+        rep["fp"] = {f"p.{n}": bits_fingerprint(torch, p)
+                     for n, p in params.named_parameters()}
+        rep["fp"].update({f"{k}.{n}": bits_fingerprint(torch, t)
+                          for k in ("m", "v") for n, t in opt[k].items()})
+        rep["step"] = int(opt["step"])
+        (out / f"restore_r{rank}.json").write_text(json.dumps(rep))
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+
+    tp = init_device_mesh("cpu", MESH_TP, mesh_dim_names=names)
+    dp_tp = init_device_mesh("cpu", MESH_DP_TP, mesh_dim_names=names)
+    data = init_device_mesh("cpu", MESH_DATA, mesh_dim_names=("data",))
+
+    # (a) llama3-8b, tensor parallel over "model"
+    cfg = llama3_8b.CONFIG
+    with set_mesh(tp):
+        with stage("a draw"):
+            params = lm.init_params(cfg, seed=args.seed, device=dev, mesh=tp)
+        tokens = torch.load(out / "a_tokens.pt").to(dev)
+        keep: list = []
+        runtime.reset_launches()
+        with stage("a prefill"), first_attention(attention, keep, rank == 0):
+            logits, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+        rep["a_launches"] = dict(runtime.LAUNCHES)
+        torch.save(logits.cpu(), out / f"a_r{rank}.pt")
+        del logits
+        if keep:
+            rep["a_heads"] = local_heads_check(torch, "24a rank 0",
+                                               keep.pop())
+        with wo_not_reduced(attention, parallel), stage("a wrong path"):
+            logits, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+        torch.save(logits.cpu(), out / f"a_wrong_r{rank}.pt")
+        del logits, params
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (b) kimi-k2 cut to 2 layers, expert parallel over "model"
+    cfg = dataclasses.replace(kimi_k2_1t_a32b.CONFIG, n_layers=KIMI_LAYERS)
+    with set_mesh(tp):
+        with stage("b draw"):
+            params = lm.init_params(cfg, seed=args.seed, device=dev, mesh=tp)
+        tokens = torch.load(out / "b_tokens.pt").to(dev)
+        keep = []
+        runtime.reset_launches()
+        with stage("b prefill"), C.recording() as wire, \
+                first_attention(attention, keep, rank == 0):
+            logits, _ = lm.forward(params, tokens, cfg, use_kernel=True)
+        rep["b_launches"] = dict(runtime.LAUNCHES)
+        rep["b_all_to_all"] = sum(k == "all_to_all" for k, *_ in wire)
+        torch.save(logits.cpu(), out / f"b_r{rank}.pt")
+        del logits
+        if keep:
+            rep["b_heads"] = local_heads_check(torch, "24b rank 0",
+                                               keep.pop())
+        h = torch.load(out / "b_moe_in.pt").to(dev)
+        with stage("b MoE layer"), C.recording() as wire, torch.no_grad():
+            y, _ = ffn.moe_ep(params.layers[0].ffn, h, cfg)
+        rep["b_moe_wire"] = sorted({k for k, *_ in wire})
+        if rank == 0:
+            torch.save(y.cpu(), out / "b_moe_r0.pt")
+        del h, y
+        x = torch.load(out / "b_decode.pt").to(dev)
+        with stage("b decode batch"), C.recording() as wire, \
+                torch.no_grad():
+            y, _ = ffn.moe_ep(params.layers[0].ffn, x, cfg)
+        rep["b_decode_wire"] = sorted({k for k, *_ in wire})
+        if rank == 0:
+            torch.save(y.cpu(), out / "b_decode_r0.pt")
+        del params, y
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (c) training on (2, 2) with ZeRO-1 over "data", then a checkpoint
+    with set_mesh(dp_tp):
+        with stage("c draw"):
+            params = lm.init_params(cfg_c, seed=args.seed, device=dev,
+                                    mesh=dp_tp)
+        opt = init_opt_state(params, zero=True)
+        step = make_train_step(
+            lambda p, b: lm.loss_fn(p, b, cfg_c),
+            AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=100),
+            microbatches=MESH_TRAIN_MICRO,
+            grad_axes=parallel.batch_axes(cfg_c))
+        rep["c_loss"] = []
+        for i, batch in enumerate(mesh_train_batches(torch, dev, cfg_c,
+                                                     args.seed)):
+            with stage(f"c step {i}"):
+                params, opt, m = step(params, opt, batch)
+                rep["c_loss"].append(float(m["loss"]))
+        del batch, m
+        if dp_tp.get_local_rank("data") == 0:
+            torch.save({n: p.detach().cpu() for n, p in
+                        params.named_parameters()}, out / f"c_r{rank}.pt")
+        rep["c_mv"] = {f"{k}.{n}": bits_fingerprint(torch, t)
+                       for k in ("m", "v") for n, t in opt[k].items()}
+        like, shardings = _sharded_state(cfg_c, params, opt, dp_tp)
+        with stage("c save (2, 2)"):
+            save_checkpoint(str(out / "ckpt"), 2, state_tree(params, opt),
+                            shardings=shardings)
+        del params, opt, like, shardings
+    torch.cuda.empty_cache()
+
+    # (d) wide-deep's tables row-sharded over "model"; gin-tu both modes
+    wd, wcfg, wdims, gn, gcfg, gdims = mesh_family_cells()
+    with set_mesh(tp):
+        params = wd.init(args.seed, wcfg, wdims, device=dev, mesh=tp)
+        batch = wd.make_batch(np.random.default_rng(args.seed), wcfg, wdims,
+                              "train", device=dev)
+        opt = init_opt_state(params)
+        with stage("d wide-deep step"):
+            params, opt, m = make_train_step(
+                wd.step(wcfg, wdims, "train"), AdamWConfig(
+                    lr=TRAIN_LR, warmup_steps=1, total_steps=100))(
+                params, opt, batch)
+        rep["d_loss"] = float(m["loss"])
+        torch.save({n: p.detach().cpu() for n, p in params.named_parameters()},
+                   out / f"d_r{rank}.pt")
+        del params, opt, batch, m
+    with set_mesh(dp_tp):
+        params = gn.init(args.seed, gcfg, gdims, device=dev, mesh=dp_tp)
+        batch = gn.make_batch(np.random.default_rng(args.seed), gcfg, gdims,
+                              "train", device=dev)
+        for mode in ("psum", "shard"):
+            with stage(f"d gin {mode}"), torch.no_grad():
+                h = gin.forward(params, batch["feats"], batch["edges"],
+                                dataclasses.replace(gcfg,
+                                                    aggregate_mode=mode))
+            if rank == 0:
+                torch.save(h.cpu(), out / f"d_gin_{mode}.pt")
+        del params, batch, h
+    torch.cuda.empty_cache()
+
+    # (e) the int8 error-feedback all-reduce over "data"
+    with set_mesh(data):
+        gen = torch.Generator(device=dev).manual_seed(args.seed * 97 + rank)
+        g = {"w": torch.randn(MESH_EF_ELEMS, generator=gen, device=dev)}
+        true_mean = C.all_reduce(g["w"], "data") / MESH_RANKS
+        scale = float(C.all_reduce(g["w"].abs().max(), "data",
+                                   op="max")) / 127.0
+        e = {"w": torch.zeros_like(g["w"])}
+        with C.recording() as wire, stage("e compressed_psum"):
+            synced, e = compressed_psum(g, e, ("data",))
+        rep["e_wire"] = [(k, ax, str(dt), list(shape))
+                         for k, ax, dt, shape in wire]
+        rep["e_err"] = float((synced["w"] - true_mean).abs().max())
+        acc = synced["w"].clone()
+        with stage(f"e {MESH_EF_ROUNDS - 1} more rounds"):
+            for _ in range(MESH_EF_ROUNDS - 1):
+                synced, e = compressed_psum(g, e, ("data",))
+                acc += synced["w"]
+        rep["e_bias"] = float((acc / MESH_EF_ROUNDS - true_mean).abs().max())
+        rep["e_scale"] = scale
+    (out / f"rank{rank}.json").write_text(json.dumps(rep))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_slices(torch, out: Path, prefix: str, ranks) -> list:
+    """The tensors ranks ``ranks`` saved under ``prefix``."""
+    return [torch.load(out / f"{prefix}_r{r}.pt") for r in ranks]
+
+
+def port_slice(full: dict, name: str, spec, mesh_at):
+    """The slice of parameter ``name`` (a port-layout tensor in ``full``)
+    at ``mesh_at``'s position under ``spec``."""
+    from repro_torch.distributed.sharding import local_part
+    t = full[name]
+    return t[local_part(spec, t.shape, mesh_at)]
+
+
+def mesh_phase(torch, dev, args, smi) -> dict:
+    """Phase 24: the model-parallel code at full width on one card, its
+    ranks gloo processes sharing it (exchanges through host memory).
+    Asserted: (a) llama3-8b TP logits within LM_REL_L2 of the one-rank
+    prefill, 32 flash_attention launches a rank, ``wo`` left unreduced
+    beyond it, the kernel on rank 0's local heads [1, 8, 8192, 128] (2 kv
+    heads, non-contiguous views) within phase 9's tolerance of its plain
+    version; (b) kimi-k2 EP prefill (all-to-alls run) within LM_REL_L2
+    of ``moe_local`` on each shard's positions, 2 launches a rank at D
+    112 (rank 0's [1, 16, 8192, 112] checked as in (a)), one rank's
+    logits with global capacity (the known-wrong control) beyond it; the
+    MoE layer alone: every position within LM_REL_L2 of per-shard
+    ``moe_local`` and global capacity beyond it somewhere,
+    the decode batch's token-poor path (no all-to-all) within it of
+    ``moe_local``; (c) ZeRO-1 training's losses within MESH_LOSS_RTOL of
+    the one-rank steps and its parameter updates within MESH_UPDATE_REL_L2
+    (each element within MESH_UPDATE_MAX), the (2, 2) checkpoint restored
+    on one rank and on MESH_RESTORE bitwise; (d) wide-deep's step and
+    gin-tu's two modes within MESH_FAMILY_TOL of one rank; (e)
+    ``compressed_psum`` with an int32 payload and JAX's bounds; (f) the
+    train launcher under ``torchrun`` (NCCL, world 1), the collectives'
+    NCCL branches on a world of one, and the serve launcher's
+    ``--devices 4 --doc-shards 4`` bitwise ``search_shards``;
+    the card's used memory under CARD_LIMIT_GIB throughout. Returns the
+    ranks' and the launchers' kernel launches."""
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    train = train_launcher(out)     # overlaps the one-rank references
+    try:
+        launches = mesh_checks(torch, dev, args, smi, out, train)
+    finally:
+        if train.poll() is None:
+            train.kill()
+            train.wait()
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"  phase 24 in {time.perf_counter() - t_phase:.1f} s (gloo over "
+        f"host, {MESH_RANKS} ranks on one card; {smi})")
+    return launches
+
+
+def mesh_checks(torch, dev, args, smi, out: Path, train) -> dict:
+    """Phase 24's runs and checks (:func:`mesh_phase`), their inputs and
+    results under ``out``; ``train`` is (f)'s launcher, started."""
+    from repro_torch.distributed.param_sharding import (lm_param_specs,
+                                                        zero_shard_spec)
+    from repro_torch.models.transformer import lm
+    where = f"gloo over host, {MESH_RANKS} ranks on one card; {smi}"
+    launches: dict = {}
+    with CardPeak(torch, dev) as card:
+        card.stage("references")
+        t0 = time.perf_counter()
+        refs = mesh_references(torch, dev, args.seed, out)
+        log(f"[24 model parallel] one-rank references in "
+            f"{time.perf_counter() - t0:.1f} s")
+        card.stage("ranks")
+        t0 = time.perf_counter()
+        reps = run_ranks(args, out, MESH_RANKS, "--mesh-rank", "rank{}.json",
+                         timeout=MESH_TIMEOUT)
+        log(f"  {MESH_RANKS} ranks (a)-(e) in {time.perf_counter() - t0:.1f}"
+            f" s ({where})")
+        for rep in reps:
+            log(f"  rank {rep['rank']} ({rep['backend']}): " + ", ".join(
+                f"{k} {rep['ms'][k]:.0f} ms (peak {rep['peak'][k]:.2f} GiB)"
+                for k in rep["ms"]))
+        card.stage("checks")
+        for rep in reps:
+            for k, v in rep["a_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, v in rep["b_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+
+        # (a)
+        from repro_torch.configs import llama3_8b
+        got = [rep["a_launches"]["flash_attention"] for rep in reps]
+        if got != [llama3_8b.CONFIG.n_layers] * MESH_RANKS:
+            raise AssertionError(f"24a: flash_attention launches by rank "
+                                 f"{got}, {llama3_8b.CONFIG.n_layers} each "
+                                 "expected")
+        want = refs.pop("a").to(dev)
+        tp_logits = torch.cat([t.to(dev) for t in rank_slices(
+            torch, out, "a", range(MESH_RANKS))], dim=-1)
+        log(f"  (a) llama3-8b TP {MESH_TP}, [1, {LM_SEQ}], kernel on "
+            f"{llama3_8b.CONFIG.n_heads // MESH_TP[1]} heads a rank, "
+            f"{got[0]} launches a rank: " + lm_agreement(
+                torch, "24a TP vs one rank", tp_logits, want))
+        log(f"  (a) flash_attention on rank 0's local heads, layer 0, vs "
+            f"plain: {reps[0]['a_heads']}")
+        del tp_logits
+        wrong = torch.cat([t.to(dev) for t in rank_slices(
+            torch, out, "a_wrong", range(MESH_RANKS))], dim=-1)
+        rel, text = logit_distance(torch, "24a wo not reduced", wrong, want)
+        if rel <= LM_REL_L2:
+            raise AssertionError(f"24a: wo's partial sums left unreduced "
+                                 f"pass the bound: {text}")
+        log(f"  (a) wo's partial sums not all-reduced (must fail): {text}")
+        del wrong, want
+
+        # (b)
+        from repro_torch.configs import kimi_k2_1t_a32b
+        got = [rep["b_launches"]["flash_attention"] for rep in reps]
+        if got != [KIMI_LAYERS] * MESH_RANKS or \
+                not all(rep["b_all_to_all"] for rep in reps):
+            raise AssertionError(f"24b: launches {got}, all-to-alls "
+                                 f"{[rep['b_all_to_all'] for rep in reps]}")
+        want = refs.pop("b").to(dev)
+        ep_logits = torch.cat([t.to(dev) for t in rank_slices(
+            torch, out, "b", range(MESH_RANKS))], dim=-1)
+        kcfg = kimi_k2_1t_a32b.CONFIG
+        log(f"  (b) kimi-k2 {KIMI_LAYERS} layers EP {MESH_TP} "
+            f"({kcfg.n_experts // MESH_TP[1]} experts a rank), [1, {LM_SEQ}] "
+            f"(three-dimensional path, {reps[0]['b_all_to_all']} all-to-alls "
+            f"a rank; {got[0]} launches a rank at D {kcfg.d_head}) vs one "
+            "rank with moe_local per shard: " + lm_agreement(
+                torch, "24b EP vs per-shard moe_local", ep_logits, want))
+        log(f"  (b) flash_attention on rank 0's local heads, layer 0, vs "
+            f"plain: {reps[0]['b_heads']}")
+        glob = refs.pop("b_global").to(dev)
+        rel, text = logit_distance(torch, "24b global capacity", glob, want)
+        if rel <= LM_REL_L2:
+            raise AssertionError(f"24b: global capacity passes the bound: "
+                                 f"{text}")
+        log(f"  (b) one rank with global capacity (moe_local on all "
+            f"{LM_SEQ} positions; must fail) vs per shard: {text}")
+        del ep_logits, want, glob
+        y = torch.load(out / "b_moe_r0.pt").to(dev).float()
+        ref = refs.pop("b_moe").to(dev).float()
+        glob = refs.pop("b_moe_global").to(dev).float()
+
+        def row_rel(a, b):    # each position's relative L2
+            return ((a - b).norm(dim=-1) / b.norm(dim=-1)).reshape(-1)
+
+        ep_rows, glob_rows = row_rel(y, ref), row_rel(glob, ref)
+        wrong = int((glob_rows > LM_REL_L2).sum())
+        wire = reps[0]["b_moe_wire"]
+        if float(ep_rows.max()) > LM_REL_L2 or not wrong or \
+                "all_to_all" not in wire:
+            worst = float(ep_rows.max())
+            raise AssertionError(
+                f"24b MoE layer: EP's worst position {worst:.3e}, global "
+                f"capacity beyond {LM_REL_L2} at {wrong} positions, "
+                f"collectives {wire}")
+        log(f"  (b) the MoE layer alone on one input [1, {LM_SEQ}] "
+            f"(collectives {wire}): EP vs per-shard moe_local, worst "
+            f"position's relative L2 {float(ep_rows.max()):.3e} (bound "
+            f"{LM_REL_L2}); global capacity (must fail) beyond it at "
+            f"{wrong} positions, worst {float(glob_rows.max()):.3e}")
+        del y, ref, glob
+        y = torch.load(out / "b_decode_r0.pt").float()
+        ref = refs.pop("b_decode").float()
+        rel = float((y - ref).norm() / ref.norm())
+        wire = reps[0]["b_decode_wire"]
+        if rel > LM_REL_L2 or "all_to_all" in wire:
+            raise AssertionError(f"24b decode batch: relative L2 {rel:.3e}, "
+                                 f"collectives {wire}")
+        log(f"  (b) MoE layer on a decode batch of {MESH_TOKEN_POOR} "
+            f"(token-poor path, collectives {wire}) vs moe_local: relative "
+            f"L2 {rel:.3e}")
+
+        # (c)
+        losses = [rep["c_loss"] for rep in reps]
+        ref_loss = refs.pop("c_loss")
+        if any(abs(l - r) > MESH_LOSS_RTOL * abs(r)
+               for ls in losses for l, r in zip(ls, ref_loss)):
+            raise AssertionError(f"24c: losses {losses} vs one rank "
+                                 f"{ref_loss}")
+        p0, p2 = refs.pop("c_p0"), refs.pop("c_p2")
+        cfg_c = dataclasses.replace(llama3_8b.CONFIG,
+                                    n_layers=MESH_TRAIN_LAYERS)
+        specs = lm_param_specs(lm.LM(cfg_c, torch.device("meta")))
+        num = den = 0.0
+        worst = 0.0
+        for pos in positions(MESH_DP_TP):
+            if pos[0]:
+                continue
+            r = pos[0] * MESH_DP_TP[1] + pos[1]
+            at = MeshAt(MESH_DP_TP, ("data", "model"), pos)
+            got_p = torch.load(out / f"c_r{r}.pt")
+            for name, t in got_p.items():
+                a0 = port_slice(p0, name, specs[name], at).to(dev)
+                a2 = port_slice(p2, name, specs[name], at).to(dev)
+                t = t.to(dev)
+                d_one, d_mesh = (a2.float() - a0.float()), (t.float()
+                                                            - a0.float())
+                num += float((d_mesh - d_one).double().square().sum())
+                den += float(d_one.double().square().sum())
+                worst = max(worst, float((t.float() - a2.float()).abs().max()))
+        rel = (num / den) ** 0.5
+        if rel > MESH_UPDATE_REL_L2 or worst > MESH_UPDATE_MAX:
+            raise AssertionError(f"24c: parameter updates relative L2 "
+                                 f"{rel:.3e}, max gap {worst:.3e}")
+        log(f"  (c) llama3-8b {MESH_TRAIN_LAYERS} layers on {MESH_DP_TP}, "
+            f"ZeRO-1, [{TRAIN_BATCH}, {TRAIN_SEQ}] in {MESH_TRAIN_MICRO} "
+            f"microbatches: losses {losses[0]} (one rank {ref_loss}); "
+            f"parameter updates vs one rank: relative L2 {rel:.3e}, max "
+            f"parameter gap {worst:.3e} (bounds {MESH_UPDATE_REL_L2}, "
+            f"{MESH_UPDATE_MAX})")
+        card.stage("restores")
+        mesh_restores(torch, dev, args, out, cfg_c, specs, reps,
+                      zero_shard_spec)
+
+        # (d)
+        card.stage("checks")
+        wd_p = refs.pop("d_p1")
+        from repro_torch.models.api import get_bundle
+        wd_specs = get_bundle("wide-deep").param_specs(
+            {n: t for n, t in wd_p.items()})
+        tol = dict(rtol=MESH_FAMILY_TOL, atol=MESH_FAMILY_TOL)
+        worst, close = 0.0, True
+        for r, pos in enumerate(positions(MESH_TP)):
+            at = MeshAt(MESH_TP, ("data", "model"), pos)
+            for name, t in torch.load(out / f"d_r{r}.pt").items():
+                want = port_slice(wd_p, name, wd_specs[name], at)
+                worst = max(worst, float((t - want).abs().max()))
+                close = close and torch.allclose(t, want, **tol)
+        d_losses = [rep["d_loss"] for rep in reps]
+        if not close or any(
+                abs(l - refs["d_loss"]) > MESH_FAMILY_TOL * abs(refs["d_loss"])
+                for l in d_losses):
+            raise AssertionError(f"24d wide-deep: gap {worst:.3e}, losses "
+                                 f"{d_losses} vs {refs['d_loss']}")
+        ref_h = refs.pop("d_gin")
+        gaps = {}
+        for mode in ("psum", "shard"):
+            h = torch.load(out / f"d_gin_{mode}.pt")
+            gaps[mode] = float((h - ref_h).abs().max())
+            if not torch.allclose(h, ref_h, **tol):
+                raise AssertionError(f"24d gin-tu {mode}: gap {gaps[mode]}")
+        log(f"  (d) wide-deep tables row-sharded over {MESH_TP}: one step, "
+            f"loss {d_losses[0]:.6f} (one rank {refs['d_loss']:.6f}), "
+            f"parameters' max gap {worst:.2e} to one rank; gin-tu "
+            f"minibatch_lg on {MESH_DP_TP}: max gap " + ", ".join(
+                f"{m} {g:.2e}" for m, g in gaps.items())
+            + f" to one rank (allclose rtol = atol = {MESH_FAMILY_TOL})")
+
+        # (e)
+        for rep in reps:
+            kinds = [(k, dt) for k, _, dt, _ in rep["e_wire"]]
+            if kinds != [("all_reduce", "torch.float32"),
+                         ("all_reduce", "torch.int32")] or \
+                    rep["e_err"] >= 3 * rep["e_scale"] or \
+                    rep["e_bias"] >= 0.3 * rep["e_scale"]:
+                raise AssertionError(f"24e compressed_psum: {rep['e_wire']},"
+                                     f" err {rep['e_err']}, bias "
+                                     f"{rep['e_bias']}, scale "
+                                     f"{rep['e_scale']}")
+        rep = reps[0]
+        log(f"  (e) compressed_psum over {MESH_DATA} of {MESH_EF_ELEMS} "
+            f"floats a rank: payload {rep['e_wire'][1][2]} "
+            f"{rep['e_wire'][1][3]} after a {rep['e_wire'][0][2]} scalar; "
+            f"error {rep['e_err']:.3e} (< 3 scales = "
+            f"{3 * rep['e_scale']:.3e}); bias after {MESH_EF_ROUNDS} rounds "
+            f"{rep['e_bias']:.3e} (< 0.3 scale = {0.3 * rep['e_scale']:.3e});"
+            f" {rep['ms']['e compressed_psum']:.1f} ms a round ({where})")
+        del refs
+
+        card.stage("launchers")
+        for k, v in mesh_launchers(torch, dev, args, out, train).items():
+            launches[k] = launches.get(k, 0) + v
+    peak = max(card.peak.values())
+    log(f"  the card's used memory by stage (every process): " + ", ".join(
+        f"{k} {v:.1f} GiB" for k, v in card.peak.items()))
+    if peak >= CARD_LIMIT_GIB:
+        raise AssertionError(f"24: the card's used memory reached "
+                             f"{peak:.1f} GiB")
+    return launches
+
+
+def mesh_restores(torch, dev, args, out, cfg_c, specs, reps,
+                  zero_shard_spec) -> None:
+    """(c)'s checkpoint, saved on MESH_DP_TP, restored unsharded on one
+    rank (this process) and on MESH_RESTORE (two ranks): every rank's
+    slices bitwise those of the one-rank restore, which equals what the
+    (2, 2) ranks held."""
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.models.transformer import lm
+    t0 = time.perf_counter()
+    meta = lm.LM(cfg_c, torch.device("meta"))
+    full = dict(meta.named_parameters())
+    f32 = {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+           for k, p in full.items()}
+    like = dict(params=lm.to_jax_layout(full),
+                opt=dict(m=lm.to_jax_layout(f32), v=lm.to_jax_layout(f32),
+                         step=torch.empty((), dtype=torch.int32,
+                                          device="meta")))
+    tree, step = load_checkpoint(str(out / "ckpt"), like, device=dev)
+    one = {"p": {}, "m": {}, "v": {}}
+    for kind, sub in (("p", tree["params"]), ("m", tree["opt"]["m"]),
+                      ("v", tree["opt"]["v"])):
+        for name, ref in full.items():
+            path, layer, transpose = lm.jax_path(name)
+            t = sub
+            for key in path:
+                t = t[key]
+            t = t[layer] if layer is not None else t
+            one[kind][name] = t.T if transpose else t
+    del tree
+    t_one = time.perf_counter() - t0
+    if step != 2:
+        raise AssertionError(f"24c: checkpoint step {step}")
+
+    def fp(kind, name, spec, at):
+        return bits_fingerprint(torch, port_slice(one[kind], name, spec,
+                                                  at))
+
+    # the (2, 2) ranks' own state against the one-rank restore
+    for r, pos in enumerate(positions(MESH_DP_TP)):
+        at = MeshAt(MESH_DP_TP, ("data", "model"), pos)
+        for name, spec in specs.items():
+            z = zero_shard_spec(spec, tuple(full[name].shape), "data",
+                                MESH_DP_TP[0])
+            for kind in ("m", "v"):
+                if reps[r]["c_mv"][f"{kind}.{name}"] != fp(kind, name, z, at):
+                    raise AssertionError(f"24c: {kind} {name} of rank {r} "
+                                         "differs after the restore")
+        if pos[0] == 0:
+            for name, t in torch.load(out / f"c_r{r}.pt").items():
+                if not torch.equal(t.to(dev), port_slice(
+                        one["p"], name, specs[name], at)):
+                    raise AssertionError(f"24c: parameter {name} of rank {r}"
+                                         " differs after the restore")
+    t0 = time.perf_counter()
+    restored = run_ranks(args, out, 2, "--mesh-rank", "restore_r{}.json",
+                         extra=("--mesh-restore",), timeout=MESH_TIMEOUT)
+    t_two = time.perf_counter() - t0
+    for r, pos in enumerate(positions(MESH_RESTORE)):
+        at = MeshAt(MESH_RESTORE, ("data", "model"), pos)
+        rep = restored[r]
+        for name, spec in specs.items():
+            z = zero_shard_spec(spec, tuple(full[name].shape), "data",
+                                MESH_RESTORE[0])
+            want = {f"p.{name}": fp("p", name, spec, at),
+                    f"m.{name}": fp("m", name, z, at),
+                    f"v.{name}": fp("v", name, z, at)}
+            if any(rep["fp"][k] != v for k, v in want.items()) or \
+                    rep["step"] != 2:
+                raise AssertionError(f"24c: {name} restored on "
+                                     f"{MESH_RESTORE} rank {r} differs")
+    n_bytes = sum(t.numel() * t.element_size() for kind in one.values()
+                  for t in kind.values())
+    log(f"  (c) checkpoint of the (2, 2) state ({n_bytes / 2**30:.2f} GiB, "
+        f"saved in {reps[0]['ms']['c save (2, 2)']:.0f} ms): restored on "
+        f"one rank in {t_one:.1f} s and on {MESH_RESTORE} "
+        f"({restored[0]['ms']['c restore (1, 2)']:.0f} ms a rank, "
+        f"{t_two:.1f} s with the ranks' start), bitwise the (2, 2) ranks' "
+        "slices")
+
+
+def nccl_world_one(torch, dev) -> str:
+    """(f): ``distributed.collectives``' NCCL branches on a world of one
+    (this process, the card, mesh (1, 1)). Their size-1 axes are skipped
+    on the model paths, so ``every_axis`` makes each collective run over
+    them: all-reduce (sum, max), all-gather, reduce-scatter and
+    all-to-all, plain and through autograd, each the identity on one
+    rank; the 16-bit payload reaches NCCL as it is (gloo would widen it),
+    and a CPU tensor is refused."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import set_mesh
+    from repro_torch.launch.mesh import free_port, make_mesh_for
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        mesh = make_mesh_for(1, 1)
+        gen = torch.Generator(device=dev).manual_seed(24)
+        x = torch.randn((8, 16, 32), generator=gen, device=dev)
+        xb = x.to(torch.bfloat16)
+        axes = ("data", "model")
+        with set_mesh(mesh), C.every_axis(), C.recording() as wire:
+            got = {"all_reduce sum": C.all_reduce(xb, axes),
+                   "all_reduce max": C.all_reduce(x, "model", op="max"),
+                   "all_gather": C.all_gather(xb, 1, axes),
+                   "reduce_scatter": C.reduce_scatter(x, 0, axes),
+                   "all_to_all": C.all_to_all(xb, 0, 2, "model")}
+            leaf = x.clone().requires_grad_()
+            y = C.gather_sum(C.all_to_all_(C.reduce_from(leaf, axes), 1, 0,
+                                           "model"), 0, axes)
+            y.square().sum().backward()
+            got["autograd"] = leaf.grad / 2
+            try:
+                C.all_reduce(x.cpu(), "model")
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError("24f: NCCL took a CPU tensor")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    bad = [k for k, t in got.items()
+           if not torch.equal(t, xb if t.dtype == torch.bfloat16 else x)]
+    kinds = sorted({k for k, *_ in wire})
+    half = {str(dt) for k, _, dt, _ in wire if k == "all_reduce"}
+    if bad or kinds != ["all_gather", "all_reduce", "all_to_all",
+                        "reduce_scatter"] or "torch.bfloat16" not in half:
+        raise AssertionError(f"24f NCCL world 1: {bad} differ; wire {wire}")
+    return (f"{len(wire)} NCCL collectives ({', '.join(kinds)}; bf16 "
+            "all-reduce on the wire as bf16) the identity, a CPU tensor "
+            "refused")
+
+
+def train_launcher(out: Path):
+    """(f)'s ``launch/train.py --reduced --steps 3`` under ``torchrun
+    --nproc-per-node 1`` (NCCL, world 1, mesh (1, 1)), started in the
+    background; its stdout and stderr go to ``out``."""
+    from repro_torch.launch.mesh import free_port
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc-per-node", "1", "--master-addr", "localhost",
+           "--master-port", str(free_port()), "-m",
+           "repro_torch.launch.train", "--reduced", "--steps", "3",
+           "--batch", "4", "--seq", "64", "--ckpt-dir",
+           str(out / "torchrun_ckpt")]
+    with open(out / "torchrun.out", "w") as o, \
+            open(out / "torchrun.err", "w") as e:
+        return subprocess.Popen(cmd, env=env, stdout=o, stderr=e)
+
+
+def mesh_launchers(torch, dev, args, out: Path, train) -> dict:
+    """(f): the train launcher that :func:`train_launcher` started (a few
+    steps), the collectives' NCCL branches on a world of one
+    (:func:`nccl_world_one`), and ``launch/serve.py --devices 4
+    --doc-shards 4`` at its defaults (4 ranks on this card over gloo)
+    against ``search_shards`` bitwise, summary_dot and gather_dot_cand
+    launched on every rank. Returns the serve ranks' launches, summed
+    over the ranks' own counts."""
+    from repro_torch.core import SeismicConfig
+    from repro_torch.core.distributed import (build_sharded_index,
+                                              search_shards)
+    from repro_torch.data import SyntheticSparseConfig, make_collection
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    train.wait(timeout=MESH_TIMEOUT)
+    wait = time.perf_counter() - t0
+    stdout = (out / "torchrun.out").read_text()
+    lines = [l for l in stdout.splitlines() if l.strip()]
+    if train.returncode or "backend=nccl" not in stdout or \
+            "mesh={'data': 1, 'model': 1}" not in stdout or \
+            "done" not in lines:
+        raise AssertionError(f"24f torchrun train launcher (rc "
+                             f"{train.returncode}):\n{stdout[-3000:]}\n"
+                             f"{(out / 'torchrun.err').read_text()[-3000:]}")
+    log(f"  (f) torchrun --nproc-per-node 1 -m repro_torch.launch.train "
+        f"--reduced --steps 3 (started with the phase, beside the one-rank "
+        f"references; {wait:.1f} s waited for it here): "
+        + " | ".join(lines))
+    t0 = time.perf_counter()
+    text = nccl_world_one(torch, dev)
+    log(f"  (f) NCCL, world 1, mesh (1, 1), every axis: {text} "
+        f"({(time.perf_counter() - t0) * 1e3:.0f} ms with the group's "
+        "start)")
+    argv = ["--devices", str(MESH_RANKS), "--doc-shards", str(MESH_RANKS)]
+    t0 = time.perf_counter()
+    got = serve.main(argv)
+    wall = time.perf_counter() - t0
+    a = serve.parse_args(argv)
+    docs, queries, _ = make_collection(SyntheticSparseConfig(
+        dim=a.dim, n_docs=a.n_docs, n_queries=a.queries, doc_nnz=96,
+        query_nnz=32), device=dev)
+    sharded = build_sharded_index(docs, SeismicConfig(
+        lam=192, beta=12, alpha=0.4, block_cap=32, summary_nnz=48),
+        MESH_RANKS)
+    scores, ids, _ = search_shards(sharded, queries, serve.search_params(a))
+    if not (torch.equal(got["ids"].to(dev), ids)
+            and torch.equal(got["scores"].to(dev), scores)):
+        raise AssertionError("24f: serve --devices 4 --doc-shards 4 differs "
+                             "from search_shards")
+    ranks = got["rank_launches"]
+    if len(ranks) != MESH_RANKS or not all(
+            r.get("summary_dot") and r.get("gather_dot_cand") for r in ranks):
+        raise AssertionError(f"24f serve ranks launched {ranks}")
+    total: dict = {}
+    for r in ranks:
+        for k, v in r.items():
+            total[k] = total.get(k, 0) + v
+    log(f"  (f) serve --devices {MESH_RANKS} --doc-shards {MESH_RANKS} at "
+        f"its defaults (mesh {got['mesh']}, {got['backend']}): bitwise "
+        f"search_shards; {got['seconds'] * 1e3:.1f} ms for "
+        f"{a.queries} queries ({wall:.1f} s with the ranks' start and "
+        "builds); launches by rank " + "; ".join(
+            ", ".join(f"{k} {v}" for k, v in r.items() if v) for r in ranks))
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1 << 20,
@@ -4477,6 +5471,11 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--out", default="", help=argparse.SUPPRESS)
+    # phase 24 starts it again as the ranks of its model-parallel runs
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-restore", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4485,6 +5484,8 @@ def main() -> int:
         return 1
     if args.shard_rank is not None:
         return shard_rank(args)
+    if args.mesh_rank is not None:
+        return mesh_rank(args)
     from repro_torch.kernels import runtime
 
     # ---- 1. device
@@ -4624,6 +5625,12 @@ def main() -> int:
     families = family_phases(torch, dev, args.seed, runtime, smi)
     for rec in record:
         rec["launches"] += families.get(rec["name"], 0)
+    torch.cuda.empty_cache()
+
+    # ---- 24. model parallel on one card (gloo ranks sharing it)
+    meshed = mesh_phase(torch, dev, args, smi)
+    for rec in record:
+        rec["launches"] += meshed.get(rec["name"], 0)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": record}), flush=True)

@@ -25,6 +25,14 @@ are not ``step_<digits>``; ``CheckpointManager`` drops orphaned ``.tmp``
 directories when it starts, keeps the last k steps and writes in a
 background thread from a host snapshot taken before ``save_async``
 returns.
+
+On a mesh, as in the JAX package, the layout on disk stays the unsharded
+logical npz. ``shardings`` is a tree of the checkpoint's structure whose
+leaves are ``(mesh, PartitionSpec)`` pairs (or None for a leaf that is
+whole on every rank): a save gathers each leaf from the ranks' slices
+(every rank calls it), rank 0 writes, and the others wait at a barrier; a
+load has each rank read the files and keep its slice of each leaf. A
+checkpoint saved on one mesh restores on another, or on one device.
 """
 from __future__ import annotations
 
@@ -227,11 +235,73 @@ def _write(path: str, step: int, arrays: list[tuple[np.ndarray, str]],
     return final
 
 
-def save_checkpoint(path: str, step: int, tree, *, shards: int = 1) -> str:
+def _sharding_leaves(shardings, n: int) -> list:
+    """The ``(mesh, spec)`` pairs of ``shardings`` in leaf order (a pair
+    is a leaf here), or n Nones."""
+    if shardings is None:
+        return [None] * n
+    out: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, list) or (isinstance(node, tuple) and not (
+                len(node) == 2 and hasattr(node[0], "mesh_dim_names"))):
+            for x in node:
+                walk(x)
+        else:
+            out.append(node)
+
+    walk(shardings)
+    if len(out) != n:
+        raise ValueError(f"shardings has {len(out)} leaves, the tree {n}")
+    return out
+
+
+def _mesh_rank(shards: list) -> int:
+    """This process's global rank (0 without a sharded leaf)."""
+    if not any(s is not None for s in shards):
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def _barrier(shards: list) -> None:
+    if any(s is not None for s in shards):
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def _gathered(leaves: list, shards: list, snapshot) -> list:
+    """Each leaf as rank 0 writes it: a sharded leaf gathered from the
+    ranks' slices to rank 0's host, then snapshot there; other ranks keep
+    None."""
+    from repro_torch.distributed.sharding import gather_to_root
+    rank = _mesh_rank(shards)
+    out = []
+    for leaf, sh in zip(leaves, shards):
+        if sh is not None:
+            mesh, spec = sh
+            leaf = gather_to_root(leaf, spec, mesh)
+        out.append(snapshot(leaf) if rank == 0 else None)
+    return out
+
+
+def save_checkpoint(path: str, step: int, tree, *, shards: int = 1,
+                    shardings=None) -> str:
     """Write one checkpoint atomically; returns the committed directory.
-    Leaves on the card are copied to the host first."""
+    Leaves on the card are copied to the host first. With ``shardings``
+    every rank of the mesh calls this: the leaves are gathered, rank 0
+    writes, and every rank returns after the commit."""
     leaves, treedef = tree_flatten(tree)
-    return _write(path, step, [_host(l) for l in leaves], treedef, shards)
+    sh = _sharding_leaves(shardings, len(leaves))
+    arrays = _gathered(leaves, sh, _host)
+    final = os.path.join(path, f"step_{step:08d}")
+    if _mesh_rank(sh) == 0:
+        final = _write(path, step, arrays, treedef, shards)
+    _barrier(sh)
+    return final
 
 
 def _parse_step(name: str, prefix: str = "step_") -> int | None:
@@ -256,18 +326,14 @@ def latest_step(path: str) -> int | None:
 def load_checkpoint(path: str, like_tree, *, step: int | None = None,
                     device=None, shardings=None):
     """Restore the newest (or the given) committed step into the
-    structure of ``like_tree`` (tensors or numpy arrays: their shapes are
-    checked and their dtypes taken). Returns (tree of tensors on
-    ``device``, step). ``device`` follows the port's rule: CUDA unless
-    the caller names another.
-
-    The JAX package's ``shardings=`` (a re-shard onto a mesh) has no
-    counterpart until ``distributed/`` is ported (ROADMAP Queue 1, item
-    5): passing one raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "load_checkpoint: shardings= needs the port of distributed/ "
-            "(ROADMAP Queue 1, item 5); pass device= instead")
+    structure of ``like_tree`` (tensors or numpy arrays, the leaves' full
+    shapes: they are checked and their dtypes taken). Returns (tree of
+    tensors on ``device``, step). ``device`` follows the port's rule:
+    CUDA unless the caller names another. With ``shardings`` (a tree of
+    ``(mesh, spec)`` leaves, or None for a whole leaf) each rank keeps its
+    slice of each leaf under its spec, marked with it (elastic restore:
+    any mesh)."""
+    from repro_torch.distributed.sharding import local_part, mark
     dev = resolve_device(device)
     if step is None:
         step = latest_step(path)
@@ -280,17 +346,22 @@ def load_checkpoint(path: str, like_tree, *, step: int | None = None,
     if len(leaves) != manifest["n_leaves"]:
         raise ValueError(f"leaf count mismatch: {len(leaves)} vs "
                          f"{manifest['n_leaves']}")
+    sh = _sharding_leaves(shardings, len(leaves))
     arrays: dict[int, np.ndarray] = {}
     for s in range(manifest["shards"]):
         for k, a in _read_npz(os.path.join(d, f"shard_{s}.npz")).items():
             arrays[int(k.split("_")[1])] = a
     out = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, shd) in enumerate(zip(leaves, sh)):
         a = arrays.pop(i)
         if tuple(a.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i}: {a.shape} vs {tuple(ref.shape)}")
         t = _torch_leaf(a, manifest["dtypes"][i])
-        out.append(t.to(device=dev, dtype=_torch_dtype(ref)))
+        if shd is not None:
+            mesh, spec = shd
+            t = t[local_part(spec, t.shape, mesh)]
+        t = t.to(device=dev, dtype=_torch_dtype(ref))
+        out.append(mark(t.contiguous(), shd[1]) if shd is not None else t)
         del a
     return tree_unflatten(treedef, out), step
 
@@ -303,6 +374,7 @@ class CheckpointManager:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._shards: list = []
         os.makedirs(path, exist_ok=True)
         self._clean_orphans()
 
@@ -315,12 +387,18 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.path, d),
                               ignore_errors=True)
 
-    def save_async(self, step: int, tree) -> None:
+    def save_async(self, step: int, tree, *, shardings=None) -> None:
         """Snapshot ``tree`` to the host now (so the caller may go on
-        updating it), then write it in a background thread."""
+        updating it), then write it in a background thread. With
+        ``shardings`` every rank calls this: the leaves are gathered now
+        and rank 0 writes; ``wait`` is a barrier of the ranks."""
         leaves, treedef = tree_flatten(tree)
-        host = [_snapshot(l) for l in leaves]
+        sh = _sharding_leaves(shardings, len(leaves))
+        host = _gathered(leaves, sh, _snapshot)
         self.wait()
+        self._shards = sh
+        if _mesh_rank(sh) != 0:
+            return
 
         def work():
             try:
@@ -333,10 +411,13 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
-        """Wait for the pending save; raise its error, if it failed."""
+        """Wait for the pending save; raise its error, if it failed. On a
+        mesh every rank waits until rank 0 has committed it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        shards, self._shards = self._shards, []
+        _barrier(shards)
         if self._error is not None:
             exc, self._error = self._error, None
             raise exc

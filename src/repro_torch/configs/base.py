@@ -5,11 +5,12 @@ A copy of ``TransformerConfig``, ``GNNConfig``, ``RecsysConfig``,
 JAX package's ``configs/base.py`` (same field names, defaults and
 ``param_count``), kept here so that the port imports nothing of it.
 ``ARCH_REGISTRY`` holds the JAX package's eleven ids. ``remat`` sets what
-the training path recomputes (``lm.forward_train``); the fields
-``unroll_layers``, ``seq_parallel``, ``sharding_mode`` and GNNConfig's
-``aggregate_mode`` (which selects a sharded layer only under a mesh) are
-kept for parity and have no effect in the port, nor ``learn_eps``, which
-the JAX forward does not read either.
+the training path recomputes (``lm.forward_train``); ``seq_parallel``,
+``sharding_mode`` and GNNConfig's ``aggregate_mode`` select the sharded
+paths under a mesh and, as in the JAX package, change nothing off one;
+``unroll_layers`` (how XLA compiles the layer stack) is kept for parity
+and has no effect in the port, nor ``learn_eps``, which the JAX forward
+does not read either.
 """
 from __future__ import annotations
 

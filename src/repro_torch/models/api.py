@@ -11,8 +11,9 @@ tests share, for the LM, GNN and recsys families.
 ``dims`` comes from the shape cell. ``make_batch`` draws the JAX
 package's numpy values from ``rng`` in the same spec order, so both
 packages get the same batch. Serving and retrieval steps run without
-autograd. ``param_specs`` waits for ``distributed/`` (ROADMAP Queue 1,
-item 5).
+autograd. ``param_specs`` gives each parameter's ``PartitionSpec`` by the
+family's rule (``distributed.param_sharding``), keyed by parameter name,
+and ``init(..., mesh=)`` draws each rank's slices under them.
 """
 from __future__ import annotations
 
@@ -242,20 +243,29 @@ class ModelBundle:
     shapes: list
     family: str
 
-    def init(self, seed: int, cfg, dims: dict, *, device=None):
+    def init(self, seed: int, cfg, dims: dict, *, device=None, mesh=None):
         """The family's ``init_params`` of ``cfg`` drawn from ``seed`` on
         ``device`` (the port's draws, not JAX's: each family module's
         ``params_from_jax`` carries those across). A GNN reads
-        ``d_feat`` and ``n_classes`` from ``dims``."""
+        ``d_feat`` and ``n_classes`` from ``dims``. With a ``mesh`` each
+        parameter is this rank's slice under ``param_specs`` of the same
+        draws."""
         if self.family == "lm":
             from repro_torch.models.transformer import lm
-            return lm.init_params(cfg, seed=seed, device=device)
+            return lm.init_params(cfg, seed=seed, device=device, mesh=mesh)
         if self.family == "gnn":
             from repro_torch.models.gnn import gin
-            return gin.init_params(cfg, dims["d_feat"],
-                                   dims.get("n_classes", cfg.n_classes),
-                                   seed=seed, device=device)
-        return _recsys_module(cfg).init_params(cfg, seed=seed, device=device)
+            build = lambda d, g: gin.init_params(
+                cfg, dims["d_feat"], dims.get("n_classes", cfg.n_classes),
+                seed=seed, device=d)
+        else:
+            mod = _recsys_module(cfg)
+            build = lambda d, g: mod.init_params(cfg, seed=seed, device=d)
+        if mesh is None:
+            return build(device, None)
+        from repro_torch.models.common import draw_sharded
+        dev = resolve_device(device)
+        return draw_sharded(build, dev, None, self.param_specs, mesh)
 
     def init_cache(self, cfg, dims: dict, *, device=None) -> dict:
         if self.family != "lm":
@@ -287,10 +297,18 @@ class ModelBundle:
             return _gnn_batch(rng, cfg, dims, kind, dev)
         return _recsys_batch(rng, cfg, dims, kind, dev)
 
-    def param_specs(self, params):
-        raise NotImplementedError(
-            "param_specs: parameter sharding needs the port of "
-            "distributed/param_sharding.py (ROADMAP Queue 1, item 5)")
+    def param_specs(self, params) -> dict:
+        """{parameter name: PartitionSpec} of ``params`` (a module of
+        this family; meta tensors will do), by the JAX package's rule for
+        the family (the LM's in its ``sharding_mode``)."""
+        from repro_torch.distributed.param_sharding import (
+            gnn_param_specs, lm_param_specs, recsys_param_specs)
+        if self.family == "lm":
+            return lm_param_specs(
+                params, mode=getattr(self.config, "sharding_mode", "tp"))
+        if self.family == "gnn":
+            return gnn_param_specs(params)
+        return recsys_param_specs(params)
 
 
 def get_bundle(arch_id: str) -> ModelBundle:

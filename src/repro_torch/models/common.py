@@ -13,6 +13,8 @@ they are.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import numpy as np
@@ -23,6 +25,10 @@ from repro_torch.device import host_array
 
 # float32 values drawn at a time: bounds the scratch of a large draw
 _DRAW_ELEMS = 1 << 26
+# draw_sharded's hook: a list that records each draw's parameter, or an
+# iterator of the slices the draws keep
+_DRAWS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_draws",
+                                                        default=None)
 
 
 def draw(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
@@ -33,16 +39,72 @@ def draw(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
     the first axis in chunks of at most ``_DRAW_ELEMS`` float32 values
     (an expert stack of kimi-k2 is 22.5 GB in float32). Without a
     generator it is left uninitialised (to be loaded)."""
-    w = torch.empty(shape, dtype=dtype, device=device)
+    hook = _DRAWS.get()
+    part = None
+    if isinstance(hook, list):
+        pass
+    elif hook is not None:
+        want, part = next(hook)
+        if tuple(want) != tuple(shape):
+            raise ValueError(f"draw_sharded: a draw of {tuple(shape)} where "
+                             f"{tuple(want)} was recorded")
+    if part is None:
+        part = tuple(slice(0, n) for n in shape)
+    w = torch.empty(tuple(p.stop - p.start for p in part), dtype=dtype,
+                    device=device)
     if generator is not None:
         row = math.prod(shape[1:])
         step = max(1, _DRAW_ELEMS // max(row, 1))
+        lo, hi = part[0].start, part[0].stop
         for i in range(0, shape[0], step):
             n = min(step, shape[0] - i)
-            w[i:i + n].copy_(torch.randn(
-                (n, *shape[1:]), generator=generator, device=device,
-                dtype=torch.float32).mul_(scale))
-    return nn.Parameter(w)
+            chunk = torch.randn((n, *shape[1:]), generator=generator,
+                                device=device, dtype=torch.float32)
+            r0, r1 = max(i, lo), min(i + n, hi)
+            if r1 > r0:
+                w[r0 - lo:r1 - lo].copy_(
+                    chunk[(slice(r0 - i, r1 - i),) + part[1:]].mul_(scale))
+    out = nn.Parameter(w)
+    if isinstance(hook, list):
+        hook.append(out)
+    return out
+
+
+@contextlib.contextmanager
+def _draw_hook(value):
+    token = _DRAWS.set(value)
+    try:
+        yield value
+    finally:
+        _DRAWS.reset(token)
+
+
+def draw_sharded(build, device: torch.device, generator: torch.Generator,
+                 specs_of, mesh) -> nn.Module:
+    """``build(device, generator)`` (a module whose parameters come from
+    ``draw`` or are constants) with each parameter cut to this rank's
+    slice under ``specs_of(module)`` ({name: spec}) on ``mesh``, drawn
+    from the same stream as the whole module: the module is first built
+    on the meta device to learn which parameter each draw makes, then
+    every draw generates all its values chunk by chunk and keeps the
+    rank's slice. Constants must be replicated."""
+    from repro_torch.distributed.sharding import local_part, mark
+    with _draw_hook([]) as drawn:
+        meta = build(torch.device("meta"), None)
+    names = {id(p): n for n, p in meta.named_parameters()}
+    specs = specs_of(meta)
+    parts = [(tuple(p.shape), local_part(specs[names[id(p)]], p.shape, mesh))
+             for p in drawn]
+    with _draw_hook(iter(parts)):
+        module = build(device, generator)
+    drawn_names = {names[id(p)] for p in drawn}
+    for name, p in module.named_parameters():
+        spec = specs[name]
+        if name not in drawn_names and any(e is not None for e in spec):
+            raise ValueError(f"draw_sharded: constant {name} is sharded "
+                             f"({spec!r})")
+        mark(p, spec)
+    return module
 
 
 def const(shape: tuple[int, ...], value: float, dtype: torch.dtype,

@@ -18,10 +18,17 @@ edges at a time: at ogb_products' 61,859,328 edges, one layer's messages
 
 Batched small graphs (``molecule``) use the same code with a
 block-diagonal edge index; the graph readout is a segment sum over graph
-ids (``segment_sum``). The JAX package's edge-sharded psum and
-node-sharded (``aggregate_mode="shard"``) layers run only under a mesh;
-off a mesh its ``forward`` takes the plain aggregate for either mode, and
-so does the port (the mesh waits for ROADMAP Queue 1, item 5).
+ids (``segment_sum``).
+
+Under a mesh (``distributed.sharding.set_mesh``), as in the JAX package:
+the edges are split over every mesh axis and node features replicated.
+Each rank sums its edges' messages into a partial ``[N, d]`` aggregate
+through the same sorted ``Aggregate`` (no atomics), and an all-reduce
+over the axes completes it (the vertex cut). With ``aggregate_mode=
+"shard"`` (and N divisible by the ranks) a layer instead reduce-scatters
+the partial aggregate, runs ``(1 + eps) h + agg`` and the MLP on the
+rank's N / P rows, and all-gathers the result. Off a mesh both modes take
+the plain aggregate.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ import torch
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import axes_size, dp_axes, tp_axis
 from repro_torch.models.common import (ParamTree, const, cross_entropy,
                                        mlp_apply, mlp_init, tree_from_jax,
                                        tree_to_jax)
@@ -115,11 +124,38 @@ def edge_plan(edges: torch.Tensor, n_nodes: int,
                     segments(dst, src, n_nodes, chunk))
 
 
+def _mesh_axes() -> tuple[str, ...]:
+    return dp_axes() + (("model",) if tp_axis() else ())
+
+
 def _aggregate(h: torch.Tensor, edges: torch.Tensor, n_nodes: int,
                plan: EdgePlan | None = None) -> torch.Tensor:
-    """sum_{j in N(i)} h_j: h [N, d], edges [E, 2] (src, dst) -> [N, d]."""
-    plan = plan or edge_plan(edges, n_nodes)
-    return Aggregate.apply(h, plan.to_dst, plan.to_src)
+    """sum_{j in N(i)} h_j: h [N, d], edges [E, 2] (src, dst) -> [N, d].
+    Under a mesh ``edges`` are all of them and the rank sums its block
+    (``plan``, when given, is the plan of that block)."""
+    axes = _mesh_axes()
+    if plan is None:
+        plan = edge_plan(C.block(edges, 0, axes), n_nodes)
+    if not axes:
+        return Aggregate.apply(h, plan.to_dst, plan.to_src)
+    partial = Aggregate.apply(C.copy_to(h, axes), plan.to_dst, plan.to_src)
+    return C.reduce_from(partial, axes)
+
+
+def _layer_sharded(layer, h: torch.Tensor, plan: EdgePlan, axes):
+    """The JAX package's "shard" mode, one layer: the rank's partial
+    aggregate reduce-scattered over ``axes`` (each rank owns N / P rows),
+    ``(1 + eps) h + agg`` and the MLP on the owned rows, then an
+    all-gather replicates h for the next layer."""
+    partial = Aggregate.apply(C.copy_to(h, axes), plan.to_dst, plan.to_src)
+    agg_own = C.reduce_scatter_(partial, 0, axes)             # [N/P, d]
+    own = C.scatter_to(h, 0, axes)
+    # every rank's rows use the layer's weights: their gradient is a sum
+    eps = C.copy_to(layer["eps"], axes)
+    mlp = {k: C.copy_to(v, axes) for k, v in layer["mlp"].named_parameters()}
+    hn = (1.0 + eps).to(own.dtype) * own + agg_own
+    hn = torch.relu(mlp_apply(mlp, hn, 2)).to(own.dtype)
+    return C.gather_from(hn, 0, axes)
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -180,9 +216,15 @@ def forward(params, feats: torch.Tensor, edges: torch.Tensor,
     dedicated sink node (callers append one)."""
     n = feats.shape[0]
     h = feats.to(getattr(torch, cfg.dtype))
-    plan = edge_plan(edges, n)
+    axes = _mesh_axes()
+    sharded_ok = (cfg.aggregate_mode == "shard" and axes
+                  and n % axes_size(axes) == 0)
+    plan = edge_plan(C.block(edges, 0, axes), n)
     for layer in params["layers"]:
-        agg = Aggregate.apply(h, plan.to_dst, plan.to_src)
+        if sharded_ok:
+            h = _layer_sharded(layer, h, plan, axes)
+            continue
+        agg = _aggregate(h, edges, n, plan)
         h = (1.0 + layer["eps"]).to(h.dtype) * h + agg
         h = mlp_apply(layer["mlp"], h, 2)
         h = torch.relu(h).to(agg.dtype)

@@ -5,10 +5,15 @@ Layout: all categorical fields live in ONE fused table [R_total, D] with
 per-field row offsets (the production packing). A lookup is
 ``F.embedding``: a gather forward, and a backward that sorts the ids and
 sums each row's gradients in order, with no atomic add, so a training
-step repeats bitwise on the card. The JAX package's model-sharded lookup
-(a ``shard_map`` over the table's rows with a psum) runs only under a
-mesh, which waits for the port of ``distributed/`` (ROADMAP Queue 1,
-item 5).
+step repeats bitwise on the card.
+
+Under a mesh the table rows are sharded over the model axis
+(``recsys_param_specs``: the rank holds its block of rows) and the
+lookup is the classic model-parallel embedding: each rank resolves the
+ids that fall in its row range, zeros elsewhere, and an all-reduce over
+"model" completes the gather (O(B * F * D) on the wire). The ids are
+the global batch, split over the data axes when it divides, as the JAX
+package's ``shard_map`` splits them.
 """
 from __future__ import annotations
 
@@ -17,6 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (axes_size, axis_index,
+                                              dp_axes, entry_axes,
+                                              mesh_axis_size, spec_of,
+                                              tp_axis)
 from repro_torch.models.common import draw
 
 
@@ -36,9 +46,44 @@ def init_table(n_rows: int, dim: int, dtype: torch.dtype,
     return draw((n_rows, dim), 0.01, dtype, device, generator)
 
 
+def _row_sharded(table: torch.Tensor) -> bool:
+    spec = spec_of(table)
+    return spec is not None and len(spec) > 0 \
+        and "model" in entry_axes(spec[0])
+
+
 def lookup(table: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
-    """Row lookup [...] -> [..., D]."""
-    return F.embedding(gids.long(), table)
+    """Row lookup [...] -> [..., D]; model-sharded under a mesh.
+
+    ``table`` is the whole table, or this rank's block of rows when it is
+    row-sharded over "model" (its spec says so); ``gids`` the global ids.
+    The sharded branch is taken under the JAX package's condition: a
+    model axis whose size divides the table's (global) rows. A whole
+    table taken there is cut to the rank's block first, as the JAX
+    ``shard_map``'s ``in_specs`` cut it."""
+    tp = tp_axis()
+    model = mesh_axis_size("model")
+    sharded = tp is not None and _row_sharded(table)
+    rows = table.shape[0] * (model if sharded else 1)
+    if tp is None or rows % model != 0:
+        return F.embedding(gids.long(), table)
+    if not sharded:
+        table = C.scatter_to(table, 0, "model")
+
+    token_axes = dp_axes()
+    if gids.shape[0] % axes_size(token_axes) != 0:
+        token_axes = ()      # small request batches stay replicated
+    ids = C.block(gids, 0, token_axes)
+    # every data rank looks up its part of the ids: the table's gradient
+    # is their sum
+    tbl = C.copy_to(table, token_axes)
+    per = tbl.shape[0]
+    local = ids.long() - axis_index("model") * per
+    in_range = (local >= 0) & (local < per)
+    got = F.embedding(local.clamp(0, per - 1), tbl)
+    got = got * in_range[..., None].to(got.dtype)
+    got = C.reduce_from(got, "model")
+    return C.gather_from(got, 0, token_axes)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,

@@ -15,10 +15,18 @@ Two execution paths per layer:
     same cache. GQA decode takes Gemma's ring buffers (slot ``pos % T``);
     MLA decode is the absorbed form over the latent cache.
 
-The JAX package's ``shard(...)`` constraints are no-ops without a mesh
-and have no counterpart here. Its ``repeat`` of the kv heads (for tensor
-parallelism) stays on the plain path; the kernel reads kv head
-``h // group`` for q head h instead.
+On a mesh in "tp" mode (``parallel``) each rank holds its columns of
+the q/k/v projections (its heads) and its rows of ``wo``; the block's
+input enters through ``parallel.enter`` and ``wo``'s partial sums leave
+through ``parallel.leave``, the collectives GSPMD inserts for the JAX
+package's ``shard(...)`` constraints. Where the kv heads do not split
+over the model axis (``n_kv_heads % tp``), a rank's k/v columns are
+part of a head: the rank all-gathers the k/v columns and keeps the heads
+its query heads read, as GSPMD's split of a head's columns gives the
+same numbers. MLA splits ``wq``, ``w_uk`` and ``w_uv`` by heads and keeps
+``w_dkv``, ``w_kr`` and ``kv_norm`` whole (``_lm_rule``). The JAX
+``repeat`` of the kv heads stays on the plain path; the kernel reads kv
+head ``h // group`` for q head h instead, on the rank's local heads.
 """
 from __future__ import annotations
 
@@ -26,8 +34,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import axis_index
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import rms_norm
+from repro_torch.models.transformer import parallel
 from repro_torch.models.transformer.ffn import draw, linear
 from repro_torch.models.transformer.rope import apply_rope
 
@@ -85,12 +96,15 @@ def gqa_forward(p: GQA, x: torch.Tensor, positions: torch.Tensor,
                 cfg: TransformerConfig, *, window: int = 0,
                 use_kernel: bool = False) -> torch.Tensor:
     """Full-sequence GQA. x [B, S, d] -> [B, S, d]."""
+    tp = parallel.tp_size(cfg)
+    x = parallel.enter(x, cfg)
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    g = h // kv
+    h, kv, dh = cfg.n_heads // tp, cfg.n_kv_heads, cfg.d_head
     q = apply_rope(p.wq(x).reshape(b, s, h, dh), positions, cfg.rope_theta)
-    k = apply_rope(p.wk(x).reshape(b, s, kv, dh), positions, cfg.rope_theta)
-    v = p.wv(x).reshape(b, s, kv, dh)
+    k, v = _local_kv(p.wk(x), p.wv(x), cfg, tp)
+    kv = k.shape[2]
+    g = h // kv
+    k = apply_rope(k, positions, cfg.rope_theta)
     if use_kernel:
         # [B, H, S, Dh] views of the projections: the kernel reads in place
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -105,7 +119,31 @@ def gqa_forward(p: GQA, x: torch.Tensor, positions: torch.Tensor,
         o = _sdpa_chunked(q.reshape(b, s, h, 1, dh), k, v, causal=True,
                           window=window, q_chunk=cfg.attn_q_chunk)
         o = o.reshape(b, s, h * dh)
-    return p.wo(o)
+    return parallel.leave(p.wo(o), cfg)
+
+
+def _local_kv(k_cols: torch.Tensor, v_cols: torch.Tensor,
+              cfg: TransformerConfig, tp: int):
+    """The k/v heads [B, S, KVl, Dh] this rank's query heads read, from
+    its k/v projection columns. When the kv heads split over the model
+    axis those columns are its heads; otherwise the columns are
+    all-gathered (the gradient reduce-scattered back) and the rank keeps
+    kv heads ``q // group`` of its query heads q, which must be whole
+    groups or parts of one."""
+    b, s, _ = k_cols.shape
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    if tp == 1 or kv % tp == 0:
+        return (k_cols.reshape(b, s, kv // tp, dh),
+                v_cols.reshape(b, s, kv // tp, dh))
+    h_loc, group = cfg.n_heads // tp, cfg.n_heads // kv
+    if h_loc % group and group % h_loc:
+        raise ValueError(f"{h_loc} query heads a rank straddle kv groups of "
+                         f"{group}")
+    first = axis_index(parallel.MODEL) * h_loc // group
+    n = max(1, h_loc // group)
+    k = C.gather_sum(k_cols, 2, parallel.MODEL).reshape(b, s, kv, dh)
+    v = C.gather_sum(v_cols, 2, parallel.MODEL).reshape(b, s, kv, dh)
+    return k[:, :, first:first + n], v[:, :, first:first + n]
 
 
 def gqa_decode(p: GQA, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
@@ -184,16 +222,22 @@ def mla_forward(p: MLA, x: torch.Tensor, positions: torch.Tensor,
     k_nope + q_rope k_rope) * (nd + rd) ** -0.5`` are the full [B, h, S,
     S] in float32, as in the JAX package; without autograd the sum, scale
     and mask run in place to keep one such tensor beside the softmax's."""
+    tp = parallel.tp_size(cfg)
+    if cfg.seq_parallel and tp > 1:
+        x = C.gather_from(x, 1, parallel.MODEL)
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = cfg.n_heads // tp
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = p.wq(x).reshape(b, s, h, nd + rd)
+    q = p.wq(_into_heads(x, tp)).reshape(b, s, h, nd + rd)
     q_nope = q[..., :nd]
     q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
 
-    c_kv = rms_norm(p.w_dkv(x), p.kv_norm, cfg.norm_eps)          # [B,S,r]
-    k_rope = apply_rope(p.w_kr(x)[:, :, None, :], positions,
-                        cfg.rope_theta)                           # [B,S,1,rd]
+    # w_dkv, w_kr and kv_norm are whole on every rank: the latent and the
+    # shared rotary key are computed alike everywhere and enter the
+    # rank's heads through copy_to
+    c_kv = _into_heads(rms_norm(p.w_dkv(x), p.kv_norm, cfg.norm_eps), tp)
+    k_rope = _into_heads(apply_rope(p.w_kr(x)[:, :, None, :], positions,
+                                    cfg.rope_theta), tp)          # [B,S,1,rd]
     k_nope = (c_kv @ p.w_uk).reshape(b, s, h, nd)
     v = (c_kv @ p.w_uv).reshape(b, s, h, vd)
 
@@ -214,7 +258,12 @@ def mla_forward(p: MLA, x: torch.Tensor, positions: torch.Tensor,
     pr = torch.softmax(sc, dim=-1)
     del sc
     o = torch.einsum("bhst,bthd->bshd", pr, v.float())
-    return p.wo(o.reshape(b, s, h * vd).to(x.dtype))
+    return parallel.leave(p.wo(o.reshape(b, s, h * vd).to(x.dtype)), cfg)
+
+
+def _into_heads(t: torch.Tensor, tp: int) -> torch.Tensor:
+    """A tensor replicated over the model axis entering per-head work."""
+    return C.copy_to(t, parallel.MODEL) if tp > 1 else t
 
 
 def mla_decode(p: MLA, x: torch.Tensor, pos: int, cache_ckv: torch.Tensor,

@@ -13,12 +13,22 @@ loss; the (token, k) assignments stably sorted by expert, ranked within
 their expert, and those past the capacity ``ceil(T * k / E *
 capacity_factor)`` dropped; the kept tokens gathered into ``[E, C, d]``
 buffers for the experts' batched products; each token's kept outputs,
-weighted, summed back. ``moe_forward`` is the JAX ``moe_ep`` off a mesh
-(``moe_local`` over all ``B * S`` tokens of the call); expert parallelism
-under a mesh waits for the port of ``distributed/sharding.py``.
+weighted, summed back. ``moe_forward`` is the JAX ``moe_ep``: off a
+mesh ``moe_local`` over all ``B * S`` tokens of the call; on a mesh
+whose model axis divides the experts, expert parallelism (``moe_ep``),
+each rank holding its ``E / ep`` experts. Its capacity is computed from
+each shard's own tokens, as the JAX package computes it, so tokens drop
+per shard: the mesh's answer is ``moe_local`` on each shard's tokens,
+not the unsharded one.
+
+On a mesh in "tp" mode a SwiGLU (a dense layer, or the shared experts)
+is column-parallel in ``w1``/``w3`` and row-parallel in ``w2``: its input
+enters through ``parallel.enter`` and its partial sums leave through
+``parallel.leave``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -26,7 +36,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (axes_size, axis_index,
+                                              dp_axes, mesh_axis_size,
+                                              tp_axis)
 from repro_torch.models.common import draw
+from repro_torch.models.transformer import parallel
 
 
 def linear(d_in: int, d_out: int, dtype: torch.dtype, device: torch.device,
@@ -51,6 +66,12 @@ class SwiGLU(nn.Module):
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return p.w2(F.silu(p.w1(x)) * p.w3(x))
+
+
+def swiglu_tp(p: SwiGLU, x: torch.Tensor,
+              cfg: TransformerConfig) -> torch.Tensor:
+    """``swiglu`` on the rank's columns, its partial sums combined."""
+    return parallel.leave(swiglu(p, parallel.enter(x, cfg)), cfg)
 
 
 # ---------------------------------------------------------------- MoE
@@ -144,17 +165,7 @@ def _dispatch_compute(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     contrib = out_e[slot_e.clamp(max=el - 1), slot_c] \
         * sw[:, None].to(out_e.dtype)
     contrib = torch.where(keep[:, None], contrib, 0)
-    # back to [T, k] (the assignments' own order), then each token's k in
-    # ascending expert order
-    per_token = torch.empty_like(contrib)
-    per_token[order] = contrib
-    by_expert = torch.argsort(idx, dim=1, stable=True)
-    per_token = per_token.view(t, k, d).gather(
-        1, by_expert[:, :, None].expand(t, k, d))
-    out = torch.zeros_like(x)
-    for j in range(k):
-        out = out + per_token[:, j]
-    return out
+    return _combine(contrib, order, idx, x)
 
 
 def moe_local(p: MoE, x: torch.Tensor, cfg: TransformerConfig):
@@ -169,12 +180,162 @@ def moe_local(p: MoE, x: torch.Tensor, cfg: TransformerConfig):
     return out, aux
 
 
-def moe_forward(p: MoE, x: torch.Tensor, cfg: TransformerConfig):
+def _combine(contrib: torch.Tensor, order: torch.Tensor,
+             idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Weighted expert outputs ``contrib`` [T * k, d] in sorted order back
+    to their tokens, each token's k added in ascending expert order, one
+    sum after another (``_dispatch_compute``'s combine)."""
+    t, k = idx.shape
+    d = contrib.shape[-1]
+    per_token = torch.empty_like(contrib)
+    per_token[order] = contrib
+    by_expert = torch.argsort(idx, dim=1, stable=True)
+    per_token = per_token.view(t, k, d).gather(
+        1, by_expert[:, :, None].expand(t, k, d))
+    out = torch.zeros_like(like)
+    for j in range(k):
+        out = out + per_token[:, j]
+    return out
+
+
+def _shared(p: MoE, x: torch.Tensor, cfg: TransformerConfig):
+    """The shared experts on the replicated stream ``x`` (column- and
+    row-parallel over the model axis), or None."""
+    if p.shared is None:
+        return None
+    return swiglu_tp(p.shared, x, cfg)
+
+
+def moe_ep(p: MoE, x: torch.Tensor, cfg: TransformerConfig, *,
+           split: bool = True):
+    """The JAX package's ``moe_ep`` on the ambient mesh. ``x`` is this
+    rank's part of the tokens: [B_local, S, d] (train / prefill) or
+    [T, d], split over the data axes when ``split`` (the global batch
+    divides over them) and replicated over "model". Experts are split over
+    "model" (``p.w1`` etc. hold the rank's ``E / ep``).
+
+    * The three-dimensional path (the global batch divides over the data
+      axes and S over the model axis): each model rank takes its S / ep
+      positions, routes them, builds the ``[E, C, d]`` send buffer with
+      the capacity of its own tokens, all-to-alls it over "model", runs
+      its experts, all-to-alls the outputs back, combines, and the
+      positions are all-gathered back over "model".
+    * The token-poor path otherwise: every model rank routes all its
+      tokens, runs its expert slice (foreign experts dropped) with the
+      capacity of those tokens, and the outputs are all-reduced over
+      "model". A batch that is replicated over the data axes is split
+      over them here when its tokens divide, as JAX's ``x_spec`` does.
+
+    ``aux`` is averaged over the token axes. Off a mesh, or where the
+    model axis does not divide the experts, ``moe_local``."""
+    tp = tp_axis()
+    ep = mesh_axis_size("model") if tp else 1
+    e = cfg.n_experts
+    if ep <= 1 or e % ep != 0:
+        if x.dim() == 3:
+            b, s, d = x.shape
+            out, aux = moe_local(p, x.reshape(b * s, d), cfg)
+            return out.reshape(b, s, d), aux
+        return moe_local(p, x, cfg)
+    if p.w1.shape[0] * ep != e:
+        raise ValueError(f"moe_ep: {p.w1.shape[0]} experts on this rank, "
+                         f"{e} over {ep} model ranks expected")
+    dp = dp_axes()
+    dp_size = axes_size(dp)
+    sp = parallel.seq_parallel(cfg)     # x holds S / ep positions already
+    seq = x.shape[1] * (ep if sp else 1) if x.dim() == 3 else 0
+    three_d = x.dim() == 3 and split and seq % ep == 0
+    if not three_d:
+        if sp:
+            x = C.gather_from(x, 1, "model")
+        xf = x.reshape(-1, x.shape[-1])
+        axes: tuple = ()
+        if split and dp_size > 1:
+            axes = dp
+        elif dp_size > 1 and xf.shape[0] % dp_size == 0:
+            axes = dp                  # a replicated batch split here
+            if torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "moe_ep: training on a batch that does not split over "
+                    "the data axes")
+            xf = C.block(xf, 0, dp)
+        out, aux = _moe_ep_token_poor(p, xf, cfg, axes, ep)
+        if axes and not split:
+            out = C.all_gather(out, 0, dp)
+        out = out.reshape(x.shape)
+        return (C.scatter_to(out, 1, "model") if sp else out), aux
+
+    x_loc = x if sp else C.scatter_to(x, 1, "model")  # [B_local, S/ep, d]
+    bl, sl, d = x_loc.shape
+    xf = x_loc.reshape(-1, d)
+    t = xf.shape[0]
+    cap = max(1, math.ceil(t * cfg.moe_top_k / e * cfg.capacity_factor))
+    # the router's gradient is a sum over every rank's positions
+    idx, w, aux = _route(C.copy_to(p.router, "model"), xf, cfg.moe_top_k)
+    k = idx.shape[1]
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st_, sw = flat_e[order], flat_t[order], w.reshape(-1)[order]
+    start = torch.searchsorted(se, torch.arange(e + 1, device=x.device))
+    rank = torch.arange(t * k, device=x.device) - start[se]
+    keep = rank < cap
+    slot_e = torch.where(keep, se, e)
+    slot_c = torch.where(keep, rank, 0)
+    buf = torch.zeros((e + 1, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot_e, slot_c), xf[st_])
+    # dispatch: [E, C, d] -> this rank's experts' [E / ep, C * ep, d]
+    recv = C.all_to_all_(buf[:e], 0, 1, "model")
+    h = torch.bmm(recv, p.w1)
+    g = torch.bmm(recv, p.w3)
+    out_e = torch.bmm(F.silu(h) * g, p.w2)
+    back = C.all_to_all_(out_e, 1, 0, "model")       # [E, C, d]
+    contrib = back[slot_e.clamp(max=e - 1), slot_c] \
+        * sw[:, None].to(back.dtype)
+    contrib = torch.where(keep[:, None], contrib, 0)
+    out = _combine(contrib, order, idx, xf).reshape(bl, sl, d)
+    if not sp:
+        out = C.gather_from(out, 1, "model")
+    shared = _shared(p, x, cfg)
+    if shared is not None:
+        out = out + shared
+    # replicate the aux loss: its mean over the model ranks (the router's
+    # gradient adds theirs) and over the data axes (the train step
+    # averages gradients there)
+    aux = C.reduce_from(aux / ep, "model")
+    return out, C.mean_over(aux, dp)
+
+
+def _moe_ep_token_poor(p: MoE, x: torch.Tensor, cfg: TransformerConfig,
+                       token_axes: tuple, ep: int):
+    """Redundant routing on every model rank, the rank's expert slice
+    (foreign experts -> the sentinel, dropped), all-reduce over "model".
+    ``x`` [T, d] is the rank's tokens (split over ``token_axes``)."""
+    e = cfg.n_experts
+    el = e // ep
+    t = x.shape[0]
+    cap = max(1, math.ceil(t * cfg.moe_top_k / e * cfg.capacity_factor))
+    idx, w, aux = _route(p.router, x, cfg.moe_top_k)
+    my = axis_index("model")
+    local_idx = idx - my * el
+    local_idx = torch.where((local_idx >= 0) & (local_idx < el),
+                            local_idx, el)
+    # the rank's experts see the replicated tokens and weights as its own
+    # work: their gradients are summed over the model ranks
+    out = _dispatch_compute(C.copy_to(x, "model"), local_idx,
+                            C.copy_to(w, "model"), p.w1, p.w3, p.w2, cap)
+    out = C.reduce_from(out, "model")
+    if p.shared is not None:
+        out = out + swiglu_tp(p.shared, x, dataclasses.replace(
+            cfg, seq_parallel=False))
+    if token_axes:
+        aux = C.mean_over(aux, token_axes)
+    return out, aux
+
+
+def moe_forward(p: MoE, x: torch.Tensor, cfg: TransformerConfig, *,
+                split: bool = True):
     """x [T, d] or [B, S, d] -> (the same shape, aux): the JAX package's
-    ``moe_ep`` off a mesh, which runs ``moe_local`` over all ``B * S``
-    tokens of the call."""
-    if x.dim() == 3:
-        b, s, d = x.shape
-        out, aux = moe_local(p, x.reshape(b * s, d), cfg)
-        return out.reshape(b, s, d), aux
-    return moe_local(p, x, cfg)
+    ``moe_ep`` (off a mesh, ``moe_local`` over all ``B * S`` tokens of
+    the call)."""
+    return moe_ep(p, x, cfg, split=split)

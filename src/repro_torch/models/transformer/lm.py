@@ -24,6 +24,14 @@ the stack) has no counterpart. ``params_from_jax`` unstacks the JAX
 pytree and ``params_to_jax`` restacks it (``to_jax_layout`` /
 ``load_jax_layout`` do the same for any tree that mirrors the
 parameters, such as AdamW's moments).
+
+On a mesh (``distributed.sharding.set_mesh``) ``forward_train``,
+``forward`` and ``loss_fn`` run the JAX package's sharded forward as SPMD
+(``parallel``): the parameters are the rank's slices under
+``lm_param_specs`` (``init_params(..., mesh=)`` draws them), the tokens
+are the global batch, and the logits come back as the rank's rows and
+vocab columns (``parallel.gather_logits`` assembles them). Decode on a
+mesh is not ported.
 """
 from __future__ import annotations
 
@@ -37,13 +45,16 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import host_array, resolve_device
+from repro_torch.distributed.sharding import get_mesh
 from repro_torch.models.common import cross_entropy, rms_norm
 from repro_torch.models.transformer.attention import (GQA, MLA, gqa_decode,
                                                       gqa_forward,
                                                       mla_decode,
                                                       mla_forward)
+from repro_torch.models.transformer import parallel
 from repro_torch.models.transformer.ffn import (MoE, SwiGLU, draw,
-                                                moe_forward, swiglu)
+                                                moe_forward, swiglu,
+                                                swiglu_tp)
 
 AUX_COEF = 0.01
 
@@ -96,6 +107,11 @@ class Block(nn.Module):
             else SwiGLU(cfg.d_model, cfg.d_ff, dtype, device, generator)
         self.ffn_norm = _norm(cfg.d_model, device)
 
+    def forward(self, x, positions, window, cfg, use_kernel, split=True):
+        """``_block`` (so ``torch.func.functional_call`` can run a layer
+        with its FSDP-gathered weights)."""
+        return _block(self, x, positions, window, cfg, use_kernel, split)
+
 
 class LM(nn.Module):
     """Parameters of the decoder: ``embed`` and ``out_embed`` ``[V, d]``
@@ -118,33 +134,55 @@ class LM(nn.Module):
 
 
 def init_params(cfg: TransformerConfig, *, seed: int = 0,
-                device: str | torch.device | None = None) -> LM:
+                device: str | torch.device | None = None,
+                mesh=None) -> LM:
     """Random parameters drawn on the device from a ``torch.Generator``
     seeded with ``seed``: float32 standard normal times the JAX package's
     scale, then cast to ``cfg.dtype``; norm gains are float32 zeros, the
-    MoE router float32. (The draws are not JAX's: ``params_from_jax``
-    carries JAX's across.)"""
+    MoE router float32; undrawn on the meta device. (The draws are not
+    JAX's: ``params_from_jax`` carries JAX's across.) With a ``mesh`` each parameter is this rank's
+    slice under ``lm_param_specs`` of the same draws (``common.draw_sharded``:
+    one draw chunk at a time is whole, never a whole model)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return LM(cfg, dev, gen)
+    gen = None if dev.type == "meta" \
+        else torch.Generator(device=dev).manual_seed(seed)
+    if mesh is None:
+        return LM(cfg, dev, gen)
+    from repro_torch.distributed.param_sharding import lm_param_specs
+    from repro_torch.models.common import draw_sharded
+    return draw_sharded(lambda d, g: LM(cfg, d, g), dev, gen,
+                        lambda m: lm_param_specs(m, cfg.sharding_mode), mesh)
 
 
 def _block(layer: Block, x: torch.Tensor, positions: torch.Tensor,
-           window: int, cfg: TransformerConfig, use_kernel: bool):
+           window: int, cfg: TransformerConfig, use_kernel: bool,
+           split: bool = True):
     """One layer with its static window (0 = global) -> (x, aux)."""
-    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+    h = rms_norm(x, parallel.stream_param(layer.attn_norm, cfg),
+                 cfg.norm_eps)
     if cfg.mla:
         a = mla_forward(layer.attn, h, positions, cfg)
     else:
         a = gqa_forward(layer.attn, h, positions, cfg, window=window,
                         use_kernel=use_kernel)
     x = x + a
-    h = rms_norm(x, layer.ffn_norm, cfg.norm_eps)
+    h = rms_norm(x, parallel.stream_param(layer.ffn_norm, cfg),
+                 cfg.norm_eps)
     if isinstance(layer.ffn, MoE):
-        out, aux = moe_forward(layer.ffn, h, cfg)         # 3D in, 3D out
+        out, aux = moe_forward(layer.ffn, h, cfg, split=split)  # 3D in/out
     else:
-        out, aux = swiglu(layer.ffn, h), None
+        out, aux = swiglu_tp(layer.ffn, h, cfg), None
     return x + out, aux
+
+
+def _run_block(layer: Block, x, positions, window, cfg, use_kernel, split):
+    """``_block``; in "fsdp" mode on a mesh with the layer's weights
+    all-gathered first (their gradients reduce-scattered back)."""
+    if cfg.sharding_mode == "fsdp" and get_mesh() is not None:
+        return torch.func.functional_call(
+            layer, parallel.fsdp_params(layer),
+            (x, positions, window, cfg, use_kernel, split))
+    return _block(layer, x, positions, window, cfg, use_kernel, split)
 
 
 # the products remat="dots" keeps (the JAX ``dots_saveable`` policy)
@@ -180,19 +218,40 @@ def forward_train(params: LM, tokens: torch.Tensor, cfg: TransformerConfig,
     block under ``cfg.remat``). ``use_kernel=True`` raises under autograd:
     the flash_attention kernel has no backward, and training runs the
     plain attention path, as the JAX package's does."""
+    logits, aux, _ = _forward(params, tokens, cfg, use_kernel)
+    return logits, aux
+
+
+def _forward(params: LM, tokens: torch.Tensor, cfg: TransformerConfig,
+             use_kernel: bool):
+    """``forward_train`` and whether the batch was split over the data
+    axes (on a mesh; False off one)."""
+    split = False
+    if get_mesh() is not None:
+        parallel.check_mesh(cfg)
+        tokens, split = parallel.place_batch(tokens, cfg)
     b, s = tokens.shape
-    x = F.embedding(tokens.long(), params.embed)
+    tp = parallel.tp_size(cfg)
+    if tp > 1:
+        x = parallel.vocab_embed(params.embed, tokens, cfg)
+    else:
+        x = F.embedding(tokens.long(), parallel.fsdp_full(params.embed))
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _remat(_block, cfg)
+    block = _remat(_run_block, cfg)
     if params.dense0 is not None:
-        x, _ = block(params.dense0, x, positions, 0, cfg, use_kernel)
+        x, _ = block(params.dense0, x, positions, 0, cfg, use_kernel, split)
     for layer, w in zip(params.layers, layer_windows(cfg)):
-        x, aux = block(layer, x, positions, int(w), cfg, use_kernel)
+        x, aux = block(layer, x, positions, int(w), cfg, use_kernel, split)
         if aux is not None:
             aux_total = aux_total + aux
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return F.linear(x, params.out_embed), aux_total
+    x = rms_norm(x, parallel.stream_param(params.final_norm, cfg),
+                 cfg.norm_eps)
+    if tp > 1:
+        logits = parallel.vocab_logits(x, params.out_embed, cfg)
+    else:
+        logits = F.linear(x, parallel.fsdp_full(params.out_embed))
+    return logits, aux_total, split
 
 
 @torch.no_grad()
@@ -207,9 +266,12 @@ def loss_fn(params: LM, batch: dict, cfg: TransformerConfig, *,
     """batch = {"tokens": [B, S], "labels": [B, S]} (labels -1 = pad) ->
     the float32 mean cross entropy plus ``AUX_COEF`` times the MoE aux
     loss."""
-    logits, aux = forward_train(params, batch["tokens"], cfg,
-                                use_kernel=use_kernel)
-    return cross_entropy(logits, batch["labels"]) + AUX_COEF * aux
+    logits, aux, split = _forward(params, batch["tokens"], cfg, use_kernel)
+    if get_mesh() is None:
+        return cross_entropy(logits, batch["labels"]) + AUX_COEF * aux
+    labels = parallel.place_batch(batch["labels"], cfg)[0]
+    return parallel.vocab_cross_entropy(logits, labels, cfg, split) \
+        + AUX_COEF * aux
 
 
 # --------------------------------------------------------------- decode
@@ -284,6 +346,10 @@ def decode_step(params: LM, cache: dict, tokens: torch.Tensor, pos: int,
     all sequences; per-sequence offsets belong to the serving engine).
     Writes the step's keys and values (or latents) into ``cache`` in
     place and returns (logits [B, V], cache)."""
+    if get_mesh() is not None:
+        raise NotImplementedError(
+            "decode_step on a mesh (cache_specs' sharded cache) is not "
+            "ported; decode off the mesh")
     x = F.embedding(tokens.long(), params.embed)          # [B, 1, d]
     if params.dense0 is not None:
         lyr = params.dense0

@@ -12,6 +12,16 @@ tensors keyed by name (``dict(params.named_parameters())`` for an
 copy, since the JAX package keeps none. Weight decay applies to every
 leaf, norm gains included, as there. Every scalar of the update stays on
 the parameters' device: a step reads nothing back to the host.
+
+On a mesh (``distributed.sharding.set_mesh``) a parameter is the rank's
+slice under its spec (``sharding.spec_of``), and so is its gradient.
+``global_norm`` is the norm of the global gradient: each leaf's sum of
+squares is summed over the axes the leaf is split over, and a replicated
+leaf counts once. With ZeRO-1 (``init_opt_state(..., zero=True)``) ``m``
+and ``v`` hold the rank's block of the parameter's slice along the dim
+``zero_shard_spec`` gives the data axes; each data rank updates that
+block of the moments and the parameter, and the parameter is
+all-gathered over the data axes.
 """
 from __future__ import annotations
 
@@ -20,6 +30,13 @@ import math
 
 import torch
 from torch import nn
+
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (axes_size, dp_axes,
+                                              entry_axes, full_shape,
+                                              get_mesh, mark,
+                                              mesh_axis_size, spec_axes,
+                                              spec_of)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,22 +71,88 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init_opt_state(params) -> dict:
+def zero_dim(p: torch.Tensor, m: torch.Tensor) -> int | None:
+    """The dim along which moment ``m`` holds a data rank's block of
+    parameter ``p`` (ZeRO-1), or None."""
+    pspec, mspec = spec_of(p), spec_of(m)
+    if pspec is None or mspec is None:
+        return None
+    dp = set(dp_axes())
+    for i, (a, b) in enumerate(zip(tuple(pspec) + (None,) * p.dim(),
+                                   mspec)):
+        if dp & set(entry_axes(b)) and not dp & set(entry_axes(a)):
+            return i
+    return None
+
+
+def init_opt_state(params, *, zero: bool = False) -> dict:
     """``m`` and ``v``: float32 zeros shaped as each parameter, on its
-    device; ``step``: an int32 zero."""
+    device; ``step``: an int32 zero. With ``zero`` on a mesh, ``m`` and
+    ``v`` are the rank's ZeRO-1 block (``opt_state_specs(zero=True)`` over
+    the data axes), marked with that spec."""
+    from repro_torch.distributed.param_sharding import zero_shard_spec
     named = named_leaves(params)
     dev = next(iter(named.values())).device
-    return dict(m={k: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for k, p in named.items()},
-                v={k: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for k, p in named.items()},
-                step=torch.zeros((), dtype=torch.int32, device=dev))
+    dp = dp_axes()
+    dp_size = axes_size(dp)
+    m, v = {}, {}
+    for k, p in named.items():
+        shape = p.shape
+        spec = spec_of(p)
+        zspec = None
+        if zero and get_mesh() is not None and spec is not None and dp:
+            entry = dp if len(dp) > 1 else dp[0]
+            zspec = zero_shard_spec(spec, full_shape(p.shape, spec), entry,
+                                    dp_size)
+            zd = zero_dim(p, mark(torch.empty(0), zspec))
+            if zd is not None:
+                shape = list(shape)
+                shape[zd] //= dp_size
+        for tree in (m, v):
+            t = torch.zeros(tuple(shape), dtype=torch.float32,
+                            device=p.device)
+            tree[k] = mark(t, zspec if zspec is not None else spec) \
+                if spec is not None else t
+    return dict(m=m, v=v, step=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The float32 L2 norm of every leaf together."""
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
-                          for l in named_leaves(tree).values()))
+def global_norm(tree, specs: dict | None = None) -> torch.Tensor:
+    """The float32 L2 norm of every leaf together. With ``specs`` (by
+    name; on a mesh) the leaves are rank slices: each leaf's sum of
+    squares is summed over the axes its spec splits it over."""
+    leaves = named_leaves(tree)
+    if specs is None or get_mesh() is None:
+        return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
+                              for l in leaves.values()))
+    groups: dict[tuple, torch.Tensor] = {}
+    for name, l in leaves.items():
+        axes = tuple(a for a in spec_axes(specs[name] or ())
+                     if mesh_axis_size(a) > 1)
+        sq = torch.sum(torch.square(l.to(torch.float32)))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    total = sum(C.all_reduce(sq, axes) if axes else sq
+                for axes, sq in groups.items())
+    return torch.sqrt(total)
+
+
+def reduce_grads(grads: dict, params, axes) -> dict:
+    """Data-parallel gradients -> the gradient of the mean loss: over
+    each of ``axes`` a leaf's gradient is averaged (all-reduce) or, where
+    the leaf is split over that axis (its slice was all-gathered for use
+    and the gradient reduce-scattered back as a sum), divided by its
+    size."""
+    named = named_leaves(params)
+    out = {}
+    for name, g in grads.items():
+        mine = set(spec_axes(spec_of(named[name]) or ()))
+        for ax in axes:
+            n = mesh_axis_size(ax)
+            if n == 1:
+                continue
+            g = g / n if ax in mine else C.all_reduce(g, ax) / n
+        out[name] = g
+    return out
 
 
 @torch.no_grad()
@@ -80,22 +163,33 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig):
     with ``metrics`` = ``grad_norm`` and ``lr`` (float32 tensors)."""
     named = named_leaves(params)
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    specs = {k: spec_of(p) for k, p in named.items()}
+    gnorm = global_norm(grads, specs if any(specs.values()) else None)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, step)
     bc1 = 1 - torch.pow(cfg.b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(cfg.b2, step.to(torch.float32))
+    dp = dp_axes()
     for name, p in named.items():
         m, v = opt_state["m"][name], opt_state["v"][name]
-        g = grads[name].to(torch.float32) * scale
+        zd = zero_dim(p, m)
+        g = grads[name]
+        if zd is not None:
+            g = C.block(g, zd, dp)
+        g = g.to(torch.float32) * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         del g
-        p32 = p.to(torch.float32)
+        mine = p if zd is None else C.block(p, zd, dp)
+        p32 = mine.to(torch.float32)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
             + cfg.weight_decay * p32
-        p.copy_(p32 - lr * delta)
+        new = p32 - lr * delta
+        if zd is None:
+            p.copy_(new)
+        else:
+            p.copy_(C.all_gather(new.to(p.dtype), zd, dp))
     metrics = dict(grad_norm=gnorm, lr=lr)
     return params, dict(m=opt_state["m"], v=opt_state["v"], step=step), \
         metrics

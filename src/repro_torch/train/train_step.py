@@ -8,13 +8,21 @@ into bf16 ``.grad`` would round once per microbatch); the sum and the
 loss are then divided by ``microbatches``. One microbatch hands its
 gradients to the update in the parameters' dtype, as ``value_and_grad``
 does there.
+
+On a mesh (``distributed.sharding.set_mesh``) every rank runs the step
+on its slices with the global batch (the model places its rows): the
+gradients are reduced over ``grad_axes`` (by default the data axes;
+``optimizer.reduce_grads``) before the update, and ``loss`` is averaged
+over them.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import axes_size, dp_axes, get_mesh
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
-                                         named_leaves)
+                                         named_leaves, reduce_grads)
 
 
 def _grads(loss: torch.Tensor, leaves: list[torch.Tensor]):
@@ -25,7 +33,8 @@ def _grads(loss: torch.Tensor, leaves: list[torch.Tensor]):
             for p, g in zip(leaves, gs)]
 
 
-def make_train_step(loss_fn, opt_cfg: AdamWConfig, *, microbatches: int = 1):
+def make_train_step(loss_fn, opt_cfg: AdamWConfig, *, microbatches: int = 1,
+                    grad_axes: tuple[str, ...] | None = None):
     """``loss_fn(params, batch)`` -> a scalar tensor. Returns
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, which updates the parameters and the moments in place;
@@ -64,9 +73,14 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, *, microbatches: int = 1):
             loss = loss_fn(params, batch)
             grads = dict(zip(names, _grads(loss, leaves)))
             loss = loss.detach()
+        if get_mesh() is not None:
+            axes = dp_axes() if grad_axes is None else grad_axes
+            grads = reduce_grads(grads, named, axes)
+            loss = C.all_reduce(loss, axes) / axes_size(axes)
         params, opt_state, metrics = adamw_update(grads, opt_state, params,
                                                   opt_cfg)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return step
+

@@ -156,9 +156,9 @@ def test_load_errors(tmp_path):
     with pytest.raises(FileNotFoundError):
         load_checkpoint(str(tmp_path), _tree(), device="cpu")
     save_checkpoint(str(tmp_path), 1, _tree(), shards=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        load_checkpoint(str(tmp_path), _tree(), device="cpu",
-                        shardings=dict(w=None))
+    # shardings= keeps a slice: a whole leaf (None) as it is, and a leaf
+    # under a spec on a one-rank mesh whole too (its one block), marked
+    _sliced_restore(tmp_path)
     with pytest.raises(ValueError, match="leaf count"):
         load_checkpoint(str(tmp_path), dict(w=torch.zeros(16, 8)),
                         device="cpu")
@@ -347,3 +347,30 @@ def test_resume_in_the_port_is_bitwise(tmp_path):
         for n, a in opt[k].items():
             assert torch.equal(a, ref_opt[k][n]), (k, n)
     assert torch.equal(opt["step"], ref_opt["step"])
+
+
+def _sliced_restore(tmp_path):
+    """``load_checkpoint(shardings=)`` on a one-rank mesh: each leaf under
+    its (mesh, spec) is the rank's block, marked with the spec."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.sharding import P, spec_of
+    from test_torch_mesh_tp import free_port
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        like = _tree()
+        shardings = _zeros_like(like)
+        leaves, treedef = tree_flatten(like)
+        specs = [(mesh, P("model", *(None,) * (l.dim() - 1)))
+                 if l.dim() else None for l in leaves]
+        shardings = tree_unflatten(treedef, specs)
+        restored, _ = load_checkpoint(str(tmp_path), like, device="cpu",
+                                      shardings=shardings)
+        _leaves_equal(restored, _tree())
+        for leaf, sh in zip(tree_flatten(restored)[0], specs):
+            assert (spec_of(leaf) is None) == (sh is None)
+    finally:
+        dist.destroy_process_group()

@@ -148,12 +148,28 @@ def test_serve_main_runs_end_to_end(capsys):
     assert shards["index"].n_shards == 2 and shards["ids"].shape == (8, 10)
 
 
-def test_launchers_refuse_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve.main(ARGV + ["--devices", "8"])
-    for extra in (["--devices", "8"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            train.main(["--reduced", "--device", "cpu"] + extra)
+def test_launchers_refuse_a_mesh(tmp_path, capsys, monkeypatch):
+    """Both launchers take ``--devices`` (ranks of their own on this
+    host, over gloo); what they refuse is a mesh they cannot make: model
+    parallelism without ranks, and ``torchrun`` with fewer cards than
+    ranks (NCCL needs one card a rank: no switch to gloo)."""
+    out = serve.main(ARGV + ["--devices", "2", "--doc-shards", "2"])
+    assert out["mesh"] == {"data": 1, "model": 2} and out["ids"].shape[0] == 16
+    got = train.main(["--reduced", "--device", "cpu", "--devices", "2",
+                      "--model-parallel", "2", "--steps", "2", "--batch",
+                      "2", "--seq", "8", "--ckpt-dir", str(tmp_path)])
+    assert "mesh={'data': 1, 'model': 2}" in capsys.readouterr().out
+    assert np.isfinite(got["loss"])
+    with pytest.raises(ValueError, match="needs ranks"):
+        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+    for k, v in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0",
+                     LOCAL_WORLD_SIZE="2").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for main, argv in ((serve.main, ARGV[:-2]),
+                       (train.main, ["--reduced"])):
+        with pytest.raises(RuntimeError, match="fewer|one card per rank"):
+            main(argv + ["--device", "cuda"])
 
 
 def test_train_checkpoints_under_the_working_directory():
@@ -205,8 +221,21 @@ def test_bundle_matches_jax(arch):
                                  dims, kind)
         for k, v in want.items():
             np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mine.param_specs(None)
+    # param_specs: the JAX package's tree, the port's leaves restacked
+    from repro.distributed.param_sharding import lm_param_specs as j_specs
+    from repro_torch.distributed.param_sharding import jax_layout_specs
+    shapes = jax.eval_shape(lambda: theirs.init(jax.random.PRNGKey(0),
+                                                theirs.reduced, {}))
+    got = jax_layout_specs(mine.param_specs(
+        mine.init(0, mine.reduced, {}, device="meta")))
+    want = jax.tree_util.tree_flatten_with_path(
+        j_specs(shapes), is_leaf=lambda x: isinstance(
+            x, jax.sharding.PartitionSpec))[0]
+    for path, spec in want:
+        node = got
+        for p in path:
+            node = node[p.key]
+        assert tuple(node) == tuple(spec)
 
 
 def test_bundle_steps_match_jax():

@@ -286,9 +286,28 @@ Each of phases 16-18 holds the allocator's peak under 70 GiB.
    int32 payload, JAX's error and bias bounds); (f) ``launch/train.py``
    under ``torchrun --nproc-per-node 1`` (NCCL, a (1, 1) mesh) and
    ``launch/serve.py --devices 4 --doc-shards 4`` at its defaults against
-   ``search_shards`` bitwise, a and c launched. The card's used memory
-   (every process) under 70 GiB throughout; each rank's ms and peak, the
-   backend beside every time.
+   ``search_shards`` bitwise, a and c launched; (g) ``decode_step`` on
+   the mesh with ``cache_specs``' cache, each cache from a one-rank
+   prefill off the mesh (g launched there: 32 + 6 + 2): llama3-8b on (1,
+   4), batch 8, 32 steps after a 1,024-token prompt ((a)'s parameters),
+   its first 2 layers at batch 1 with 524,288 positions (long_500k's
+   length, seeded values, a step in each rank's slice) on (2, 2),
+   gemma3-27b cut to 6 layers past its ring, deepseek cut to 2 layers in
+   float32 and kimi-k2 ((b)'s parameters), every step's gathered logits
+   against the one-rank step, and each rank's softmax over its own
+   positions with no combine (must fail the bound). The card's used
+   memory (every process) under 70 GiB throughout; each rank's ms and
+   peak, the backend beside every time.
+25. the dry run: (a) ``python -m repro_torch.launch.dryrun --all`` and
+   its multi-pod llama3-8b train cell, started in the background before
+   phase 20 (the host's CPUs; no card), every cell OK or SKIP with its
+   config's reason, the report's two tables printed; (b) five steps
+   earlier phases run with the plain program (phase 20's llama3-8b train
+   step, phase 11's decode at batch 8, phase 22's fm and wide-deep train
+   steps, phase 23's gin-tu ogb_products step) traced at world 1 and run
+   on the card: dot flops equal to ``FlopCounterMode``'s, the predicted
+   peak within 20 % of the allocator's, the roofline's ``t_bound`` at
+   or under the measured time.
 
 The index and query widths come from ``configs/seismic_msmarco``
 (``CONFIG_HIER`` and ``SHAPES``); the 0.95 operating point ``TUNED`` is
@@ -364,7 +383,7 @@ gin's sums run over edges sorted by destination and, backward, by
 source).
 
 Phase 24, the ranks against one rank (gloo over host memory): logits
-and the MoE layer within ``LM_REL_L2``, as above (the tensor-parallel
+(decode's at every step) and the MoE layer within ``LM_REL_L2``, as above (the tensor-parallel
 partial sums change where bf16 rounds, and the all-reduce of bf16
 partials sums in float32); the known-wrong path must fail it. Training:
 each step's loss within ``rtol`` 1e-2 (a float32 mean over 16,384
@@ -559,6 +578,22 @@ MESH_FAMILY_TOL = 1e-4         # (d): wide-deep and gin-tu, float32
 MESH_EF_ELEMS = 1 << 22        # (e): a gradient leaf of compressed_psum
 MESH_EF_ROUNDS = 30
 MESH_TIMEOUT = 900.0
+# (g): decode on the mesh, each run's cache from a one-rank prefill off it;
+# (key, batch, prompt, steps) of llama3-8b at full width, gemma3-27b cut
+# to GEMMA_RING_LAYERS (the prompt past its 1,024-slot ring), deepseek
+# cut to its dense layer and one MoE layer (float32) and kimi-k2 cut to
+# KIMI_LAYERS, all on MESH_TP
+MESH_DECODE = (("llama", 8, 1024, 32), ("gemma", 4, 1056, 8),
+               ("deepseek", 8, 256, 8), ("kimi", 8, 256, 8))
+MESH_LONG = 524_288            # long_500k's cache length: llama3-8b, 2
+MESH_LONG_LAYERS = 2           # layers, batch 1, on MESH_DP_TP, a step in
+MESH_LONG_POS = tuple(r * MESH_LONG // 4 + MESH_LONG // 8    # each rank's
+                      for r in range(4))                       # slice
+# phase 25: the dry run (a subprocess of its own: its fake process group
+# is process-wide), and its predictions against the card
+DRYRUN_JOBS = 4                # cells traced at once
+DRYRUN_TIMEOUT = 600.0
+PEAK_BAND = 0.20               # (b): the predicted peak against the card's
 FAMILY_RTOL = FAMILY_ATOL = 1e-4    # the card against the CPU, float32
 FAMILY_SHORTCUT_ATOL = 1e-5         # fm's / sasrec's shortcut vs full scoring
 CPU_SLICE = 4096                    # retrieval candidates held to the CPU
@@ -4645,16 +4680,191 @@ def wo_not_reduced(attention, parallel):
         attention.parallel = real
 
 
+def g_config(key: str):
+    """Phase 24 (g)'s model config of run ``key``."""
+    from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_27b,
+                                     kimi_k2_1t_a32b, llama3_8b)
+    return {"llama": llama3_8b.CONFIG,
+            "long": dataclasses.replace(llama3_8b.CONFIG,
+                                        n_layers=MESH_LONG_LAYERS),
+            "gemma": dataclasses.replace(gemma3_27b.CONFIG,
+                                         n_layers=GEMMA_RING_LAYERS),
+            "deepseek": dataclasses.replace(
+                deepseek_v2_lite_16b.CONFIG, n_layers=2, dtype="float32"),
+            "kimi": dataclasses.replace(kimi_k2_1t_a32b.CONFIG,
+                                        n_layers=KIMI_LAYERS)}[key]
+
+
+def prefill_cache(torch, lm, params, cfg, tokens, max_seq):
+    """A one-rank prefill of ``tokens`` [B, S] off the mesh that fills a
+    decode cache of ``max_seq`` positions: the forward's layers run one
+    by one (``lm._block``, flash_attention for GQA) and each layer's
+    rotated keys and values (MLA: its normed latent and rotated shared
+    key) of positions 0..S-1 are written where ``decode_step`` writes
+    them (a ring keeps the last window's positions at slot ``pos %
+    W``)."""
+    import torch.nn.functional as F
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer.rope import apply_rope
+    b, s = tokens.shape
+    cache = lm.init_cache(cfg, b, max_seq, device=tokens.device)
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+
+    def fill(layer, x, names, i, window):
+        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+        at = layer.attn
+        if cfg.mla:
+            first = rms_norm(at.w_dkv(h), at.kv_norm, cfg.norm_eps)
+            second = apply_rope(at.w_kr(h)[:, :, None, :], pos,
+                                cfg.rope_theta)[:, :, 0]
+        else:
+            first = apply_rope(at.wk(h).reshape(b, s, kv, dh), pos,
+                               cfg.rope_theta)
+            second = at.wv(h).reshape(b, s, kv, dh)
+        for name, t in zip(names, (first, second)):
+            dst = cache[name] if i is None else cache[name][i]
+            w = dst.shape[1]
+            if 0 < window and w <= window:          # a ring buffer
+                keep = torch.arange(max(0, s - w), s, device=t.device)
+                dst[:, keep % w] = t[:, keep]
+            else:
+                dst[:, :s] = t
+
+    with torch.no_grad():
+        x = F.embedding(tokens.long(), params.embed)
+        if params.dense0 is not None:
+            fill(params.dense0, x, ("ckv0", "kr0") if cfg.mla
+                 else ("k0", "v0"), None, 0)
+            x, _ = lm._block(params.dense0, x, pos, 0, cfg, not cfg.mla)
+        wins = lm.layer_windows(cfg)
+        slots = lm._cache_slots(wins)
+        for i, layer in enumerate(params.layers):
+            if cfg.mla:
+                names, at = ("ckv", "kr"), i
+            elif cfg.local_per_global > 0:
+                kind = "local" if wins[i] > 0 else "global"
+                names, at = (f"k_{kind}", f"v_{kind}"), int(slots[i])
+            else:
+                names, at = ("k", "v"), i
+            fill(layer, x, names, at, int(wins[i]))
+            x, _ = lm._block(layer, x, pos, int(wins[i]), cfg, not cfg.mla)
+    return cache
+
+
+def long_cache(torch, dev, lm, cfg, seed):
+    """(g)'s long_500k cache (batch 1, MESH_LONG positions): seeded values
+    in every slot below the last step's position, zeros above; the same
+    on the one rank and on each rank (which keeps its slice)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 524)
+    cache = lm.init_cache(cfg, 1, MESH_LONG, device=dev)
+    fill = MESH_LONG_POS[-1]
+    for name in ("k", "v"):
+        for t in cache[name]:
+            t[:, :fill] = torch.randn(t[:, :fill].shape, generator=gen,
+                                      device=dev).to(t.dtype)
+    return cache
+
+
+def prefix_model(torch, lm, params, cfg):
+    """``params``' embeddings, final norm and first ``cfg.n_layers`` layers
+    as a model of ``cfg`` (the same draws a smaller model of that seed
+    makes), sharing their tensors."""
+    from torch import nn
+    small = lm.LM(cfg, torch.device("meta"))
+    small.embed, small.out_embed = params.embed, params.out_embed
+    small.final_norm = params.final_norm
+    small.layers = nn.ModuleList(list(params.layers)[:cfg.n_layers])
+    return small
+
+
+def g_reference(torch, dev, gen, lm, runtime, params, key, out, refs,
+                cache=None, positions=None):
+    """(g)'s one-rank reference of run ``key`` with ``params``: the prompt
+    prefilled into a cache (``prefill_cache``; or ``cache`` as given),
+    which goes to ``out`` for the ranks with the steps' tokens and
+    positions, then every step's ``decode_step`` logits into ``refs``.
+    flash_attention's prefill launches add to ``refs['g_launches']``."""
+    cfg = g_config(key)
+    if cache is None:
+        b, prompt, steps = next((b, p, n) for k, b, p, n in MESH_DECODE
+                                if k == key)
+        tokens = torch.randint(0, cfg.vocab, (b, prompt), generator=gen,
+                               device=dev)
+        runtime.reset_launches()
+        cache = prefill_cache(torch, lm, params, cfg, tokens,
+                              -(-(prompt + steps) // 16) * 16)
+        refs["g_launches"] = refs.get("g_launches", 0) \
+            + runtime.LAUNCHES["flash_attention"]
+        positions = list(range(prompt, prompt + steps))
+        torch.save({k: t.cpu() for k, t in cache.items()},
+                   out / f"g_{key}_cache.pt")
+    b = cache[next(iter(cache))].shape[1]       # [L, B, T, ...]
+    steps = torch.randint(0, cfg.vocab, (len(positions), b, 1),
+                          generator=gen, device=dev)
+    torch.save(dict(tokens=steps.cpu(), positions=positions),
+               out / f"g_{key}_tokens.pt")
+    refs[f"g_{key}"] = torch.stack([
+        lm.decode_step(params, cache, t, p, cfg)[0].cpu()
+        for t, p in zip(steps, positions)])
+    del cache
+
+
+def g_decode(torch, dev, lm, parallel, params, key, out, rank, rep, stage,
+             cache=None, wrong=False) -> None:
+    """(g) on the ambient mesh: run ``key``'s cache (``out``, or ``cache``)
+    cut by ``cache_specs``, the steps decoded one by one; rank 0 saves
+    every step's gathered logits [steps, B, V]. With ``wrong``, the first
+    step again with each rank's softmax over its own positions and no
+    combine (the known-wrong control)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import axes_size, dp_axes
+    from repro_torch.models.transformer import attention
+    cfg = g_config(key)
+    run = torch.load(out / f"g_{key}_tokens.pt")
+    toks, where = run["tokens"].to(dev), run["positions"]
+    with stage(f"g {key} cache"):
+        if cache is None:
+            cache = {k: t.to(dev) for k, t in
+                     torch.load(out / f"g_{key}_cache.pt").items()}
+        local = parallel.shard_cache(cache)
+        del cache
+    split = toks.shape[1] % axes_size(dp_axes()) == 0
+    logits = []
+    with stage(f"g {key} decode"), C.recording() as wire:
+        for t, p in zip(toks, where):
+            lg, local = lm.decode_step(params, local, t, p, cfg)
+            logits.append(parallel.gather_decode_logits(lg, cfg, split).cpu())
+    rep[f"g_{key}_wire"] = sorted({k for k, *_ in wire})
+    rep[f"g_{key}_count"] = len(wire)
+    rep[f"g_{key}_local"] = {k: list(t.shape) for k, t in local.items()}
+    if rank == 0:
+        torch.save(torch.stack(logits), out / f"g_{key}_r0.pt")
+    if wrong:
+        real = attention._combine
+        attention._combine = lambda m, l, o, axes: o / l
+        try:
+            lg, _ = lm.decode_step(params, local, toks[0], where[0], cfg)
+        finally:
+            attention._combine = real
+        lg = parallel.gather_decode_logits(lg, cfg, split).cpu()
+        if rank == 0:
+            torch.save(lg, out / f"g_{key}_wrong_r0.pt")
+    del local
+
+
 def mesh_references(torch, dev, seed, out: Path) -> dict:
     """Phase 24's one-rank results, computed before the ranks start (each
     model freed after; big results kept on the host): (a) llama3-8b's
     prefill logits; (b) kimi-k2's 2-layer prefill with its MoE layer run
     per shard (``per_shard_moe``) and ``moe_local`` of a decode batch;
     (c) two train steps of llama3-8b cut to 2 layers; (d) one wide-deep
-    step and gin-tu's minibatch_lg forward. Inputs the ranks need go to
-    ``out``."""
+    step and gin-tu's minibatch_lg forward; (g) each decode run's
+    prefilled cache and its steps' one-rank logits (``g_reference``).
+    Inputs the ranks need go to ``out``."""
     import numpy as np
     from repro_torch.configs import kimi_k2_1t_a32b, llama3_8b
+    from repro_torch.kernels import runtime
     from repro_torch.models.gnn import gin
     from repro_torch.models.transformer import ffn, lm
     from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
@@ -4667,7 +4877,13 @@ def mesh_references(torch, dev, seed, out: Path) -> dict:
                            device=dev)
     torch.save(tokens.cpu(), out / "a_tokens.pt")
     refs["a"] = lm.forward(params, tokens, cfg, use_kernel=True)[0].cpu()
-    del params
+    # (g)'s llama3-8b run, and its first layers at long_500k's length
+    g_reference(torch, dev, gen, lm, runtime, params, "llama", out, refs)
+    small = prefix_model(torch, lm, params, g_config("long"))
+    g_reference(torch, dev, gen, lm, runtime, small, "long", out, refs,
+                cache=long_cache(torch, dev, lm, g_config("long"), seed),
+                positions=list(MESH_LONG_POS))
+    del params, small
     torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(kimi_k2_1t_a32b.CONFIG, n_layers=KIMI_LAYERS)
@@ -4695,8 +4911,15 @@ def mesh_references(torch, dev, seed, out: Path) -> dict:
     with torch.no_grad():
         refs["b_decode"] = ffn.moe_local(params.layers[0].ffn, x,
                                          cfg)[0].cpu()
+    g_reference(torch, dev, gen, lm, runtime, params, "kimi", out, refs)
     del params
     torch.cuda.empty_cache()
+    for key in ("gemma", "deepseek"):
+        params = draw_model(torch, dev, lm, g_config(key), seed,
+                            f"24g {key}, the one-rank reference")
+        g_reference(torch, dev, gen, lm, runtime, params, key, out, refs)
+        del params
+        torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(llama3_8b.CONFIG, n_layers=MESH_TRAIN_LAYERS)
     params = lm.init_params(cfg, seed=seed, device=dev)
@@ -4749,7 +4972,10 @@ def mesh_rank(args) -> int:
     two ZeRO-1 train steps on MESH_DP_TP and a checkpoint of the state;
     (d) one wide-deep step with its tables row-sharded on MESH_TP, gin-tu
     psum and shard modes on MESH_DP_TP; (e) ``compressed_psum`` over
-    MESH_DATA. Results go to ``--out``; the checks are the parent's. With
+    MESH_DATA; (g) decode on the mesh (``g_decode``: llama3-8b with (a)'s
+    parameters, kimi-k2 with (b)'s, llama3-8b's first layers on
+    MESH_DP_TP, gemma3-27b and deepseek). Results go to ``--out``; the
+    checks are the parent's. With
     ``--mesh-restore`` the rank instead restores (c)'s checkpoint on
     MESH_RESTORE."""
     import numpy as np
@@ -4835,7 +5061,10 @@ def mesh_rank(args) -> int:
         with wo_not_reduced(attention, parallel), stage("a wrong path"):
             logits, _ = lm.forward(params, tokens, cfg, use_kernel=True)
         torch.save(logits.cpu(), out / f"a_wrong_r{rank}.pt")
-        del logits, params
+        del logits
+        g_decode(torch, dev, lm, parallel, params, "llama", out, rank, rep,
+                 stage, wrong=True)
+        del params
     torch.cuda.empty_cache()
     dist.barrier()
 
@@ -4871,8 +5100,34 @@ def mesh_rank(args) -> int:
         rep["b_decode_wire"] = sorted({k for k, *_ in wire})
         if rank == 0:
             torch.save(y.cpu(), out / "b_decode_r0.pt")
-        del params, y
+        del y
+        g_decode(torch, dev, lm, parallel, params, "kimi", out, rank, rep,
+                 stage)
+        del params
     torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (g) decode on the mesh: llama3-8b's first layers at long_500k's
+    # length on MESH_DP_TP (the batch of 1 does not split: the length over
+    # every axis), gemma3-27b and deepseek on MESH_TP
+    with set_mesh(dp_tp):
+        cfg_g = g_config("long")
+        with stage("g long draw"):
+            params = lm.init_params(cfg_g, seed=args.seed, device=dev,
+                                    mesh=dp_tp)
+        g_decode(torch, dev, lm, parallel, params, "long", out, rank, rep,
+                 stage, cache=long_cache(torch, dev, lm, cfg_g, args.seed))
+        del params
+    torch.cuda.empty_cache()
+    with set_mesh(tp):
+        for key in ("gemma", "deepseek"):
+            with stage(f"g {key} draw"):
+                params = lm.init_params(g_config(key), seed=args.seed,
+                                        device=dev, mesh=tp)
+            g_decode(torch, dev, lm, parallel, params, key, out, rank, rep,
+                     stage)
+            del params
+            torch.cuda.empty_cache()
     dist.barrier()
 
     # (c) training on (2, 2) with ZeRO-1 over "data", then a checkpoint
@@ -4996,9 +5251,15 @@ def mesh_phase(torch, dev, args, smi) -> dict:
     ``compressed_psum`` with an int32 payload and JAX's bounds; (f) the
     train launcher under ``torchrun`` (NCCL, world 1), the collectives'
     NCCL branches on a world of one, and the serve launcher's
-    ``--devices 4 --doc-shards 4`` bitwise ``search_shards``;
-    the card's used memory under CARD_LIMIT_GIB throughout. Returns the
-    ranks' and the launchers' kernel launches."""
+    ``--devices 4 --doc-shards 4`` bitwise ``search_shards``; (g)
+    ``decode_step`` on the mesh with ``cache_specs``' cache (llama3-8b on
+    MESH_TP after a 1,024-token prompt, its first 2 layers at
+    long_500k's length on MESH_DP_TP, gemma3-27b past its ring, deepseek
+    in float32, kimi-k2), every step's logits within LM_REL_L2 of the
+    one-rank step on the same prefilled cache, and each rank's softmax
+    over its own positions with no combine beyond it; the card's used
+    memory under CARD_LIMIT_GIB throughout. Returns the ranks', the
+    one-rank prefills' and the launchers' kernel launches."""
     t_phase = time.perf_counter()
     out = ROOT / "build" / "mesh_phase"
     shutil.rmtree(out, ignore_errors=True)
@@ -5133,6 +5394,7 @@ def mesh_checks(torch, dev, args, smi, out: Path, train) -> dict:
         log(f"  (b) MoE layer on a decode batch of {MESH_TOKEN_POOR} "
             f"(token-poor path, collectives {wire}) vs moe_local: relative "
             f"L2 {rel:.3e}")
+        mesh_decode_checks(torch, dev, out, refs, reps, launches, where)
 
         # (c)
         losses = [rep["c_loss"] for rep in reps]
@@ -5241,6 +5503,56 @@ def mesh_checks(torch, dev, args, smi, out: Path, train) -> dict:
         raise AssertionError(f"24: the card's used memory reached "
                              f"{peak:.1f} GiB")
     return launches
+
+
+def mesh_decode_checks(torch, dev, out, refs, reps, launches,
+                       where) -> None:
+    """(g)'s checks: every step's logits of every decode run on the mesh
+    within LM_REL_L2 of the one-rank ``decode_step`` on the same cache,
+    each rank's softmax over its own positions with no combine beyond it
+    (the known-wrong control), and the one-rank prefills' flash_attention
+    launches (added to ``launches``)."""
+    want_launches = sum(g_config(k).n_layers
+                        for k in ("llama", "gemma", "kimi"))
+    got_launches = refs.pop("g_launches")
+    if got_launches != want_launches:
+        raise AssertionError(f"24g: the prefills launched flash_attention "
+                             f"{got_launches} times, {want_launches} "
+                             "expected")
+    launches["flash_attention"] = launches.get("flash_attention", 0) \
+        + got_launches
+    first = None
+    for key in ("llama", "long", "gemma", "deepseek", "kimi"):
+        cfg = g_config(key)
+        got = torch.load(out / f"g_{key}_r0.pt")
+        want = refs.pop(f"g_{key}")
+        rels = [logit_distance(torch, f"24g {key} step {i}", got[i].to(dev),
+                               want[i].to(dev))[0]
+                for i in range(want.shape[0])]
+        if key == "llama":
+            first = want[0]
+        if max(rels) > LM_REL_L2:
+            raise AssertionError(f"24g {key}: steps' relative L2 {rels}, "
+                                 f"beyond {LM_REL_L2}")
+        rep = reps[0]
+        ms = [r["ms"][f"g {key} decode"] / want.shape[0] for r in reps]
+        local = rep[f"g_{key}_local"]
+        log(f"  (g) {cfg.name} {cfg.n_layers} layers {cfg.dtype}, decode "
+            f"batch {want.shape[1]}, {want.shape[0]} steps, rank 0's cache "
+            + ", ".join(f"{k} {v}" for k, v in local.items())
+            + f" ({rep[f'g_{key}_count'] / want.shape[0]:.0f} collectives a "
+            f"step: {', '.join(rep[f'g_{key}_wire'])}): worst step's relative "
+            f"L2 to one rank {max(rels):.3e} (bound {LM_REL_L2}); "
+            f"{max(ms):.1f} ms a step ({where})")
+        del got, want
+    wrong = torch.load(out / "g_llama_wrong_r0.pt").to(dev)
+    rel, text = logit_distance(torch, "24g no combine", wrong,
+                               first.to(dev))
+    if rel <= LM_REL_L2:
+        raise AssertionError(f"24g: each rank's softmax over its own "
+                             f"positions passes the bound: {text}")
+    log(f"  (g) llama3-8b step 0 with each rank's softmax over its own "
+        f"positions and no combine (must fail): {text}")
 
 
 def mesh_restores(torch, dev, args, out, cfg_c, specs, reps,
@@ -5460,6 +5772,210 @@ def mesh_launchers(torch, dev, args, out: Path, train) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 25
+
+def world_one_cells():
+    """Phase 25 (b)'s cells: steps that earlier phases run on one card
+    with the plain program -> (label, arch, config, kind, dims,
+    microbatches)."""
+    from repro_torch.configs import llama3_8b
+    from repro_torch.models.api import get_bundle
+
+    def cell(arch, shape):
+        bundle = get_bundle(arch)
+        return (arch, bundle.config, "train",
+                {c.name: c.dims for c in bundle.shapes}[shape], 1)
+
+    return [
+        ("phase 20's llama3-8b train step", "llama3-8b",
+         dataclasses.replace(llama3_8b.CONFIG, n_layers=TRAIN_LAYERS),
+         "train", dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+         TRAIN_MICRO),
+        ("phase 11's llama3-8b decode step", "llama3-8b", llama3_8b.CONFIG,
+         "decode", dict(global_batch=SERVE_BATCH, seq_len=SERVE_MAX_SEQ), 1),
+        ("phase 22's fm train step", *cell("fm", "train_batch")),
+        ("phase 22's wide-deep train step", *cell("wide-deep",
+                                                  "train_batch")),
+        ("phase 23's gin-tu ogb_products train step", *cell("gin-tu",
+                                                           "ogb_products")),
+    ]
+
+
+def dryrun_vs_card(torch, dev, label, arch, cfg, kind, dims, micro, seed,
+                   smi) -> None:
+    """Phase 25 (b) for one cell: the dry run's trace of the step at world
+    1 (meta tensors, this process) against the same step on the card:
+    ``dot_flops`` equal to ``FlopCounterMode``'s count, ``peak_est``
+    within PEAK_BAND of the allocator's peak over the state (the
+    arguments it allocated included), and the roofline's ``t_bound`` at
+    or under the measured time (a bound above a measurement means a
+    wrong constant or count)."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed.roofline import Roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import get_bundle
+    bundle = get_bundle(arch)
+    t0 = time.perf_counter()
+    pred = dryrun.trace_cell(bundle, cfg, kind, dims, None,
+                             microbatches=micro)
+    t_trace = time.perf_counter() - t0
+    roof = Roofline(flops=pred["cost"]["flops"],
+                    hbm_bytes=pred["cost"]["hbm_bytes"], coll_bytes=0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    batch = bundle.make_batch(np.random.default_rng(seed), cfg, dims, kind,
+                              device=dev)
+    run, state, batch, _ = dryrun.cell_step(bundle, cfg, kind, dims, None,
+                                            microbatches=micro, device=dev,
+                                            batch=batch)
+    run()                                  # warm: the libraries' workspaces
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    # the peak from here: the arguments allocated, the draws' scratch not
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    count = run
+    if bundle.family == "lm" and kind == "train" and cfg.remat != "none":
+        # FlopCounterMode keeps every activation that a checkpointed block
+        # frees (1.5x a REDUCED step's peak under "dots"), so it counts the
+        # step with remat off on the same state: the same products, since
+        # "dots" keeps every product's output and recomputes none
+        from repro_torch.models.transformer import parallel
+        from repro_torch.train import AdamWConfig, make_train_step
+        plain = make_train_step(bundle.step(dataclasses.replace(
+            cfg, remat="none"), dims, "train"), AdamWConfig(),
+            microbatches=micro, grad_axes=parallel.batch_axes(cfg))
+        params, opt = state
+        count = lambda: plain(params, opt, batch)   # noqa: E731
+    with FlopCounterMode(display=False) as counter:
+        count()
+    torch.cuda.synchronize()
+    counted = counter.get_total_flops()
+    del run, count, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = pred["dots"]["dot_flops"]
+    est = pred["memory"]["peak_est"]
+    ms = float(np.median(times))
+    bound = roof.t_bound * 1e3
+    log(f"  (b) {label} ({arch}, {kind}, {dims}, {micro} microbatches): "
+        f"dot flops {flops:.6e} predicted, {counted:.6e} by FlopCounterMode "
+        f"on the card; peak {est / 2**30:.2f} GiB predicted, "
+        f"{peak / 2**30:.2f} GiB measured ({peak / est:.3f}); t_bound "
+        f"{bound:.3f} ms ({roof.bottleneck}) against {ms:.3f} ms measured "
+        f"(median of {', '.join(f'{t:.2f}' for t in times)}; bound / "
+        f"measured {bound / ms:.3f}); traced in {t_trace:.1f} s, built and "
+        f"warmed in {t_build:.1f} s ({base / 2**30:.2f} GiB allocated "
+        f"before); {smi}")
+    if int(flops) != int(counted):
+        raise AssertionError(f"25b {label}: dot flops {flops} predicted, "
+                             f"{counted} counted on the card")
+    if abs(est - peak) > PEAK_BAND * peak:
+        raise AssertionError(f"25b {label}: peak {est} predicted, {peak} "
+                             f"on the card")
+    if bound > ms:
+        raise AssertionError(f"25b {label}: t_bound {bound:.3f} ms above "
+                             f"the measured {ms:.3f} ms")
+
+
+class DryRun:
+    """Phase 25 (a)'s dry runs, started in the background (CPU only: the
+    whole smoke starts them before phase 20, whose steps keep the card,
+    not the host, busy): ``python -m repro_torch.launch.dryrun --all``
+    (every cell of every arch on the fake (16, 16) mesh) and one LM train
+    cell on (2, 16, 16), records under ``build/dryrun``. A ``with`` block
+    ends them if they still run at its end."""
+
+    def __init__(self):
+        self.out = ROOT / "build" / "dryrun"
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.out.mkdir(parents=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+               str(self.out)]
+        self.logs = [self.out / "single.log", self.out / "multi.log"]
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for f, args in zip(self.logs, (
+                ["--all", "--jobs", str(DRYRUN_JOBS)],
+                ["--arch", "llama3-8b", "--shape", "train_4k",
+                 "--multi-pod"])):
+            with open(f, "w") as o:
+                self.procs.append(subprocess.Popen(
+                    cmd + args, env=env, stdout=o,
+                    stderr=subprocess.STDOUT))
+
+    def wait(self) -> float:
+        """Wait for both runs (raising if one failed) -> seconds since
+        their start."""
+        for p in self.procs:
+            p.wait(timeout=DRYRUN_TIMEOUT)
+        if any(p.returncode for p in self.procs):
+            raise AssertionError("25a: the dry run failed:\n" + "\n".join(
+                f.read_text()[-4000:] for f in self.logs))
+        return time.perf_counter() - self.t0
+
+    def __enter__(self) -> "DryRun":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def dryrun_phase(torch, dev, smi, dry: DryRun | None = None) -> None:
+    """Phase 25: (b) ``dryrun_vs_card`` on ``world_one_cells``, then (a)
+    the dry runs of ``dry`` (started here when not given): each cell OK,
+    or SKIP with its config's reason; the report's two tables and each
+    cell's time printed."""
+    from repro_torch.configs.base import get_arch, list_archs
+    from repro_torch.launch import report
+    t_phase = time.perf_counter()
+    with (dry or DryRun()) as dry:
+        log(f"[25 dry run] (b) the dry run's predictions at world 1 against "
+            f"the card ((a) started {max(0.0, t_phase - dry.t0):.1f} s before, "
+            f"{DRYRUN_JOBS} processes):")
+        for label, arch, cfg, kind, dims, micro in world_one_cells():
+            dryrun_vs_card(torch, dev, label, arch, cfg, kind, dims, micro,
+                           0, smi)
+        t_b = time.perf_counter() - t_phase
+        t_a = dry.wait()
+    recs = report.load(str(dry.out))
+    want = {(a, c.name, False): c.skip for a in list_archs()
+            for c in get_arch(a).SHAPES}
+    want[("llama3-8b", "train_4k", True)] = None
+    got = {(r["arch"], r["shape"], bool(r.get("multi_pod"))):
+           r.get("skipped") for r in recs}
+    if got != want:
+        raise AssertionError(f"25a: cells {sorted(got.items())}, expected "
+                             f"{sorted(want.items())}")
+    n_ok = sum(v is None for v in got.values())
+    log(f"  (a) {n_ok} cells OK, {len(got) - n_ok} SKIP with their "
+        f"configs' reasons, {t_a:.1f} s from the dry runs' start to their "
+        f"end ((b) took {t_b:.1f} s); the time of each cell: " + ", ".join(
+            f"{r['arch']} {r['shape']}"
+            f"{' 2x16x16' if r.get('multi_pod') else ''} {r['compile_s']} s"
+            for r in recs if "skipped" not in r))
+    for line in (report.dryrun_matrix(recs) + "\n\n"
+                 + report.roofline_table(recs)).splitlines():
+        log("  " + line)
+    log(f"  phase 25 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1 << 20,
@@ -5617,20 +6133,26 @@ def main() -> int:
         rec["launches"] += cli.get(rec["name"], 0)
     torch.cuda.empty_cache()
 
-    # ---- 20-21. LM training on one card
-    train_phases(torch, dev, args.seed, smi)
-    torch.cuda.empty_cache()
+    # ---- 25 (a) starts: the dry run, on the host beside phases 20-24
+    with DryRun() as dry:
+        # ---- 20-21. LM training on one card
+        train_phases(torch, dev, args.seed, smi)
+        torch.cuda.empty_cache()
 
-    # ---- 22-23. the recsys and GNN families at full width
-    families = family_phases(torch, dev, args.seed, runtime, smi)
-    for rec in record:
-        rec["launches"] += families.get(rec["name"], 0)
-    torch.cuda.empty_cache()
+        # ---- 22-23. the recsys and GNN families at full width
+        families = family_phases(torch, dev, args.seed, runtime, smi)
+        for rec in record:
+            rec["launches"] += families.get(rec["name"], 0)
+        torch.cuda.empty_cache()
 
-    # ---- 24. model parallel on one card (gloo ranks sharing it)
-    meshed = mesh_phase(torch, dev, args, smi)
-    for rec in record:
-        rec["launches"] += meshed.get(rec["name"], 0)
+        # ---- 24. model parallel on one card (gloo ranks sharing it)
+        meshed = mesh_phase(torch, dev, args, smi)
+        for rec in record:
+            rec["launches"] += meshed.get(rec["name"], 0)
+        torch.cuda.empty_cache()
+
+        # ---- 25. the dry run and its predictions against the card
+        dryrun_phase(torch, dev, smi, dry)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's LM and model-family phases alone, on one GPU.
 
-    python3 scripts/lm_phases.py [--train | --families | --mesh]
+    python3 scripts/lm_phases.py [--train | --families | --mesh | --dryrun]
 
 Run from the repository root. It builds the CUDA kernels, prints
 flash_attention's ptxas report, then runs chip_smoke.py's phases 9-11
@@ -15,7 +15,10 @@ the smoke sets it, and prints flash_attention's records. With
 alone (the recsys and GNN families at full width, and the SASRec ->
 Seismic bridge, which launches summary_dot and gather_dot_cand), with
 ``--mesh`` phase 24 alone (the model-parallel code at full width, its
-ranks gloo processes sharing the card); with ``--profile`` it then
+ranks gloo processes sharing the card, decode on the mesh included), with
+``--dryrun`` phase 25 alone (the dry run on the fake production meshes,
+and its predictions against the card; with ``--mesh``, both); with
+``--profile`` it then
 traces one of phase 20's train steps (llama3-8b, 4 layers, [4, 4096] in
 4 microbatches, after a warm step) under ``torch.profiler`` and prints
 the device time by kernel, grouped, and the device's busy share of the
@@ -97,6 +100,8 @@ def main() -> int:
                     help="phases 22-23 (recsys and GNN families) alone")
     ap.add_argument("--mesh", action="store_true",
                     help="phase 24 (model parallel on one card) alone")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="phase 25 (the dry run) alone")
     ap.add_argument("--profile", action="store_true",
                     help="then trace one phase-20 train step")
     args = ap.parse_args()
@@ -121,10 +126,15 @@ def main() -> int:
             cs.log(f"  flash_attention: {line.strip()}")
     cs.log(f"build {time.perf_counter() - t0:.1f} s")
     smi = cs.nvidia_smi_name_power()
-    if args.mesh:
-        launches = cs.mesh_phase(torch, dev, argparse.Namespace(
-            seed=0, n_docs=1 << 20), smi)
-        cs.log(f"phase 24 launched { {k: v for k, v in launches.items() if v} }")
+    if args.mesh or args.dryrun:
+        if args.mesh:
+            launches = cs.mesh_phase(torch, dev, argparse.Namespace(
+                seed=0, n_docs=1 << 20), smi)
+            cs.log("phase 24 launched "
+                   f"{ {k: v for k, v in launches.items() if v} }")
+            torch.cuda.empty_cache()
+        if args.dryrun:
+            cs.dryrun_phase(torch, dev, smi)
         cs.log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
     if args.families:

@@ -7,8 +7,13 @@ must be on the card. Over gloo a CUDA tensor is staged through host
 memory (gloo reduces CPU tensors), a 16-bit float is summed in float32
 and rounded once back (and moved as its bytes where nothing is
 summed), and an all-to-all is a send and a receive per
-peer (gloo has none). Any other (backend, device) pair raises:
-nothing falls back to another path.
+peer (gloo has none). Inside :func:`dry_run` a "fake" process group
+(torch's ``FakeProcessGroup``: one process standing for one rank of a
+world it does not start) takes ``meta`` tensors: every collective
+exchanges nothing, gives its result's shape, and is recorded as NCCL
+would run it (16-bit floats as they are, a reduce-scatter as one). Any
+other (backend, device) pair raises, the fake backend outside
+:func:`dry_run` too: nothing falls back to another path.
 
 Axes. Collectives name mesh axes of the ambient mesh
 (``sharding.set_mesh``); a tuple of axes acts as one axis of their
@@ -87,6 +92,23 @@ def every_axis():
         _EVERY_AXIS[0] = before
 
 
+# whether the fake backend may run (``dry_run``), process-wide as the
+# ambient mesh is
+_DRY_RUN: list = [False]
+
+
+@contextlib.contextmanager
+def dry_run():
+    """Let collectives over a "fake" process group run in this context:
+    on ``meta`` tensors, shapes only (``launch.dryrun``)."""
+    before = _DRY_RUN[0]
+    _DRY_RUN[0] = True
+    try:
+        yield
+    finally:
+        _DRY_RUN[0] = before
+
+
 def _note(kind: str, axis: str, t: torch.Tensor) -> None:
     log = _RECORD[0]
     if log is not None:
@@ -103,6 +125,12 @@ def _axes(axes) -> tuple[str, ...]:
                  if _EVERY_AXIS[0] or mesh_axis_size(a) > 1)
 
 
+def split_axes(axes) -> tuple[str, ...]:
+    """The axes of ``axes`` that a collective over them runs on: those of
+    more than one rank (every one under ``every_axis``)."""
+    return _axes(axes)
+
+
 def _group(axis: str):
     mesh = get_mesh()
     if mesh is None:
@@ -115,6 +143,13 @@ def _wire(t: torch.Tensor, group, reduce: bool) -> torch.Tensor:
     CPU tensor (a CUDA tensor copied to the host), a 16-bit float
     widened to float32 where it is reduced. Anything else raises."""
     backend = dist.get_backend(group)
+    if backend == "fake":
+        if not _DRY_RUN[0]:
+            raise RuntimeError("collectives: the fake backend runs only "
+                               "inside collectives.dry_run()")
+        if t.device.type != "meta":
+            raise RuntimeError(f"dry-run collective on a {t.device} tensor")
+        return t
     if backend == "nccl":
         if t.device.type != "cuda":
             raise RuntimeError(f"NCCL collective on a {t.device} tensor")
@@ -132,6 +167,12 @@ def _wire(t: torch.Tensor, group, reduce: bool) -> torch.Tensor:
     if half and not reduce:
         out = out.view(torch.uint8)  # moved as bytes: every gloo build
     return out                       # takes them
+
+
+def _fake(group) -> bool:
+    """Whether ``group`` is the dry run's fake group (``_wire`` has
+    checked that it may run)."""
+    return dist.get_backend(group) == "fake"
 
 
 def _back(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -156,7 +197,8 @@ def all_reduce(t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
         if w is out or w.data_ptr() == out.data_ptr():
             w = w.clone()
         _note("all_reduce", ax, w)
-        dist.all_reduce(w, op=_OPS[op], group=group)
+        if not _fake(group):
+            dist.all_reduce(w, op=_OPS[op], group=group)
         out = _back(w, t)
     return out if out is not t else t.clone()
 
@@ -170,7 +212,8 @@ def all_gather(t: torch.Tensor, dim: int, axes) -> torch.Tensor:
         _note("all_gather", ax, w)
         parts = [torch.empty_like(w)
                  for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, w, group=group)
+        if not _fake(group):
+            dist.all_gather(parts, w, group=group)
         out = _back(torch.cat(parts, dim=dim), t)
     return out
 
@@ -191,12 +234,17 @@ def _block(t: torch.Tensor, dim: int, axes) -> torch.Tensor:
 def reduce_scatter(t: torch.Tensor, dim: int, axes) -> torch.Tensor:
     """``t`` summed over ``axes``; each rank keeps its block along
     ``dim``. NCCL runs a reduce-scatter; gloo sums on every rank and
-    keeps the block."""
+    keeps the block (the dry run's fake group, as NCCL, along any
+    dim)."""
     out = t
     for ax in _axes(axes):
         group = _group(ax)
         n = dist.get_world_size(group)
-        if dist.get_backend(group) == "nccl" and dim == 0:
+        if _fake(group):
+            w = _wire(out, group, reduce=True)
+            _note("reduce_scatter", ax, w)
+            out = torch.empty_like(w.narrow(dim, 0, w.shape[dim] // n))
+        elif dist.get_backend(group) == "nccl" and dim == 0:
             w = _wire(out, group, reduce=True)
             _note("reduce_scatter", ax, w)
             got = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]),
@@ -222,7 +270,9 @@ def all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int,
     _note("all_to_all", axis, w)
     send = [c.contiguous() for c in w.chunk(n, dim=split_dim)]
     recv = [torch.empty_like(c) for c in send]
-    if dist.get_backend(group) == "nccl":
+    if _fake(group):
+        pass
+    elif dist.get_backend(group) == "nccl":
         dist.all_to_all(recv, send, group=group)
     else:       # gloo has no all-to-all: a send and a receive per peer
         me = dist.get_rank(group)
@@ -370,7 +420,8 @@ def block(t: torch.Tensor, dim: int, axes) -> torch.Tensor:
     return _block(t, dim, _axes(axes))
 
 
-__all__ = ["recording", "every_axis", "all_reduce", "all_gather",
+__all__ = ["recording", "every_axis", "dry_run", "split_axes",
+           "all_reduce", "all_gather",
            "reduce_scatter", "all_to_all", "copy_to", "reduce_from",
            "mean_over", "gather_from", "scatter_to", "gather_sum",
            "reduce_scatter_", "all_to_all_", "block"]

@@ -62,10 +62,15 @@ def segments(rows: torch.Tensor, seg_ids: torch.Tensor, n_out: int,
     """Sum row ``rows[i]`` of a source into output row ``seg_ids[i]``:
     the pairs stably sorted by ``seg_ids``, cut into chunks of about
     ``chunk`` rows at segment bounds. Raises for an id outside
-    ``[0, n_out)``."""
+    ``[0, n_out)``. On the meta device (the dry run, ``launch.dryrun``)
+    the lengths are not known: the plan is the one an even spread of ids
+    gives, the pairs cut into equal chunks and the output rows in
+    proportion."""
     seg_ids = seg_ids.long()
     order = torch.argsort(seg_ids, stable=True)
     index = rows.long()[order]
+    if seg_ids.device.type == "meta":
+        return _even_segments(index, n_out, chunk)
     lengths = torch.bincount(seg_ids, minlength=n_out)
     if lengths.numel() != n_out:
         raise ValueError(f"segments: a segment id is >= {n_out}")
@@ -82,6 +87,17 @@ def segments(rows: torch.Tensor, seg_ids: torch.Tensor, n_out: int,
     bounds = sorted(set(zip(at, first)))
     return Segments(index, lengths, tuple(
         (s0, s1, e0, e1) for (s0, e0), (s1, e1) in zip(bounds, bounds[1:])))
+
+
+def _even_segments(index: torch.Tensor, n_out: int, chunk: int) -> Segments:
+    """``segments``' plan of ``index``'s pairs spread evenly over ``n_out``
+    output rows (shapes only: ``index`` is a meta tensor)."""
+    m = index.numel()
+    lengths = torch.empty(n_out, dtype=torch.int64, device=index.device)
+    n = max(1, -(-m // chunk))
+    return Segments(index, lengths, tuple(
+        (k * n_out // n, (k + 1) * n_out // n, k * m // n, (k + 1) * m // n)
+        for k in range(n)))
 
 
 def segment_sum_rows(x: torch.Tensor, seg: Segments) -> torch.Tensor:

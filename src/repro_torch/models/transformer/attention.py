@@ -15,6 +15,18 @@ Two execution paths per layer:
     same cache. GQA decode takes Gemma's ring buffers (slot ``pos % T``);
     MLA decode is the absorbed form over the latent cache.
 
+Decode on a mesh holds the cache as ``cache_specs`` lays it out: the
+batch over the data axes and the cache length over "model" (over every
+axis for a batch that does not split), while the weights split the
+heads over "model" (Megatron). A rank so holds a slice of positions of
+every kv head (or of the latent) but the queries of its own heads only:
+it all-gathers the step's queries and kv columns over "model", writes
+the step's key and value only where it owns slot ``pos`` (``pos % T``
+for a ring), attends every head over its positions, and the softmax is
+combined over the cache's axes (:func:`_combine`: the all-reduced max,
+then the sums of exponentials and of the weighted values rescaled to
+it). Each rank then keeps its own heads for its rows of ``wo``.
+
 On a mesh in "tp" mode (``parallel``) each rank holds its columns of
 the q/k/v projections (its heads) and its rows of ``wo``; the block's
 input enters through ``parallel.enter`` and ``wo``'s partial sums leave
@@ -35,7 +47,7 @@ from torch import nn
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import axis_index
+from repro_torch.distributed.sharding import axis_index, mesh_axis_size
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import parallel
@@ -98,6 +110,8 @@ def gqa_forward(p: GQA, x: torch.Tensor, positions: torch.Tensor,
     """Full-sequence GQA. x [B, S, d] -> [B, S, d]."""
     tp = parallel.tp_size(cfg)
     x = parallel.enter(x, cfg)
+    if cfg.n_heads % tp:
+        return _gqa_uneven(p, x, positions, cfg, window, use_kernel, tp)
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads // tp, cfg.n_kv_heads, cfg.d_head
     q = apply_rope(p.wq(x).reshape(b, s, h, dh), positions, cfg.rope_theta)
@@ -119,6 +133,52 @@ def gqa_forward(p: GQA, x: torch.Tensor, positions: torch.Tensor,
         o = _sdpa_chunked(q.reshape(b, s, h, 1, dh), k, v, causal=True,
                           window=window, q_chunk=cfg.attn_q_chunk)
         o = o.reshape(b, s, h * dh)
+    return parallel.leave(p.wo(o), cfg)
+
+
+def _own_columns(t: torch.Tensor, tp: int) -> torch.Tensor:
+    """This rank's columns of the last axis of ``t`` (1 / tp of them, at
+    its position on "model"); all of them for tp 1."""
+    if tp == 1:
+        return t
+    cols = t.shape[-1] // tp
+    return t[..., axis_index(parallel.MODEL) * cols:][..., :cols]
+
+
+def _gqa_uneven(p: GQA, x: torch.Tensor, positions: torch.Tensor,
+                cfg: TransformerConfig, window: int, use_kernel: bool,
+                tp: int) -> torch.Tensor:
+    """GQA where the heads do not split over "model" (phi3's 40 over 16):
+    a rank's q columns and ``wo`` rows are 1 / tp of the heads' columns,
+    parts of heads. The q and kv columns are all-gathered (their
+    gradients reduce-scattered back), the rank attends the heads its
+    columns touch (each with its kv head, a broadcast) and keeps its
+    columns of the output for its rows of ``wo``: the split GSPMD's
+    padding of the head axis computes."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    cols = h * dh // tp
+    c0 = axis_index(parallel.MODEL) * cols
+    h0, h1 = c0 // dh, -(-(c0 + cols) // dh)
+    n = h1 - h0
+    q = C.gather_sum(p.wq(x), 2, parallel.MODEL)[..., h0 * dh:h1 * dh]
+    q = apply_rope(q.reshape(b, s, n, dh), positions, cfg.rope_theta)
+    k = C.gather_sum(p.wk(x), 2, parallel.MODEL).reshape(b, s, kv, dh)
+    v = C.gather_sum(p.wv(x), 2, parallel.MODEL).reshape(b, s, kv, dh)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    g = h // kv            # each q head's kv head, broadcast to the heads
+    k = k[:, :, :, None].expand(b, s, kv, g, dh).reshape(b, s, h, dh)
+    v = v[:, :, :, None].expand(b, s, kv, g, dh).reshape(b, s, h, dh)
+    k, v = k[:, :, h0:h1], v[:, :, h0:h1]
+    if use_kernel:
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True,
+                            window=window if window > 0 else None)
+        o = o.transpose(1, 2)
+    else:
+        o = _sdpa_chunked(q.reshape(b, s, n, 1, dh), k, v, causal=True,
+                          window=window, q_chunk=cfg.attn_q_chunk)
+    o = o.reshape(b, s, n * dh)[..., c0 - h0 * dh:c0 - h0 * dh + cols]
     return parallel.leave(p.wo(o), cfg)
 
 
@@ -146,9 +206,66 @@ def _local_kv(k_cols: torch.Tensor, v_cols: torch.Tensor,
     return k[:, :, first:first + n], v[:, :, first:first + n]
 
 
+def _cache_place(t_loc: int, t_axes: tuple) -> tuple[int, int]:
+    """(the full cache length, this rank's first position) of a cache
+    whose length is split over ``t_axes`` (row-major) in slices of
+    ``t_loc``."""
+    n, idx = 1, 0
+    for ax in t_axes:
+        size = mesh_axis_size(ax)
+        n, idx = n * size, idx * size + axis_index(ax)
+    return t_loc * n, idx * t_loc
+
+
+def _combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+             axes: tuple) -> torch.Tensor:
+    """A softmax split over ``axes``: each rank's max ``m``, sum of
+    exponentials ``l`` (both [..., 1]) and exponential-weighted values
+    ``o`` [..., D] over its positions, all-gathered in one exchange (a
+    decode step's are a few hundred KB, so the exchange's latency is its
+    cost), rescaled to the largest max and summed in rank order, then
+    normalized."""
+    parts = C.all_gather(torch.cat([m, l, o], dim=-1)[None], 0, axes)
+    a = torch.exp(parts[..., :1] - parts[..., :1].amax(dim=0))
+    return (parts[..., 2:] * a).sum(dim=0) / (parts[..., 1:2] * a).sum(dim=0)
+
+
+def _attend(sc: torch.Tensor, values: torch.Tensor, eq: str,
+            t_axes: tuple) -> torch.Tensor:
+    """``einsum(eq, softmax(sc), values)`` over the last axis of the
+    masked float32 scores ``sc``, that axis split over ``t_axes`` (each
+    rank its positions; :func:`_combine`), or whole."""
+    if not C.split_axes(t_axes):
+        return torch.einsum(eq, torch.softmax(sc, dim=-1), values)
+    m = sc.amax(dim=-1, keepdim=True)
+    e = torch.exp(sc - m)
+    return _combine(m, e.sum(dim=-1, keepdim=True),
+                    torch.einsum(eq, e, values), t_axes)
+
+
+def _own_heads(o: torch.Tensor, tp: int) -> torch.Tensor:
+    """Every head's [B, h, D] -> this rank's heads [B, h / tp, D]."""
+    if tp == 1:
+        return o
+    h_loc = o.shape[1] // tp
+    first = axis_index(parallel.MODEL) * h_loc
+    return o[:, first:first + h_loc]
+
+
+def _all_heads(tp: int, *ts: torch.Tensor) -> list[torch.Tensor]:
+    """This rank's head columns (the last axis) of each of ``ts`` ->
+    every head's, in one all-gather over "model"."""
+    if tp == 1:
+        return list(ts)
+    widths = [t.shape[-1] for t in ts]
+    got = C.all_gather(torch.cat(ts, dim=-1)[None], 0, parallel.MODEL)
+    return [part.movedim(0, -2).flatten(-2)
+            for part in got.split(widths, dim=-1)]
+
+
 def gqa_decode(p: GQA, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
                cache_v: torch.Tensor, cfg: TransformerConfig, *,
-               window: int = 0):
+               window: int = 0, t_axes: tuple = ()):
     """One-token GQA against a cache, written in place.
 
     x [B, 1, d]; pos: the step index (the same for every sequence);
@@ -158,34 +275,42 @@ def gqa_decode(p: GQA, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     ring's slot order does not matter; validity does: a ring (``0 <
     T <= window``) holds slots ``<= pos`` and all T once ``pos >= T``,
     a full-length cache slots ``<= pos`` and, with a window, ``> pos -
-    window``."""
+    window``. On a mesh the cache holds this rank's positions of T
+    (split over ``t_axes``) and the projections its heads (module
+    docstring)."""
     b = x.shape[0]
+    tp = parallel.tp_size(cfg)
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // kv
-    t = cache_k.shape[1]
+    t, start = _cache_place(cache_k.shape[1], t_axes)
+    x = parallel.enter(x, cfg)
     pos_b = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q = apply_rope(p.wq(x).reshape(b, 1, h, dh), pos_b, cfg.rope_theta)
-    k_new = apply_rope(p.wk(x).reshape(b, 1, kv, dh), pos_b, cfg.rope_theta)
-    v_new = p.wv(x).reshape(b, 1, kv, dh)
+    q, k_new, v_new = _all_heads(tp, p.wq(x), p.wk(x), p.wv(x))
+    q = apply_rope(q.reshape(b, 1, h, dh), pos_b, cfg.rope_theta)
+    k_new = apply_rope(k_new.reshape(b, 1, kv, dh), pos_b, cfg.rope_theta)
+    v_new = v_new.reshape(b, 1, kv, dh)
 
-    slot = pos % t
-    cache_k[:, slot] = k_new[:, 0]
-    cache_v[:, slot] = v_new[:, 0]
+    slot = pos % t - start
+    if 0 <= slot < cache_k.shape[1]:        # this rank owns the slot
+        cache_k[:, slot] = k_new[:, 0]
+        cache_v[:, slot] = v_new[:, 0]
 
     qg = q.reshape(b, kv, g, dh)
     sc = torch.einsum("bkgd,btkd->bkgt", qg.float(),
                       cache_k.float()) * dh ** -0.5
-    slot_pos = torch.arange(t, device=x.device)
+    slot_pos = start + torch.arange(cache_k.shape[1], device=x.device)
     if 0 < window and t <= window:
         valid = (slot_pos <= pos) | (pos >= t)          # ring buffer
     else:
         valid = slot_pos <= pos
         if window > 0:
             valid &= slot_pos > pos - window            # windowed full cache
-    pr = torch.softmax(torch.where(valid, sc, NEG), dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", pr, cache_v.float())
-    o = o.reshape(b, 1, h * dh).to(x.dtype)
-    return p.wo(o), cache_k, cache_v
+    o = _attend(torch.where(valid, sc, NEG), cache_v.float(),
+                "bkgt,btkd->bkgd", t_axes)
+    # this rank's columns of every head's output: its heads, or parts of
+    # heads where they do not split over "model" (``_gqa_uneven``)
+    o = _own_columns(o.reshape(b, 1, h * dh), tp).to(x.dtype)
+    return parallel.leave(p.wo(o), cfg), cache_k, cache_v
 
 
 # ------------------------------------------------------------ MLA layer
@@ -267,16 +392,24 @@ def _into_heads(t: torch.Tensor, tp: int) -> torch.Tensor:
 
 
 def mla_decode(p: MLA, x: torch.Tensor, pos: int, cache_ckv: torch.Tensor,
-               cache_kr: torch.Tensor, cfg: TransformerConfig):
+               cache_kr: torch.Tensor, cfg: TransformerConfig, *,
+               t_axes: tuple = ()):
     """Absorbed MLA decode, O(T * r) a step: only the latent ``c_kv`` [B,
     T, r] and the shared rotary key [B, T, rd] are cached (written in
     place at slot ``pos < T``); ``w_uk`` is folded into q and ``w_uv``
-    into the output. Returns (out [B, 1, d], cache_ckv, cache_kr)."""
+    into the output. Returns (out [B, 1, d], cache_ckv, cache_kr). On a
+    mesh the caches hold this rank's positions (split over ``t_axes``)
+    and ``wq``, ``w_uk``, ``w_uv`` and ``wo`` its heads: the absorbed
+    queries of every head are gathered, the latent attention combined
+    over the positions, and each rank expands its own heads."""
     b = x.shape[0]
-    h = cfg.n_heads
+    tp = parallel.tp_size(cfg)
+    h = cfg.n_heads // tp
     nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                      cfg.kv_lora_rank)
-    t = cache_ckv.shape[1]
+    t_loc = cache_ckv.shape[1]
+    _, start = _cache_place(t_loc, t_axes)
+    x = parallel.enter(x, cfg)
     pos_b = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q = p.wq(x).reshape(b, 1, h, nd + rd)
     q_nope = q[:, 0, :, :nd]                                      # [B,h,nd]
@@ -285,18 +418,22 @@ def mla_decode(p: MLA, x: torch.Tensor, pos: int, cache_ckv: torch.Tensor,
     c_new = rms_norm(p.w_dkv(x), p.kv_norm, cfg.norm_eps)         # [B,1,r]
     kr_new = apply_rope(p.w_kr(x)[:, :, None, :], pos_b,
                         cfg.rope_theta)[:, :, 0, :]               # [B,1,rd]
-    cache_ckv[:, pos] = c_new[:, 0]
-    cache_kr[:, pos] = kr_new[:, 0]
+    if 0 <= pos - start < t_loc:            # this rank owns the slot
+        cache_ckv[:, pos - start] = c_new[:, 0]
+        cache_kr[:, pos - start] = kr_new[:, 0]
 
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(),
                          p.w_uk.reshape(r, h, nd).float())
+    q_lat, q_rope = (t.unflatten(-1, (-1, n)) for t, n in zip(_all_heads(
+        tp, q_lat.flatten(-2), q_rope.float().flatten(-2)), (r, rd)))
     ckv = cache_ckv.float()
     sc = (torch.einsum("bhr,btr->bht", q_lat, ckv)
-          + torch.einsum("bhd,btd->bht", q_rope.float(),
+          + torch.einsum("bhd,btd->bht", q_rope,
                          cache_kr.float())) * (nd + rd) ** -0.5
-    valid = torch.arange(t, device=x.device) <= pos
-    pr = torch.softmax(torch.where(valid, sc, NEG), dim=-1)
-    o_lat = torch.einsum("bht,btr->bhr", pr, ckv)                 # [B,h,r]
-    o = torch.einsum("bhr,rhd->bhd", o_lat,
+    valid = start + torch.arange(t_loc, device=x.device) <= pos
+    o_lat = _attend(torch.where(valid, sc, NEG), ckv, "bht,btr->bhr",
+                    t_axes)                                       # [B,H,r]
+    o = torch.einsum("bhr,rhd->bhd", _own_heads(o_lat, tp),
                      p.w_uv.reshape(r, h, vd).float())
-    return p.wo(o.reshape(b, 1, h * vd).to(x.dtype)), cache_ckv, cache_kr
+    o = p.wo(o.reshape(b, 1, h * vd).to(x.dtype))
+    return parallel.leave(o, cfg), cache_ckv, cache_kr

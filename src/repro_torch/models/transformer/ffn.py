@@ -206,25 +206,45 @@ def _shared(p: MoE, x: torch.Tensor, cfg: TransformerConfig):
     return swiglu_tp(p.shared, x, cfg)
 
 
+def _rank_experts(p: MoE, cfg: TransformerConfig, ep: int):
+    """This model rank's ``E / ep`` experts (w1, w3, w2): in "tp" mode the
+    stacks it holds; in "fsdp" mode (where the block runs with its
+    stacks all-gathered) its block of them over "model"."""
+    e = cfg.n_experts
+    if cfg.sharding_mode == "fsdp":
+        if p.w1.shape[0] != e:
+            raise ValueError(f"moe_ep: fsdp expects the gathered {e} experts, "
+                             f"got {p.w1.shape[0]}")
+        return tuple(C.block(w, 0, "model") for w in (p.w1, p.w3, p.w2))
+    if p.w1.shape[0] * ep != e:
+        raise ValueError(f"moe_ep: {p.w1.shape[0]} experts on this rank, "
+                         f"{e} over {ep} model ranks expected")
+    return p.w1, p.w3, p.w2
+
+
 def moe_ep(p: MoE, x: torch.Tensor, cfg: TransformerConfig, *,
            split: bool = True):
     """The JAX package's ``moe_ep`` on the ambient mesh. ``x`` is this
     rank's part of the tokens: [B_local, S, d] (train / prefill) or
-    [T, d], split over the data axes when ``split`` (the global batch
-    divides over them) and replicated over "model". Experts are split over
-    "model" (``p.w1`` etc. hold the rank's ``E / ep``).
+    [T, d], split over the batch axes when ``split`` (the global batch
+    divides over them); in "tp" mode it is replicated over "model".
+    Experts are split over "model" (:func:`_rank_experts`).
 
     * The three-dimensional path (the global batch divides over the data
       axes and S over the model axis): each model rank takes its S / ep
       positions, routes them, builds the ``[E, C, d]`` send buffer with
       the capacity of its own tokens, all-to-alls it over "model", runs
       its experts, all-to-alls the outputs back, combines, and the
-      positions are all-gathered back over "model".
+      positions are all-gathered back over "model". In "fsdp" mode,
+      where a rank holds whole sequences of its B / (data * ep) rows, an
+      all-to-all over "model" takes it to those (data, model) token
+      blocks and another one back.
     * The token-poor path otherwise: every model rank routes all its
       tokens, runs its expert slice (foreign experts dropped) with the
       capacity of those tokens, and the outputs are all-reduced over
-      "model". A batch that is replicated over the data axes is split
-      over them here when its tokens divide, as JAX's ``x_spec`` does.
+      "model" (reduce-scattered to the rows in "fsdp" mode). A batch
+      that is replicated over the data axes is split over them here when
+      its tokens divide, as JAX's ``x_spec`` does.
 
     ``aux`` is averaged over the token axes. Off a mesh, or where the
     model axis does not divide the experts, ``moe_local``."""
@@ -237,9 +257,9 @@ def moe_ep(p: MoE, x: torch.Tensor, cfg: TransformerConfig, *,
             out, aux = moe_local(p, x.reshape(b * s, d), cfg)
             return out.reshape(b, s, d), aux
         return moe_local(p, x, cfg)
-    if p.w1.shape[0] * ep != e:
-        raise ValueError(f"moe_ep: {p.w1.shape[0]} experts on this rank, "
-                         f"{e} over {ep} model ranks expected")
+    ws = _rank_experts(p, cfg, ep)
+    if cfg.sharding_mode == "fsdp" and x.dim() == 3:
+        return _moe_ep_fsdp(p, ws, x, cfg, split, ep)
     dp = dp_axes()
     dp_size = axes_size(dp)
     sp = parallel.seq_parallel(cfg)     # x holds S / ep positions already
@@ -259,41 +279,15 @@ def moe_ep(p: MoE, x: torch.Tensor, cfg: TransformerConfig, *,
                     "moe_ep: training on a batch that does not split over "
                     "the data axes")
             xf = C.block(xf, 0, dp)
-        out, aux = _moe_ep_token_poor(p, xf, cfg, axes, ep)
+        out, aux = _moe_ep_token_poor(p, ws, xf, cfg, axes, ep)
         if axes and not split:
             out = C.all_gather(out, 0, dp)
         out = out.reshape(x.shape)
         return (C.scatter_to(out, 1, "model") if sp else out), aux
 
     x_loc = x if sp else C.scatter_to(x, 1, "model")  # [B_local, S/ep, d]
-    bl, sl, d = x_loc.shape
-    xf = x_loc.reshape(-1, d)
-    t = xf.shape[0]
-    cap = max(1, math.ceil(t * cfg.moe_top_k / e * cfg.capacity_factor))
     # the router's gradient is a sum over every rank's positions
-    idx, w, aux = _route(C.copy_to(p.router, "model"), xf, cfg.moe_top_k)
-    k = idx.shape[1]
-    flat_e = idx.reshape(-1)
-    flat_t = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    se, st_, sw = flat_e[order], flat_t[order], w.reshape(-1)[order]
-    start = torch.searchsorted(se, torch.arange(e + 1, device=x.device))
-    rank = torch.arange(t * k, device=x.device) - start[se]
-    keep = rank < cap
-    slot_e = torch.where(keep, se, e)
-    slot_c = torch.where(keep, rank, 0)
-    buf = torch.zeros((e + 1, cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((slot_e, slot_c), xf[st_])
-    # dispatch: [E, C, d] -> this rank's experts' [E / ep, C * ep, d]
-    recv = C.all_to_all_(buf[:e], 0, 1, "model")
-    h = torch.bmm(recv, p.w1)
-    g = torch.bmm(recv, p.w3)
-    out_e = torch.bmm(F.silu(h) * g, p.w2)
-    back = C.all_to_all_(out_e, 1, 0, "model")       # [E, C, d]
-    contrib = back[slot_e.clamp(max=e - 1), slot_c] \
-        * sw[:, None].to(back.dtype)
-    contrib = torch.where(keep[:, None], contrib, 0)
-    out = _combine(contrib, order, idx, xf).reshape(bl, sl, d)
+    out, aux = _ep_blocks(C.copy_to(p.router, "model"), ws, x_loc, cfg)
     if not sp:
         out = C.gather_from(out, 1, "model")
     shared = _shared(p, x, cfg)
@@ -306,24 +300,119 @@ def moe_ep(p: MoE, x: torch.Tensor, cfg: TransformerConfig, *,
     return out, C.mean_over(aux, dp)
 
 
-def _moe_ep_token_poor(p: MoE, x: torch.Tensor, cfg: TransformerConfig,
-                       token_axes: tuple, ep: int):
-    """Redundant routing on every model rank, the rank's expert slice
-    (foreign experts -> the sentinel, dropped), all-reduce over "model".
-    ``x`` [T, d] is the rank's tokens (split over ``token_axes``)."""
+def _ep_blocks(router: torch.Tensor, ws: tuple, x_loc: torch.Tensor,
+               cfg: TransformerConfig):
+    """The expert-parallel body on this rank's token block x_loc [b, s,
+    d]: route with the capacity of its own tokens, the ``[E, C, d]`` send
+    buffer all-to-all'd over "model" to the rank's experts ``ws``, their
+    outputs back, combined -> ([b, s, d], this rank's aux)."""
     e = cfg.n_experts
-    el = e // ep
-    t = x.shape[0]
+    bl, sl, d = x_loc.shape
+    xf = x_loc.reshape(-1, d)
+    t = xf.shape[0]
     cap = max(1, math.ceil(t * cfg.moe_top_k / e * cfg.capacity_factor))
-    idx, w, aux = _route(p.router, x, cfg.moe_top_k)
-    my = axis_index("model")
-    local_idx = idx - my * el
+    idx, w, aux = _route(router, xf, cfg.moe_top_k)
+    k = idx.shape[1]
+    dev = xf.device
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st_, sw = flat_e[order], flat_t[order], w.reshape(-1)[order]
+    start = torch.searchsorted(se, torch.arange(e + 1, device=dev))
+    rank = torch.arange(t * k, device=dev) - start[se]
+    keep = rank < cap
+    slot_e = torch.where(keep, se, e)
+    slot_c = torch.where(keep, rank, 0)
+    buf = torch.zeros((e + 1, cap, d), dtype=xf.dtype, device=dev)
+    buf = buf.index_put((slot_e, slot_c), xf[st_])
+    w1, w3, w2 = ws
+    # dispatch: [E, C, d] -> this rank's experts' [E / ep, C * ep, d]
+    recv = C.all_to_all_(buf[:e], 0, 1, "model")
+    h = torch.bmm(recv, w1)
+    g = torch.bmm(recv, w3)
+    out_e = torch.bmm(F.silu(h) * g, w2)
+    back = C.all_to_all_(out_e, 1, 0, "model")       # [E, C, d]
+    contrib = back[slot_e.clamp(max=e - 1), slot_c] \
+        * sw[:, None].to(back.dtype)
+    contrib = torch.where(keep[:, None], contrib, 0)
+    return _combine(contrib, order, idx, xf).reshape(bl, sl, d), aux
+
+
+def _moe_ep_fsdp(p: MoE, ws: tuple, x: torch.Tensor, cfg: TransformerConfig,
+                 split: bool, ep: int):
+    """``moe_ep`` in "fsdp" mode on x [B_local, S, d]. With the batch
+    split over every axis (``split``): the three-dimensional path moves
+    the rank's rows to its (data, model) token block [B / data, S / ep,
+    d] by an all-to-all over "model" and back; the token-poor one
+    all-gathers the data group's tokens over "model" and reduce-scatters
+    the outputs back to the rows. The router is replicated on every rank
+    and the train step averages its gradient over every axis, as it does
+    each rank's aux loss. A batch that does not split over every axis is
+    replicated: forward only, cut here as JAX's ``x_spec`` cuts it."""
+    dp = dp_axes()
+    b, s, d = x.shape
+    every = dp + ("model",)
+    if not split:
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "moe_ep: fsdp training on a batch that does not split over "
+                "every mesh axis")
+        if b % axes_size(dp) == 0 and s % ep == 0:
+            x_loc = C.block(C.block(x, 0, dp), 1, "model")
+            out, aux = _ep_blocks(p.router, ws, x_loc, cfg)
+            out = C.all_gather(C.all_gather(out, 1, "model"), 0, dp)
+            if p.shared is not None:
+                out = out + swiglu(p.shared, x)
+            aux = C.all_reduce(aux, every) / axes_size(every)
+        else:
+            xf = x.reshape(-1, d)
+            axes = dp if axes_size(dp) > 1 and xf.shape[0] % axes_size(dp) \
+                == 0 else ()
+            out, aux = _moe_ep_token_poor(p, ws, C.block(xf, 0, axes), cfg,
+                                          axes, ep)
+            out = C.all_gather(out, 0, axes).reshape(x.shape)
+        return out, aux
+    if s % ep == 0:
+        x_loc = C.all_to_all_(x, 1, 0, "model")        # [B / data, S/ep, d]
+        out, aux = _ep_blocks(p.router, ws, x_loc, cfg)
+        out = C.all_to_all_(out, 0, 1, "model")        # back to the rows
+        aux = C.mean_over(aux, every)
+    else:
+        xg = C.gather_sum(x, 0, "model")               # the data group's rows
+        idx, w, aux = _route(p.router, xg.reshape(-1, d), cfg.moe_top_k)
+        part = _rank_dispatch(xg.reshape(-1, d), idx, w, ws, cfg, ep)
+        out = C.reduce_scatter_(part.reshape(xg.shape), 0, "model")
+        aux = C.mean_over(aux, dp)
+    if p.shared is not None:
+        out = out + swiglu(p.shared, x)
+    return out, aux
+
+
+def _rank_dispatch(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                   ws: tuple, cfg: TransformerConfig, ep: int) -> torch.Tensor:
+    """This model rank's experts ``ws`` on all of x [T, d] (routed to
+    ``idx`` / ``w``; foreign experts -> the sentinel, dropped) with the
+    capacity of those T tokens: its part of the outputs."""
+    el = cfg.n_experts // ep
+    cap = max(1, math.ceil(x.shape[0] * cfg.moe_top_k / cfg.n_experts
+                           * cfg.capacity_factor))
+    local_idx = idx - axis_index("model") * el
     local_idx = torch.where((local_idx >= 0) & (local_idx < el),
                             local_idx, el)
+    return _dispatch_compute(x, local_idx, w, *ws, cap)
+
+
+def _moe_ep_token_poor(p: MoE, ws: tuple, x: torch.Tensor,
+                       cfg: TransformerConfig, token_axes: tuple, ep: int):
+    """Redundant routing on every model rank, the rank's expert slice
+    ``ws`` (foreign experts -> the sentinel, dropped), all-reduce over
+    "model". ``x`` [T, d] is the rank's tokens (split over
+    ``token_axes``)."""
+    idx, w, aux = _route(p.router, x, cfg.moe_top_k)
     # the rank's experts see the replicated tokens and weights as its own
     # work: their gradients are summed over the model ranks
-    out = _dispatch_compute(C.copy_to(x, "model"), local_idx,
-                            C.copy_to(w, "model"), p.w1, p.w3, p.w2, cap)
+    out = _rank_dispatch(C.copy_to(x, "model"), idx, C.copy_to(w, "model"),
+                         ws, cfg, ep)
     out = C.reduce_from(out, "model")
     if p.shared is not None:
         out = out + swiglu_tp(p.shared, x, dataclasses.replace(

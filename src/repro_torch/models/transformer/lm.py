@@ -30,11 +30,14 @@ On a mesh (``distributed.sharding.set_mesh``) ``forward_train``,
 (``parallel``): the parameters are the rank's slices under
 ``lm_param_specs`` (``init_params(..., mesh=)`` draws them), the tokens
 are the global batch, and the logits come back as the rank's rows and
-vocab columns (``parallel.gather_logits`` assembles them). Decode on a
-mesh is not ported.
+vocab columns (``parallel.gather_logits`` assembles them). ``decode_step``
+on a mesh takes the cache as ``cache_specs`` lays it out
+(``parallel.shard_cache``): the rows over the data axes, the cache
+length over "model" (over every axis for a batch that does not split).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -53,8 +56,7 @@ from repro_torch.models.transformer.attention import (GQA, MLA, gqa_decode,
                                                       mla_forward)
 from repro_torch.models.transformer import parallel
 from repro_torch.models.transformer.ffn import (MoE, SwiGLU, draw,
-                                                moe_forward, swiglu,
-                                                swiglu_tp)
+                                                moe_forward, swiglu_tp)
 
 AUX_COEF = 0.01
 
@@ -319,24 +321,29 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, *,
     return cache
 
 
-def _ffn_decode(layer: Block, x: torch.Tensor,
-                cfg: TransformerConfig) -> torch.Tensor:
+def _ffn_decode(layer: Block, x: torch.Tensor, cfg: TransformerConfig,
+                split: bool = True) -> torch.Tensor:
     h = rms_norm(x, layer.ffn_norm, cfg.norm_eps)
     if isinstance(layer.ffn, MoE):
-        out, _ = moe_forward(layer.ffn, h.reshape(h.shape[0], -1), cfg)
+        out, _ = moe_forward(layer.ffn, h.reshape(h.shape[0], -1), cfg,
+                             split=split)
         return x + out.reshape(h.shape)
-    return x + swiglu(layer.ffn, h)
+    return x + swiglu_tp(layer.ffn, h, cfg)
 
 
 def _attn_decode(layer: Block, h: torch.Tensor, pos: int, cache: dict,
                  names: tuple[str, str], i: int | None,
-                 cfg: TransformerConfig, window: int = 0) -> torch.Tensor:
+                 cfg: TransformerConfig, window: int = 0,
+                 axes: dict | None = None) -> torch.Tensor:
     """Layer attention against ``cache[names[0]]``/``[names[1]]`` (entry
-    ``i`` of the stack, or the whole tensor for ``i`` None), in place."""
+    ``i`` of the stack, or the whole tensor for ``i`` None), in place;
+    ``axes`` gives each entry's mesh axes of the cache length."""
     a_, b_ = (cache[n] if i is None else cache[n][i] for n in names)
+    t_axes = (axes or {}).get(names[0], ())
     if cfg.mla:
-        return mla_decode(layer.attn, h, pos, a_, b_, cfg)[0]
-    return gqa_decode(layer.attn, h, pos, a_, b_, cfg, window=window)[0]
+        return mla_decode(layer.attn, h, pos, a_, b_, cfg, t_axes=t_axes)[0]
+    return gqa_decode(layer.attn, h, pos, a_, b_, cfg, window=window,
+                      t_axes=t_axes)[0]
 
 
 @torch.no_grad()
@@ -345,34 +352,54 @@ def decode_step(params: LM, cache: dict, tokens: torch.Tensor, pos: int,
     """One decode step. tokens [B, 1], pos: the step index (the same for
     all sequences; per-sequence offsets belong to the serving engine).
     Writes the step's keys and values (or latents) into ``cache`` in
-    place and returns (logits [B, V], cache)."""
+    place and returns (logits [B, V], cache).
+
+    On a mesh the parameters are the rank's slices, ``tokens`` the global
+    batch and ``cache`` the rank's part (``parallel.shard_cache``); the
+    rows split over the data axes when they divide (else every rank
+    decodes all of them, its part of every row's cache length), and the
+    logits come back as the rank's rows and vocab columns (``parallel.
+    gather_logits`` with ``split``)."""
+    axes: dict = {}
+    split = False
     if get_mesh() is not None:
-        raise NotImplementedError(
-            "decode_step on a mesh (cache_specs' sharded cache) is not "
-            "ported; decode off the mesh")
-    x = F.embedding(tokens.long(), params.embed)          # [B, 1, d]
+        parallel.check_mesh(cfg)
+        cfg = dataclasses.replace(cfg, seq_parallel=False)   # one position
+        tokens, split = parallel.place_decode(tokens)
+        axes = parallel.cache_axes(cache, split)
+    tp = parallel.tp_size(cfg)
+    if tp > 1:
+        x = parallel.vocab_embed(params.embed, tokens, cfg)  # [B, 1, d]
+    else:
+        x = F.embedding(tokens.long(), parallel.fsdp_full(params.embed))
     if params.dense0 is not None:
-        lyr = params.dense0
-        h = rms_norm(x, lyr.attn_norm, cfg.norm_eps)
-        names = ("ckv0", "kr0") if cfg.mla else ("k0", "v0")
-        a = _attn_decode(lyr, h, pos, cache, names, None, cfg)
-        x = _ffn_decode(lyr, x + a, cfg)
+        with parallel.gathered(params.dense0, cfg) as lyr:
+            h = rms_norm(x, lyr.attn_norm, cfg.norm_eps)
+            names = ("ckv0", "kr0") if cfg.mla else ("k0", "v0")
+            a = _attn_decode(lyr, h, pos, cache, names, None, cfg,
+                             axes=axes)
+            x = _ffn_decode(lyr, x + a, cfg, split)
     wins = layer_windows(cfg)
     slots = _cache_slots(wins)
     for i, layer in enumerate(params.layers):
-        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-        if cfg.mla:
-            a = _attn_decode(layer, h, pos, cache, ("ckv", "kr"), i, cfg)
-        elif cfg.local_per_global > 0:
-            kind = "local" if wins[i] > 0 else "global"
-            a = _attn_decode(layer, h, pos, cache,
-                             (f"k_{kind}", f"v_{kind}"), int(slots[i]), cfg,
-                             window=int(wins[i]))
-        else:
-            a = _attn_decode(layer, h, pos, cache, ("k", "v"), i, cfg)
-        x = _ffn_decode(layer, x + a, cfg)
+        with parallel.gathered(layer, cfg):
+            h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+            if cfg.mla:
+                a = _attn_decode(layer, h, pos, cache, ("ckv", "kr"), i, cfg,
+                                 axes=axes)
+            elif cfg.local_per_global > 0:
+                kind = "local" if wins[i] > 0 else "global"
+                a = _attn_decode(layer, h, pos, cache,
+                                 (f"k_{kind}", f"v_{kind}"), int(slots[i]),
+                                 cfg, window=int(wins[i]), axes=axes)
+            else:
+                a = _attn_decode(layer, h, pos, cache, ("k", "v"), i, cfg,
+                                 axes=axes)
+            x = _ffn_decode(layer, x + a, cfg, split)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return F.linear(x, params.out_embed)[:, 0], cache
+    if tp > 1:
+        return parallel.vocab_logits(x, params.out_embed, cfg)[:, 0], cache
+    return F.linear(x, parallel.fsdp_full(params.out_embed))[:, 0], cache
 
 
 # ------------------------------------------------------ the JAX layout

@@ -16,7 +16,16 @@ mesh of ``distributed.sharding``):
   sums leave by a reduce-scatter. The same sums, so the same numbers.
 * "fsdp": the batch is split over every mesh axis, each parameter is
   stored as its FSDP slice and all-gathered before use (``gather_sum``:
-  its gradient reduce-scattered back to the slice).
+  its gradient reduce-scattered back to the slice). MoE layers run
+  their experts as the JAX package's ``moe_ep`` does under FSDP: the
+  experts split over "model" (each rank its block of the gathered
+  stacks), the tokens moved from the FSDP layout to (data, model) token
+  blocks and back (``ffn.moe_ep``).
+
+Decode (``lm.decode_step``) splits the rows over the data axes in either
+mode (:func:`place_decode`) and takes the cache as ``cache_specs`` lays
+it out (:func:`shard_cache`): the cache length over "model", or over
+every axis for a batch that does not split.
 
 Every entry point takes the global batch, as a jitted JAX function takes
 a global array, and keeps the rows at the rank's data position
@@ -25,6 +34,8 @@ stays replicated, as GSPMD leaves it.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -32,8 +43,9 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (axes_size, axis_index,
                                               dp_axes, entry_axes,
-                                              mesh_axis_size, spec_of,
-                                              tp_axis)
+                                              gather_tensor, get_mesh,
+                                              mesh_axis_size, shard_tensor,
+                                              spec_of, tp_axis)
 
 MODEL = "model"
 
@@ -181,20 +193,90 @@ def fsdp_params(module: torch.nn.Module) -> dict:
     return {n: fsdp_full(p) for n, p in module.named_parameters()}
 
 
+@contextlib.contextmanager
+def gathered(module: torch.nn.Module, cfg: TransformerConfig):
+    """Without autograd (decode): in "fsdp" mode on a mesh every
+    parameter of ``module`` all-gathered in place for the context
+    (``fsdp_full``), its slice put back after; otherwise nothing."""
+    if cfg.sharding_mode != "fsdp" or get_mesh() is None:
+        yield module
+        return
+    held = []
+    try:
+        for prm in module.parameters():
+            if spec_of(prm) is not None:
+                full = fsdp_full(prm)
+                held.append((prm, prm.data))
+                prm.data = full
+        yield module
+    finally:
+        for prm, data in held:
+            prm.data = data
+
+
 def check_mesh(cfg: TransformerConfig) -> None:
     """Refuse what the port's mesh paths do not cover."""
     if cfg.sharding_mode not in ("tp", "fsdp"):
         raise ValueError(f"sharding_mode must be 'tp' or 'fsdp', got "
                          f"{cfg.sharding_mode!r}")
-    if cfg.sharding_mode == "fsdp" and cfg.moe and tp_axis() is not None:
-        raise NotImplementedError(
-            "fsdp on a mesh with MoE layers: the JAX package runs their "
-            "experts as its tp-mode expert parallelism over (data, model) "
-            "token blocks, which the port has not ported")
     tp = tp_size(cfg)
-    if tp > 1 and cfg.n_heads % tp:
-        raise ValueError(f"{cfg.n_heads} heads do not split over {tp} "
+    if tp > 1 and cfg.mla and cfg.n_heads % tp:
+        raise ValueError(f"MLA: {cfg.n_heads} heads do not split over {tp} "
                          "tensor-parallel ranks")
+
+
+# ---------------------------------------------------------------- decode
+
+_STACKED = ("k", "v", "ckv", "kr", "k_local", "v_local", "k_global",
+            "v_global")
+
+
+def place_decode(t: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """A decode step's global batch ``t`` -> (this rank's rows, whether
+    the batch is split): rows over the data axes when they divide (the
+    JAX dry-run's ``P(dp, None)``), else all of them (``P()``)."""
+    dp = dp_axes()
+    if t.shape[0] % axes_size(dp):
+        return t, False
+    return C.block(t, 0, dp), True
+
+
+def shard_cache(cache: dict) -> dict:
+    """A full decode cache (``lm.init_cache``, or one a one-rank prefill
+    filled) -> this rank's parts under ``cache_specs`` on the ambient
+    mesh, as the JAX dry run calls it (the data axes, their size, the
+    model axis's size), each marked with its spec."""
+    from repro_torch.distributed.param_sharding import cache_specs
+    dp = dp_axes()
+    specs = cache_specs(cache, dp, dp_size=axes_size(dp),
+                        tp_size=mesh_axis_size(MODEL))
+    return {k: shard_tensor(t, specs[k]) for k, t in cache.items()}
+
+
+def gather_cache(cache: dict) -> dict:
+    """Every rank's parts of a sharded cache -> the full cache on every
+    rank (for checks)."""
+    return {k: gather_tensor(t, spec_of(t)) for k, t in cache.items()}
+
+
+def cache_axes(cache: dict, split: bool) -> dict:
+    """{cache entry: the mesh axes its length is split over} of a cache
+    that :func:`shard_cache` cut; raises for an entry without its spec or
+    with a batch layout other than the step's rows (``split``)."""
+    out = {}
+    for name, t in cache.items():
+        spec = spec_of(t)
+        if spec is None:
+            raise ValueError(f"decode on a mesh: cache entry {name!r} is not "
+                             "sharded (parallel.shard_cache)")
+        dim = 2 if name in _STACKED else 1
+        batch = entry_axes(spec[dim - 1])
+        if batch != (dp_axes() if split else ()):
+            raise ValueError(f"decode on a mesh: cache entry {name!r} has "
+                             f"its batch over {batch}, the step's rows over "
+                             f"{dp_axes() if split else ()}")
+        out[name] = entry_axes(spec[dim])
+    return out
 
 
 def gather_logits(logits: torch.Tensor, cfg: TransformerConfig,
@@ -208,3 +290,12 @@ def gather_logits(logits: torch.Tensor, cfg: TransformerConfig,
     if split:
         logits = C.all_gather(logits, 0, batch_axes(cfg))
     return logits
+
+
+def gather_decode_logits(logits: torch.Tensor, cfg: TransformerConfig,
+                         split: bool) -> torch.Tensor:
+    """A decode step's logits [B_local, V / tp] -> the full [B, V] on
+    every rank (its rows split over the data axes in either mode)."""
+    if tp_size(cfg) > 1:
+        logits = C.all_gather(logits, -1, MODEL)
+    return C.all_gather(logits, 0, dp_axes()) if split else logits

@@ -64,14 +64,17 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
 9. flash_attention against its plain version on seeded inputs: the
    llama3-8b prefill shape (B 1, Hq 32, Hkv 8, S 8192, D 128, bf16,
    causal), float32 at a ragged S = 200, a window of 64, causal=False,
-   D 16 and 64, D 112 (bf16 causal, float32 ragged, a window of 64);
-   its time at the prefill shape beside its bound, the plain version and
+   D 16 and 64, D 112 (bf16 causal, float32 ragged, a window of 64),
+   each case's kernel asserted (bf16 D 64, 112, 128: the TMA + wgmma
+   kernel; D 16: mma.sync; float32: FMA); its time at the prefill shape
+   beside its bound, the plain version and
    ``scaled_dot_product_attention`` (which only this script calls), and
    once at 32768 tokens (prefill_32k of ``lm_shapes``) without the plain
    version; then at gemma3-27b's local layers ([1, 32 / 16, 8192, 128],
    window 1024; SDPA with a boolean band mask) and kimi-k2's heads ([1,
-   64 / 8, 8192, 112]), each held to the plain version and timed beside
-   its bound (live pairs only), the plain version and SDPA;
+   64 / 8, 8192, 112]), each on the wgmma kernel (asserted), held to the
+   plain version and timed beside its bound (live pairs only), the plain
+   version and SDPA, with the kernel's time over SDPA's;
 10. llama3-8b (``configs/llama3_8b.CONFIG``: 32 layers, bf16, drawn on
    the card from the seed) prefills [1, 8192] tokens with the kernel
    (``use_kernel=True``; launch counts set to 0 just before and read
@@ -1082,10 +1085,20 @@ def heads_vs_plain(torch, label, q, k, v, got, *, causal, window):
     return err, worst
 
 
+def expected_route(torch, dtype, d) -> str:
+    """The kernel flash_attention must take: bf16 heads of 64, 112 and 128
+    the TMA + wgmma kernel, bf16 16 and 32 mma.sync, float32 FMA."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if d in (64, 112, 128) else "mma_sync"
+
+
 def flash_check(torch, dev, gen) -> float:
     """Phase 9, the check: flash_attention against its plain version on
-    seeded inputs -> max abs error at the model's shape."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    seeded inputs, each case on the kernel ``expected_route`` names ->
+    max abs error at the model's shape."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         route)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # label, B, Hq, Hkv, S, D, dtype, causal, window
         ("llama3-8b prefill", 1, 32, 8, LM_SEQ, 128, bf16, True, None),
@@ -1100,15 +1113,19 @@ def flash_check(torch, dev, gen) -> float:
     ]
     model_err = None
     for label, b, hq, hkv, s, d, dt, causal, window in cases:
+        kind, want = route(dt, d)[0], expected_route(torch, dt, d)
+        if kind != want:
+            raise AssertionError(f"flash_attention {label}: the {kind} "
+                                 f"kernel, not {want}")
         q, k, v = attention_inputs(torch, dev, gen, b, hq, hkv, s, d, dt)
         got = flash_attention(q, k, v, causal=causal, window=window)
         err, worst = heads_vs_plain(torch, label, q, k, v, got,
                                     causal=causal, window=window)
         model_err = err if model_err is None else model_err
         log(f"  flash_attention {label}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
-            f"{str(dt).split('.')[1]} causal={causal} window={window}: max "
-            f"abs err {err:.3e}, worst element at {worst:.3f} of its "
-            "tolerance")
+            f"{str(dt).split('.')[1]} causal={causal} window={window}, the "
+            f"{kind} kernel: max abs err {err:.3e}, worst element at "
+            f"{worst:.3f} of its tolerance")
     return model_err
 
 
@@ -1155,8 +1172,8 @@ def flash_phase(torch, dev, gen, bench) -> dict:
             f"at 3.35 TB/s; {bms / ms:.1%} of it, {tflop / ms * 1e3:.1f} "
             f"TFLOP/s), plain "
             f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}, "
-            f"scaled_dot_product_attention {lib_ms:.4f} ms (max abs gap to "
-            f"the kernel {gap:.3e})")
+            f"scaled_dot_product_attention {lib_ms:.4f} ms (the kernel "
+            f"{ms / lib_ms:.2f}x its time; max abs gap {gap:.3e})")
         return ms, plain_ms, bms, by, lib_ms
 
     ms, plain_ms, bms, by, lib_ms = row(s, q, k, v, plain=True)
@@ -1185,6 +1202,11 @@ def flash_model_shape(torch, dev, gen, bench, label, shape) -> dict:
                                                          flash_attention_ref,
                                                          route)
     b, hq, hkv, s, d, window = shape
+    kind, want = route(torch.bfloat16, d)[0], expected_route(
+        torch, torch.bfloat16, d)
+    if kind != want:
+        raise AssertionError(f"flash_attention {label}: the {kind} kernel, "
+                             f"not {want}")
     g = hq // hkv
     q, k, v = attention_inputs(torch, dev, gen, b, hq, hkv, s, d,
                                torch.bfloat16)
@@ -1223,7 +1245,6 @@ def flash_model_shape(torch, dev, gen, bench, label, shape) -> dict:
     plain_ms = bench.ms(plain, iters=2, warmup=1)
     gap = float((got.float() - lib().float()).abs().max())
     bms, by, tflop, mb, pairs = attention_bound(b, hq, hkv, s, d, window)
-    kind = route(torch.bfloat16, d)[0]
     log(f"[9 flash_attention] {label} [{b}, {hq}, {s}, {d}] bf16 causal, "
         f"Hkv {hkv}, window {window}, the {kind} kernel: max abs err "
         f"{err:.3e} (worst element at {worst:.3f} of its tolerance); "
@@ -1232,7 +1253,8 @@ def flash_model_shape(torch, dev, gen, bench, label, shape) -> dict:
         f"{mb:.1f} MB at 3.35 TB/s; {bms / ms:.1%} of it, "
         f"{tflop / ms * 1e3:.1f} TFLOP/s), plain {plain_ms:.3f} ms "
         f"({PLAIN_HEADS} q heads a call), scaled_dot_product_attention "
-        f"{lib_ms:.4f} ms (max abs gap to the kernel {gap:.3e})")
+        f"{lib_ms:.4f} ms (the kernel {ms / lib_ms:.2f}x its time; max abs "
+        f"gap {gap:.3e})")
     src, rep = SOURCES["flash_attention"]
     return dict(name=f"flash_attention ({label})", route="cuda", source=src,
                 replaces=rep, launches=None, max_abs_err=err, ms=ms,
@@ -1303,6 +1325,25 @@ def wrong_attention(attention, **override):
         attention.flash_attention = kernel
 
 
+def attention_phase(torch, dev, gen) -> list[dict]:
+    """Phase 9: flash_attention against plain and timed at llama3-8b's
+    shape (``flash_phase``), then at gemma3-27b's and kimi-k2's
+    (``flash_model_shape``) -> their records, launches not yet filled."""
+    t_phase = time.perf_counter()
+    bench = Bench(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = flash_phase(torch, dev, gen, bench)
+    torch.cuda.empty_cache()
+    shapes = [flash_model_shape(torch, dev, gen, bench, label, shape)
+              for label, shape in (("gemma3-27b prefill", GEMMA_ATTN),
+                                   ("kimi-k2 prefill", KIMI_ATTN))]
+    log(f"  phase 9 in {time.perf_counter() - t_phase:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del bench
+    torch.cuda.empty_cache()
+    return [rec, *shapes]
+
+
 def lm_phases(torch, dev, seed, runtime) -> list[dict]:
     """Phases 9-11: flash_attention against plain and timed; llama3-8b
     prefill at [1, 8192] with the kernel against the plain chunked path;
@@ -1314,17 +1355,7 @@ def lm_phases(torch, dev, seed, runtime) -> list[dict]:
     from repro_torch.serve import LMDecoder
     t_lm = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    bench = Bench(torch, dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    rec = flash_phase(torch, dev, gen, bench)
-    torch.cuda.empty_cache()
-    shapes = [flash_model_shape(torch, dev, gen, bench, label, shape)
-              for label, shape in (("gemma3-27b prefill", GEMMA_ATTN),
-                                   ("kimi-k2 prefill", KIMI_ATTN))]
-    log(f"  phase 9 in {time.perf_counter() - t_lm:.1f} s; peak device "
-        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    del bench
-    torch.cuda.empty_cache()
+    records = attention_phase(torch, dev, gen)
 
     # ---- 10. llama3-8b prefill, kernel path against the plain path
     cfg = llama3_8b.CONFIG
@@ -1355,7 +1386,7 @@ def lm_phases(torch, dev, seed, runtime) -> list[dict]:
         raise AssertionError(f"flash_attention launched "
                              f"{prefill_launches['flash_attention']} times "
                              f"in one forward, not {cfg.n_layers}")
-    rec["launches"] = prefill_launches["flash_attention"]
+    records[0]["launches"] = prefill_launches["flash_attention"]
     t0 = time.perf_counter()
     logits_p, _ = lm.forward(params, tokens, cfg, use_kernel=False)
     torch.cuda.synchronize()
@@ -1428,7 +1459,7 @@ def lm_phases(torch, dev, seed, runtime) -> list[dict]:
         f"{float(greedy.float().mean()):.4f}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     log(f"  LM phases 9-11 in {time.perf_counter() - t_lm:.1f} s")
-    return [rec, *shapes]
+    return records
 
 
 def draw_model(torch, dev, lm, cfg, seed, label):
@@ -6033,7 +6064,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ops import wgmma_config
     for line in ptxas_lines("\n".join(reports.values())):
         log(f"  [redesigned] {line}")
-    for d in (128, 64):
+    for d in (128, 112, 64):
         log(f"  [redesigned] fa_wgmma_kernel<D {d}> as built: "
             + ", ".join(f"{k} {v}" for k, v in wgmma_config(d).items()))
     log("  [redesigned] gather_dot_cand dynamic shared memory (the q "

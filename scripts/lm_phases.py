@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke.py's LM and model-family phases alone, on one GPU.
 
-    python3 scripts/lm_phases.py [--train | --families | --mesh | --dryrun]
+    python3 scripts/lm_phases.py [--attention | --train | --families |
+                                  --mesh | --dryrun]
 
 Run from the repository root. It builds the CUDA kernels, prints
 flash_attention's ptxas report, then runs chip_smoke.py's phases 9-11
@@ -11,7 +12,9 @@ gemma3-27b's and kimi-k2's shapes; llama3-8b prefill and serving),
 serving at full width) and 20-21 (llama3-8b and deepseek-v2-lite-16b
 training at full width, and the card against the CPU), with TF32 off as
 the smoke sets it, and prints flash_attention's records. With
-``--train`` it runs phases 20-21 alone, with ``--families`` phases 22-23
+``--attention`` it runs phase 9 alone (flash_attention against its plain
+version and timed beside SDPA at the three models' shapes), with
+``--train`` phases 20-21 alone, with ``--families`` phases 22-23
 alone (the recsys and GNN families at full width, and the SASRec ->
 Seismic bridge, which launches summary_dot and gather_dot_cand), with
 ``--mesh`` phase 24 alone (the model-parallel code at full width, its
@@ -94,6 +97,8 @@ def profile_train_step(torch, dev, cs) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--attention", action="store_true",
+                    help="phase 9 (flash_attention) alone")
     ap.add_argument("--train", action="store_true",
                     help="phases 20-21 (training) alone")
     ap.add_argument("--families", action="store_true",
@@ -135,6 +140,12 @@ def main() -> int:
             torch.cuda.empty_cache()
         if args.dryrun:
             cs.dryrun_phase(torch, dev, smi)
+        cs.log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.attention:
+        records = cs.attention_phase(
+            torch, dev, torch.Generator(device=dev).manual_seed(0))
+        cs.log(json.dumps({"kernels": records}))
         cs.log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
     if args.families:

@@ -16,7 +16,9 @@ wrappers.
 
 ``flash_attention``   the LM's prefill attention: online softmax over key
                       tiles with causal, window and key-existence masks,
-                      bf16 on the tensor cores (``mma.sync``) or float32
+                      bf16 on the tensor cores (TMA + ``wgmma`` at head
+                      dims 64, 112 and 128, ``mma.sync`` at 16 and 32)
+                      or float32
 
 The retrieval kernels score a row with the shared row dot of
 ``common/csrc/row_dot.cuh``, so their scores agree to the bit.

@@ -35,33 +35,41 @@
 // P V; chip_smoke.py holds each element to twice that plus one bf16 ulp.
 // The denominator sums the float32 p.
 //
-// * bf16, D 64 and 128 (the models' heads): fa_wgmma_kernel, the Hopper
-//   design. A block of three warpgroups owns a 128-row q tile. Warpgroup 0
-//   is the producer: it gives up registers (setmaxnreg.dec) and one thread
-//   issues TMA loads, Q once and then K and V tiles of 128 keys x D into a
-//   two-stage ring in dynamic shared memory, each stage guarded by a full
-//   and an empty mbarrier. The tensor maps (built by the C entry point from
-//   the wrapper's dims, byte strides and box) read [B, H, S, D] views in
-//   place as 4-D (D, S, H, B) tensors, in 64-column boxes with the 128-byte
-//   swizzle that wgmma's shared-memory descriptors read directly. The two
-//   consumer warpgroups (setmaxnreg.inc) own 64 q rows each: S = Q K^T is
-//   wgmma m64n128k16 with both operands in shared memory; O += P V is
-//   wgmma m64nDk16 with P in registers and V read through the transpose
-//   bit. The softmax runs in base 2: one multiply by sm_scale * log2(e),
+// * bf16, D 64, 112 and 128 (the models' heads): fa_wgmma_kernel, the
+//   Hopper design. A block of three warpgroups owns a 128-row q tile.
+//   Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
+//   and one thread issues TMA loads, Q once and then K and V tiles of 128
+//   keys x D into a two-stage ring in dynamic shared memory, each stage
+//   guarded by a full and an empty mbarrier. The tensor maps (built by the
+//   C entry point from the wrapper's dims, byte strides and box) read
+//   [B, H, S, D] views in place as 4-D (D, S, H, B) tensors, in 64-column
+//   boxes with the 128-byte swizzle that wgmma's shared-memory descriptors
+//   read directly. The two consumer warpgroups (setmaxnreg.inc) own 64 q
+//   rows each: S = Q K^T is wgmma m64n128k16 with both operands in shared
+//   memory; O += P V is wgmma m64nDk16 (n 128 at D 112) with P in
+//   registers and V read through the transpose bit. The softmax runs in base 2: one multiply by sm_scale * log2(e),
 //   then exp2f. Each warpgroup classifies a key tile as full (every
 //   pair live: no mask test), edge (the diagonal, a window's edge, Sk:
 //   one live() per score, masked scores -inf so exp2 gives exactly 0) or
 //   empty of live pairs (no product; it still releases the stage).
-// * bf16, D 16, 32 and 112: fa_bf16_kernel, 4 warps of 16 q rows each
-//   over 64-row q tiles, Q in registers as mma.sync m16n8k16 A fragments,
-//   K and V tiles of 64 x D staged synchronously in shared memory with rows
+//   D 112 (kimi-k2's heads): the tensor maps keep the real D, so the rows
+//   of 224 B are read in place, and a tile row is two 64-column boxes
+//   whose second runs 16 columns past D: TMA fills columns 112-127 with
+//   zeros and still counts the whole box's bytes, as for keys at or past
+//   Sk. Tiles, shared memory and the accumulator are those of D 128. Q K^T
+//   takes D / 16 = 7 k-steps (an eighth would add zeros); P V stays
+//   m64n128k16, since V is read through the transpose bit, whose 128-byte
+//   swizzled layout repeats in 64-column atoms (112 columns are not whole
+//   atoms), and its columns 112-127 (zeros) are never stored. Bound:
+//   operations, 4 * D * Hq * live pairs at 989 TFLOP/s (0.97 ms at
+//   kimi-k2's prefill, [1, 64 / 8, 8192, 112]); the padded P V makes the
+//   tensor cores do (112 + 128) / 224 = 1.07x that.
+// * bf16, D 16 and 32: fa_bf16_kernel, 4 warps of 16 q rows each over
+//   64-row q tiles, Q in registers as mma.sync m16n8k16 A fragments, K
+//   and V tiles of 64 x D staged synchronously in shared memory with rows
 //   padded by 8 elements (conflict-free fragment loads: a padded row is
-//   D + 8 halves, 12, 20 or 60 words, so the 8 rows of a fragment load
-//   start on 8 distinct 4-word bank groups). D 112 (kimi-k2's heads) is 7
-//   k-steps of 16; its two tiles take 30,720 B of static shared memory and
-//   its rows of 224 B keep the 16-byte loads aligned, so q, k and v are
-//   read in place as at the other head dims. The wgmma kernel reads
-//   64-column TMA boxes and stays at D 64 and 128.
+//   D + 8 halves, 12 or 20 words, so the 8 rows of a fragment load start
+//   on 8 distinct 4-word bank groups).
 // * float32: FMA outside the tensor cores (the kernel's float32 tests and
 //   checks, not the model's bf16 path). 64 q rows x 4 lanes per block;
 //   lane c of a row holds dims c, c + 4, ... of q and the accumulator, a
@@ -374,7 +382,7 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------- bf16, D 64 and 128: wgmma
+// -------------------------------------- bf16, D 64, 112 and 128: wgmma
 
 constexpr int kTmaBlockQ = 128;   // q rows per block: 2 consumer groups of 64
 constexpr int kTmaBlockK = 128;   // keys per K/V tile
@@ -541,10 +549,17 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The columns of a tile row: D in whole 64-column boxes (128 at D 112).
 template <int D>
+__host__ __device__ constexpr int padded_d() {
+  return (D + kBoxCols - 1) / kBoxCols * kBoxCols;
+}
+
+// O += P V over the padded width Dp (64 or 128).
+template <int Dp>
 __device__ __forceinline__ void wgmma_pv(float* acc, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (D == 128)
+  if constexpr (Dp == 128)
     wgmma_rs_n128(acc, a, db);
   else
     wgmma_rs_n64(acc, a, db);
@@ -554,7 +569,8 @@ __device__ __forceinline__ void wgmma_pv(float* acc, const uint32_t* a,
 // plus room to align the start to the 1024 bytes the swizzle repeats in.
 template <int D>
 constexpr int wgmma_smem_bytes() {
-  return (D / kBoxCols) * kBoxBytes * (1 + 2 * kStages) + 64 + 1024;
+  return (padded_d<D>() / kBoxCols) * kBoxBytes * (1 + 2 * kStages) + 64 +
+         1024;
 }
 
 template <int D>
@@ -563,7 +579,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 __nv_bfloat16* __restrict__ o, const TmaShape s) {
-  constexpr int kBoxes = D / kBoxCols;             // boxes per tile row
+  constexpr int kDp = padded_d<D>();               // columns of a tile row
+  constexpr int kBoxes = kDp / kBoxCols;           // boxes per tile row
   constexpr uint32_t kTile = kBoxes * kBoxBytes;   // a Q, K or V tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -627,10 +644,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float c = s.scale_log2;
 
     // accumulator layout (both products): element 4 j + e holds row r0
-    // (e < 2) or r1, column 8 j + 2 t + (e & 1)
-    float acc[D / 2];
+    // (e < 2) or r1, column 8 j + 2 t + (e & 1); columns past D stay 0
+    float acc[kDp / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kDp / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNeg, kNeg};    // running max, in log2 units
     float l[2] = {0.f, 0.f};      // this lane's part of each row's sum
 
@@ -689,7 +706,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           l[r] += sc[i];
         }
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < kDp / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
         // O += P V: score columns 16 kk .. + 15 are the A fragment of
         // key step kk; V's 16 keys of the step start 16 rows down
@@ -702,7 +719,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kTmaBlockK / 16; ++kk)
-          wgmma_pv<D>(acc, pa[kk],
+          wgmma_pv<kDp>(acc, pa[kk],
                       smem_desc(vs + kk * 16 * 128, kBoxBytes, 1024));
         wgmma_commit_wait();
         hold(acc);
@@ -736,7 +753,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bf16,
             dim3 grid, const Shape& s, cudaStream_t stream) {
   if (bf16) {
-    if constexpr (D <= 32 || D == 112)  // D 64 and 128 take fa_wgmma_kernel
+    if constexpr (D <= 32)  // D 64, 112 and 128 take fa_wgmma_kernel
       fa_bf16_kernel<D><<<grid, kWarps * 32, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
@@ -819,8 +836,12 @@ int encode(CUtensorMap* map, const void* base, const long long* geo) {
 // consumers' registers (setmaxnreg), q rows per block, keys per K/V tile,
 // bf16 columns per TMA box. Returns cudaErrorInvalidValue for another D.
 extern "C" int flash_attention_wgmma_config(int D, int* out) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  out[0] = D == 128 ? wgmma_smem_bytes<128>() : wgmma_smem_bytes<64>();
+  switch (D) {
+    case 64: out[0] = wgmma_smem_bytes<64>(); break;
+    case 112: out[0] = wgmma_smem_bytes<112>(); break;
+    case 128: out[0] = wgmma_smem_bytes<128>(); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   out[1] = kThreads;
   out[2] = kProducerRegs;
   out[3] = kConsumerRegs;
@@ -830,7 +851,7 @@ extern "C" int flash_attention_wgmma_config(int D, int* out) {
   return 0;
 }
 
-// bf16 with D 64 or 128. geometry: 3 x 11 values, those of q, k and v
+// bf16 with D 64, 112 or 128. geometry: 3 x 11 values, those of q, k and v
 // (dims[4] as (D, S, H, B), byte strides[3] of S, H and B, box[4]), from
 // ops.tma_geometry; o_strides: o's element strides (batch, head, seq).
 // Every box must be the kernel's (kBoxCols, 128, 1, 1): the barriers
@@ -841,7 +862,7 @@ extern "C" int flash_attention_wgmma_launch(
     const long long* o_strides, float scale, int causal, int window,
     cudaStream_t stream) {
   static_assert(kTmaBlockQ == kTmaBlockK, "one box serves Q, K and V");
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 112 && D != 128) return (int)cudaErrorInvalidValue;
   for (int t = 0; t < 3; ++t) {
     const long long* box = geometry + 11 * t + 7;
     if (box[0] != kBoxCols || box[1] != kTmaBlockQ || box[2] != 1 ||
@@ -865,11 +886,14 @@ extern "C" int flash_attention_wgmma_launch(
                    window};
   const dim3 grid((unsigned)(B * Hq),
                   (unsigned)((Sq + kTmaBlockQ - 1) / kTmaBlockQ));
-  return D == 128 ? launch_wgmma<128>(qm, km, vm, o, grid, s, stream)
-                  : launch_wgmma<64>(qm, km, vm, o, grid, s, stream);
+  switch (D) {
+    case 64: return launch_wgmma<64>(qm, km, vm, o, grid, s, stream);
+    case 112: return launch_wgmma<112>(qm, km, vm, o, grid, s, stream);
+    default: return launch_wgmma<128>(qm, km, vm, o, grid, s, stream);
+  }
 }
 
-// float32 (D 16, 32, 64, 112, 128) and bf16 with D 16, 32 or 112.
+// float32 (D 16, 32, 64, 112, 128) and bf16 with D 16 or 32.
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int bf16, int B,

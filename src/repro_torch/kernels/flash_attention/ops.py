@@ -11,10 +11,11 @@ ragged edges (keys at or past Sk do not exist, rows at or past Sq are not
 written), takes the tensors' strides, and reads kv head ``h // (Hq //
 Hkv)`` for q head h.
 
-``route`` names the kernel a CUDA call takes: bf16 with D 64 or 128 the
-TMA + ``wgmma`` kernel, whose tensor maps are encoded in the C entry
-point from ``tma_geometry``'s dims, byte strides and box; bf16 with D 16,
-32 or 112 the ``mma.sync`` kernel; float32 the FMA kernel (every D of
+``route`` names the kernel a CUDA call takes: bf16 with D 64, 112 or 128
+the TMA + ``wgmma`` kernel, whose tensor maps are encoded in the C entry
+point from ``tma_geometry``'s dims, byte strides and box (at D 112 the
+second box of a row runs past D and TMA fills it with zeros); bf16 with
+D 16 or 32 the ``mma.sync`` kernel; float32 the FMA kernel (every D of
 ``HEAD_DIMS``).
 """
 from __future__ import annotations
@@ -29,7 +30,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
 from repro_torch.kernels.runtime import require
 
 HEAD_DIMS = (16, 32, 64, 112, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 112, 128)
 _MAX_Q_TILES = 65535          # grid.y of q tiles
 # the wgmma kernel: 128 q rows per block and keys per tile, read by TMA
 # in boxes of 64 bf16 columns (one 128-byte swizzled row); its launch
@@ -81,8 +82,8 @@ def _check(q, k, v, window) -> None:
 
 def route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     """The kernel a CUDA call takes and its q rows per block: ("wgmma",
-    128) for bf16 with D 64 or 128, ("mma_sync", 64) for bf16 with D 16,
-    32 or 112, ("fma", 64) for float32."""
+    128) for bf16 with D 64, 112 or 128, ("mma_sync", 64) for bf16 with
+    D 16 or 32, ("fma", 64) for float32."""
     if dtype == torch.bfloat16:
         return ("wgmma", TMA_ROWS) if d in WGMMA_HEAD_DIMS else ("mma_sync",
                                                                  64)
@@ -121,17 +122,20 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
     """The 11 numbers the wgmma kernel's tensor map of ``t`` [B, H, S, D]
     (bf16, read in place) is encoded from: dims (D, S, H, B), the byte
-    strides of S, H and B, and the box (64, 128, 1, 1). Raises where TMA
-    cannot read ``t``: D not contiguous or not a multiple of 64, a base
-    or a stride that is not a multiple of 16 bytes, a stride at or past
-    2^40 bytes."""
+    strides of S, H and B, and the box (64, 128, 1, 1); D keeps its real
+    size, so at D 112 the second box of a row reads 16 zero-filled columns
+    past it. Raises where the kernel cannot read ``t``: D not contiguous,
+    or neither 112 nor a multiple of 64, a base or a stride that is not a
+    multiple of 16 bytes, a stride at or past 2^40 bytes."""
     require(t.dim() == 4 and t.dtype == torch.bfloat16,
             f"tma_geometry: a bf16 [B, H, S, D] tensor expected, got "
             f"{t.dtype} {tuple(t.shape)}")
     b, h, s, d = t.shape
-    require(d % TMA_BOX_COLS == 0 and t.stride(3) == 1,
-            f"tma_geometry: D {d} must be a contiguous multiple of "
-            f"{TMA_BOX_COLS}, stride {t.stride(3)}")
+    require((d % TMA_BOX_COLS == 0 or d in WGMMA_HEAD_DIMS)
+            and t.stride(3) == 1,
+            f"tma_geometry: D {d} must be contiguous and one of "
+            f"{WGMMA_HEAD_DIMS} or a multiple of {TMA_BOX_COLS}, stride "
+            f"{t.stride(3)}")
     es = t.element_size()
     sb, sh, ss = (x * es for x in _dense_strides(t))
     require(t.data_ptr() % 16 == 0,

@@ -573,12 +573,12 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_flash_attention_route_and_tiles():
-    """bf16 heads of 64 and 128 take the TMA + wgmma kernel in 128-row q
-    tiles; bf16 16/32/112 the mma.sync kernel and float32 the FMA kernel,
-    in 64-row tiles."""
+    """bf16 heads of 64, 112 and 128 take the TMA + wgmma kernel in
+    128-row q tiles; bf16 16/32 the mma.sync kernel and float32 the FMA
+    kernel, in 64-row tiles."""
     assert route(torch.bfloat16, 128) == ("wgmma", 128)
     assert route(torch.bfloat16, 64) == ("wgmma", 128)
-    assert route(torch.bfloat16, 112) == ("mma_sync", 64)
+    assert route(torch.bfloat16, 112) == ("wgmma", 128)
     assert route(torch.float32, 112) == ("fma", 64)
     assert route(torch.bfloat16, 32) == ("mma_sync", 64)
     assert route(torch.bfloat16, 16) == ("mma_sync", 64)
@@ -586,11 +586,13 @@ def test_flash_attention_route_and_tiles():
 
 
 @pytest.mark.parametrize("b,s,h,d", [(2, 100, 8, 128), (1, 8192, 32, 128),
-                                     (3, 77, 2, 64)])
+                                     (3, 77, 2, 64), (1, 8192, 64, 112)])
 def test_tma_geometry_reads_projection_views_in_place(b, s, h, d):
     """A [B, S, H, D] projection viewed as [B, H, S, D]: dims (D, S, H, B),
     byte strides of S (H D 2), H (D 2) and B (S H D 2), boxes of 64
-    columns x 128 rows; a contiguous copy has the dense strides."""
+    columns x 128 rows; a contiguous copy has the dense strides. kimi-k2's
+    D 112 keeps its real width and 224-byte rows (the kernel reads the
+    second box's 16 columns past D as TMA's zeros)."""
     x = torch.zeros(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
     geo = tma_geometry(x)
     assert geo == (d, s, h, b, h * d * 2, d * 2, s * h * d * 2, 64, 128, 1, 1)
@@ -833,8 +835,9 @@ def test_flash_attention_kernel_reads_strided_projections_on_card():
 def test_flash_attention_d112_reads_kimi_projections_on_card():
     """kimi-k2's heads (D 112, 64 q heads over 8 kv heads) as [B, S, H, D]
     projections viewed [B, H, S, D]: 224-byte rows read in place by the
-    mma.sync kernel, one launch, against the plain version."""
+    TMA + wgmma kernel, one launch, against the plain version."""
     dev = _cuda()
+    assert route(torch.bfloat16, 112)[0] == "wgmma"
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(1, 300, 64, 112, generator=g, device=dev).bfloat16()
     kv = torch.randn(1, 300, 8, 112, generator=g, device=dev).bfloat16()
@@ -849,7 +852,7 @@ def test_flash_attention_d112_reads_kimi_projections_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 def test_flash_attention_wgmma_build_and_box_on_card(dh):
     """The kernel as built: its tiles and box are the wrapper's, its
     dynamic shared memory fits a block of this card; a launch with any
@@ -861,6 +864,8 @@ def test_flash_attention_wgmma_build_and_box_on_card(dh):
     assert (cfg["block_q"], cfg["block_k"], cfg["box_cols"]) == (
         TMA_ROWS, TMA_ROWS, TMA_BOX_COLS)
     assert cfg["threads"] == 3 * 128
+    if dh == 112:                 # two boxes a row, as at D 128
+        assert cfg == wgmma_config(128)
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     assert 0 < cfg["smem_bytes"] <= optin
     q = torch.zeros(1, 2, 200, dh, device=dev, dtype=torch.bfloat16)
@@ -897,10 +902,10 @@ WGMMA_CASES = {  # B, Hq, Hkv, Sq, Sk, causal, window
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("case", sorted(WGMMA_CASES))
 def test_flash_attention_wgmma_kernel_edges_on_card(dh, case):
-    """The TMA + wgmma kernel (bf16, D 64 and 128) against plain at the
+    """The TMA + wgmma kernel (bf16, D 64, 112 and 128) against plain at the
     edges of its 128-row q tiles and 128-key tiles, group sizes 1 and 4,
     on [B, S, H, D] projections read in place as [B, H, S, D] views
     (``assert_attention_close``)."""

@@ -29,7 +29,10 @@ exits non-zero if a fault passes.
   buffer held;
 * dedupe-neighbour: refine_round's dedupe compares an id with the id two
   places to its left, not one, so some duplicate neighbours stay in the
-  frontier.
+  frontier;
+* block-dedupe-neighbour: the same fault in refine_round's block route
+  (more than 512 candidates a query), which marks duplicates in shared
+  memory.
 """
 from __future__ import annotations
 
@@ -67,6 +70,12 @@ FAULTS = {
         f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
         "      const int prev = e ? key[e - 1] : left;",
         "      const int prev = e > 1 ? key[e - 2] : left;", "phase3"),
+    "block-dedupe-neighbour": (
+        f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
+        "    if (key[t] == key[t - 1]) "
+        "atomicOr(&marked[t >> 5], 1u << (t & 31));",
+        "    if (t > 1 && key[t] == key[t - 2])\n"
+        "      atomicOr(&marked[t >> 5], 1u << (t & 31));", "phase3"),
 }
 CHECKS = {
     "flash": ("['flash_attention']",

@@ -28,12 +28,16 @@
 // latency (an empty kernel, timed alike, takes about 5 us), so the
 // kernel's time is its chain of dependent steps.
 //
-// Design: the chain kept short. The first design, one block per query
-// sorting in shared memory (two bitonic sorts of 28 steps, each behind a
-// __syncthreads), scanning the seen row serially per entry and rescoring
-// about 10 candidates one after another per warp, each a row dot whose q
-// lookups wait on its row's loads, took 20x its bound. Here one block of
-// kWarps warps takes one query:
+// Two routes, by C (refine_route below; ops.route in Python holds the
+// same constants):
+//
+// The warp route, C <= kWarpMaxCand = 512: the chain kept short. The
+// first design, one block per query sorting in shared memory (two
+// bitonic sorts of 28 steps, each behind a __syncthreads), scanning the
+// seen row serially per entry and rescoring about 10 candidates one after
+// another per warp, each a row dot whose q lookups wait on its row's
+// loads, took 20x its bound. Here one block of kWarps warps takes one
+// query:
 // * warp 0 holds the C <= 32 * KPL ids in registers, KPL a lane (padding
 //   INT_MAX sorts last), and sorts them by a bitonic network over
 //   __shfl_xor_sync with no block barrier; the left neighbour of a lane's
@@ -45,13 +49,35 @@
 //   live frontier, kRows candidates a warp at once, and load all their
 //   entries (kAhead per lane and row) before any q lookup (row_dots), so
 //   a query's row reads are in flight together.
+//
+// The block route, kWarpMaxCand < C <= kBlockMaxCand = 32768 (k 100 x
+// degree 8, the depth first-stage retrieval hands a re-ranker, is 800):
+// one block of the same kWarps warps per query, the ids in dynamic
+// shared memory, padded with INT_MAX to P, the next power of two (at
+// least 1024):
+// * a block-wide bitonic network sorts them, one __syncthreads a step;
+// * duplicates (an id equal to its left neighbour) and seen ids are
+//   marked in a bitmap of P bits beside them: each seen id is searched
+//   (lower bound) in the sorted ids, all of them at once over the
+//   block's threads, so the seen row is read once, coalesced, and never
+//   broadcast id by id (at C 800 and a seen row of thousands that
+//   broadcast would be the chain); a marked id becomes the sentinel;
+// * the second sort compacts; the live count is the lower bound of
+//   n_docs;
+// * the rescoring is the warp route's, the same code.
+// Shared memory is 4 P + P / 8 + 16 bytes (refine_block_smem): 135,184 at
+// the cap, within a block's 232,448; at the next power of two it would
+// not fit. The seen row never lives in shared memory, so W does not
+// bound C.
+//
 // The q lookups go to L2 (QRow): at the smoke's shapes a query's 34.5
 // live rows x 128 lookups touch 38.5 KB of distinct 32-byte sectors of
 // q_dense (chip_smoke.py phase 8), where a query bitmap would be built
-// from the whole 119 KB row (d = 30522). Each row is summed by row_dot.cuh's row_dots in its one order,
-// as gather_dot_cand sums it: fuse levels 0, 1 and 2 rescore a document
-// bitwise alike. No launch allocates; each runs on the caller's stream and
-// its C entry point returns cudaGetLastError().
+// from the whole 119 KB row (d = 30522). Each row is summed by
+// row_dot.cuh's row_dots in its one order, as gather_dot_cand sums it:
+// fuse levels 0, 1 and 2, and both routes, rescore a document bitwise
+// alike. No launch allocates; each runs on the caller's stream and its C
+// entry point returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -68,6 +94,18 @@ constexpr int kRows = 4;               // candidate rows a warp scores at once
 constexpr int kAhead = 4;              // entries per lane and row ahead
 constexpr int kSeenAhead = 4;          // 32-id chunks of the seen row loaded
                                        // at the start
+constexpr int kWarpMaxCand = 512;      // the warp route: 16 ids a lane
+constexpr int kBlockMinKeys = 1024;    // the block route's smallest sort
+constexpr int kBlockMaxCand = 32768;   // the block route's cap
+constexpr int kSmemMax = 232448;       // a block's dynamic shared memory
+
+// Dynamic shared memory of the block route for P sort keys: the keys, a
+// bitmap of P bits, the live count (padded to 16 bytes).
+constexpr int block_smem_bytes(int keys) { return keys * 4 + keys / 8 + 16; }
+static_assert(block_smem_bytes(kBlockMaxCand) <= kSmemMax,
+              "the block route's cap must fit a block's shared memory");
+static_assert(block_smem_bytes(2 * kBlockMaxCand) > kSmemMax,
+              "the cap is the most keys (a power of two) that fit");
 
 using seismic::QRow;
 using seismic::row_dots;
@@ -104,6 +142,47 @@ __device__ __forceinline__ void warp_sort(int (&key)[KPL], int lane) {
         }
       }
     }
+  }
+}
+
+// Writes a query's frontier front[0, n_cand) to cand and rescores its
+// live prefix front[0, nl) into out (-inf past it): the block's warps
+// split the prefix, kRows rows a warp at once, every row summed by
+// row_dots in its one order.
+template <typename C, typename V, bool kQuant>
+__device__ __forceinline__ void rescore(
+    const int* front, int nl, int n_cand, long long qi,
+    const float* __restrict__ q, const C* __restrict__ fwd_coords,
+    const V* __restrict__ fwd_vals, const float* __restrict__ fwd_scale,
+    const float* __restrict__ fwd_zero, int32_t* __restrict__ cand,
+    float* __restrict__ out, int nnz, int d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long base = qi * n_cand;
+  for (int t = threadIdx.x; t < n_cand; t += kThreads) {
+    cand[base + t] = front[t];
+    if (t >= nl) out[base + t] = -INFINITY;
+  }
+  const QRow qv{q + qi * d};
+  for (int i0 = warp * kRows; i0 < nl; i0 += kWarps * kRows) {
+    const C* c[kRows];
+    const V* v[kRows];
+    float sc[kRows], z[kRows], r[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int fid = front[i0 + j < nl ? i0 + j : i0];
+      const long long doc = fid < 0 ? 0 : fid;
+      c[j] = fwd_coords + doc * nnz;
+      v[j] = fwd_vals + doc * nnz;
+      sc[j] = z[j] = 0.0f;
+      if constexpr (kQuant) {
+        sc[j] = fwd_scale[doc];
+        z[j] = fwd_zero[doc];
+      }
+    }
+    row_dots<kRows, kAhead, C, V, kQuant>(qv, c, v, nnz, sc, z, lane, r);
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+      if (lane == j && i0 + j < nl) out[base + i0 + j] = r[j];
   }
 }
 
@@ -193,42 +272,111 @@ refine_round_kernel(const int32_t* __restrict__ ids,
     if (lane == 0) n_live = live;
   }
   __syncthreads();
-
   // ---- 5. write the frontier; rescore its live prefix
-  const int nl = n_live;
-  const long long base = qi * n_cand;
-  for (int t = threadIdx.x; t < n_cand; t += kThreads) {
-    cand[base + t] = front[t];
-    if (t >= nl) out[base + t] = -INFINITY;
-  }
-  const QRow qv{q + qi * d};
-  for (int i0 = warp * kRows; i0 < nl; i0 += kWarps * kRows) {
-    const C* c[kRows];
-    const V* v[kRows];
-    float sc[kRows], z[kRows], r[kRows];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int fid = front[i0 + j < nl ? i0 + j : i0];
-      const long long doc = fid < 0 ? 0 : fid;
-      c[j] = fwd_coords + doc * nnz;
-      v[j] = fwd_vals + doc * nnz;
-      sc[j] = z[j] = 0.0f;
-      if constexpr (kQuant) {
-        sc[j] = fwd_scale[doc];
-        z[j] = fwd_zero[doc];
+  rescore<C, V, kQuant>(front, n_live, n_cand, qi, q, fwd_coords, fwd_vals,
+                        fwd_scale, fwd_zero, cand, out, nnz, d);
+}
+
+// The block route: C ids a query in dynamic shared memory (see the
+// header), the same steps and the same rescoring.
+__device__ __forceinline__ void block_sort(int* key, int n) {
+  for (int kk = 2; kk <= n; kk <<= 1) {
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += kThreads) {
+        const int lo = 2 * i - (i & (j - 1)), hi = lo + j;
+        const int a = key[lo], b = key[hi];
+        if ((a > b) == ((lo & kk) == 0)) {
+          key[lo] = b;
+          key[hi] = a;
+        }
       }
+      __syncthreads();
     }
-    row_dots<kRows, kAhead, C, V, kQuant>(qv, c, v, nnz, sc, z, lane, r);
-#pragma unroll
-    for (int j = 0; j < kRows; ++j)
-      if (lane == j && i0 + j < nl) out[base + i0 + j] = r[j];
   }
 }
 
+// The first position in key[0, n) (ascending) whose id is not below v.
+__device__ __forceinline__ int first_at_least(const int* key, int n, int v) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (key[lo + half] < v) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
+template <typename C, typename V, bool kQuant>
+__global__ void __launch_bounds__(kThreads)
+refine_block_kernel(const int32_t* __restrict__ ids,
+                    const int32_t* __restrict__ scored,
+                    const float* __restrict__ q,
+                    const int32_t* __restrict__ knn,
+                    const C* __restrict__ fwd_coords,
+                    const V* __restrict__ fwd_vals,
+                    const float* __restrict__ fwd_scale,
+                    const float* __restrict__ fwd_zero,
+                    int32_t* __restrict__ cand, float* __restrict__ out,
+                    int k, int W, int degree, int knn_deg, int n_docs,
+                    int nnz, int d, int P) {
+  extern __shared__ int smem[];
+  int* key = smem;                                     // [P]
+  uint32_t* marked = reinterpret_cast<uint32_t*>(smem + P);   // [P / 32]
+  int* n_live = smem + P + P / 32;
+  const long long qi = blockIdx.x;
+  const int n_cand = k * degree;
+  // ---- 1. expand
+  for (int t = threadIdx.x; t < P; t += kThreads) {
+    int v = INT_MAX;
+    if (t < n_cand) {
+      const int id = ids[qi * k + t / degree];
+      v = id < 0 ? n_docs
+                 : knn[(long long)min(id, n_docs - 1) * knn_deg + t % degree];
+    }
+    key[t] = v;
+  }
+  for (int w = threadIdx.x; w < P / 32; w += kThreads) marked[w] = 0u;
+  __syncthreads();
+  block_sort(key, P);
+  // ---- 2. duplicates, 3. the seen set: marked, then the sentinel
+  for (int t = 1 + threadIdx.x; t < n_cand; t += kThreads)
+    if (key[t] == key[t - 1]) atomicOr(&marked[t >> 5], 1u << (t & 31));
+  const int32_t* seen = scored + qi * W;
+  for (int s = threadIdx.x; s < W; s += kThreads) {
+    const int v = seen[s];
+    const int pos = first_at_least(key, n_cand, v);
+    if (pos < n_cand && key[pos] == v)
+      atomicOr(&marked[pos >> 5], 1u << (pos & 31));
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < n_cand; t += kThreads)
+    if ((marked[t >> 5] >> (t & 31)) & 1u) key[t] = n_docs;
+  __syncthreads();
+  // ---- 4. compact
+  block_sort(key, P);
+  if (threadIdx.x == 0) *n_live = first_at_least(key, n_cand, n_docs);
+  __syncthreads();
+  // ---- 5. write the frontier; rescore its live prefix
+  rescore<C, V, kQuant>(key, *n_live, n_cand, qi, q, fwd_coords, fwd_vals,
+                        fwd_scale, fwd_zero, cand, out, nnz, d);
+}
+
 // ids a lane of the sorting warp holds for C candidates: 4 (C <= 128) or
-// 16 (C <= 512); 0 where C is larger than the kernel takes
+// 16 (C <= kWarpMaxCand); 0 where the warp route does not take C
 int keys_per_lane(int n_cand) {
-  return n_cand <= 128 ? 4 : (n_cand <= 512 ? 16 : 0);
+  return n_cand <= 128 ? 4 : (n_cand <= kWarpMaxCand ? 16 : 0);
+}
+
+// The block route's sort keys for C candidates: the next power of two,
+// at least kBlockMinKeys
+int block_keys(int n_cand) {
+  int p = kBlockMinKeys;
+  while (p < n_cand) p <<= 1;
+  return p;
 }
 
 template <typename C, typename V, bool kQuant>
@@ -237,7 +385,21 @@ int launch(const int32_t* ids, const int32_t* scored, const float* q,
            const float* fwd_scale, const float* fwd_zero, int32_t* cand,
            float* out, int Q, int k, int W, int degree, int knn_deg,
            int n_docs, int nnz, int d, cudaStream_t stream) {
-  const int kpl = keys_per_lane(k * degree);
+  const int n_cand = k * degree;
+  if (n_cand > kWarpMaxCand) {
+    const int P = block_keys(n_cand);
+    const int smem = block_smem_bytes(P);
+    auto kernel = refine_block_kernel<C, V, kQuant>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)Q, kThreads, smem, stream>>>(
+        ids, scored, q, knn, static_cast<const C*>(fwd_coords),
+        static_cast<const V*>(fwd_vals), fwd_scale, fwd_zero, cand, out, k,
+        W, degree, knn_deg, n_docs, nnz, d, P);
+    return (int)cudaGetLastError();
+  }
+  const int kpl = keys_per_lane(n_cand);
   auto kernel = kpl == 4 ? refine_round_kernel<4, C, V, kQuant>
                          : refine_round_kernel<16, C, V, kQuant>;
   kernel<<<(unsigned)Q, kThreads, 0, stream>>>(
@@ -258,8 +420,17 @@ extern "C" int refine_empty_launch(cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The most candidates (k * degree) a launch takes.
-extern "C" int refine_max_candidates() { return 512; }
+// The most candidates (k * degree) a launch takes, and the most the warp
+// route takes (more go to the block route).
+extern "C" int refine_max_candidates() { return kBlockMaxCand; }
+extern "C" int refine_warp_max_candidates() { return kWarpMaxCand; }
+
+// The block route's dynamic shared memory for C candidates (bytes); -1
+// for a C the block route does not take.
+extern "C" int refine_block_smem(int n_cand) {
+  if (n_cand <= kWarpMaxCand || n_cand > kBlockMaxCand) return -1;
+  return block_smem_bytes(block_keys(n_cand));
+}
 
 // coord_kind: 0 = int32, 1 = uint16.
 // val_kind:   0 = float32, 1 = bfloat16, 2 = uint8 with per-row dequant.
@@ -270,7 +441,7 @@ extern "C" int refine_round_launch(
     int Q, int k, int W, int degree, int knn_deg, int n_docs, int nnz, int d,
     int coord_kind, int val_kind, cudaStream_t stream) {
   if (k < 1 || degree < 1 || degree > knn_deg || n_docs < 1 || W < 0 ||
-      keys_per_lane(k * degree) == 0)
+      (long long)k * degree > kBlockMaxCand)
     return (int)cudaErrorInvalidValue;
 #define REFINE_ARGS                                                          \
   ids, scored, q, knn, fwd_coords, fwd_vals, fwd_scale, fwd_zero, cand, out, \

@@ -7,15 +7,19 @@
                         one launch
 
 The signature is the JAX package's without ``tile_q`` and ``interpret``
-(one block per query here; one warp sorts its k * degree ids in
-registers, so the kernel takes at most ``max_candidates()`` = 512 and
-the wrapper raises beyond). The forward plane takes the gather_dot
-kernels' types: int32 or uint16 coordinates; f32, bf16, or u8 values
-with per-document (scale, zero). CPU tensors take the plain version
-(``ref.py``); CUDA tensors launch the kernel or raise.
+(one block per query here). Two routes by the candidates a query, C =
+k * degree (``route``): up to ``WARP_MAX_CAND`` = 512 one warp sorts
+them in registers (the warp route); beyond, up to ``MAX_CAND`` = 32768,
+the block sorts them in shared memory (the block route); the wrapper
+raises beyond that, naming the cap. ``ROUTE_LAUNCHES`` counts each
+route's launches. The forward plane takes the gather_dot kernels'
+types: int32 or uint16 coordinates; f32, bf16, or u8 values with
+per-document (scale, zero). CPU tensors take the plain version
+(``ref.py``) at any C; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -24,9 +28,42 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.gather_dot.ops import (_COORD_KIND, _VAL_KIND,
                                                 _check_q, _check_rows)
 from repro_torch.kernels.refine_fused.ref import refine_round_ref
+from repro_torch.kernels.row_tiles import SMEM_MAX
 from repro_torch.kernels.runtime import require
 
+# the routes' constants, as ``csrc/refine_fused.cu`` asserts them: the
+# warp route's candidates (16 ids a lane), the block route's smallest
+# sort and its cap, the most keys (a power of two) whose ids and marks
+# fit a block's shared memory
+WARP_MAX_CAND, BLOCK_MIN_KEYS, MAX_CAND = 512, 1024, 32768
+# launches by route ("warp", "block"), beside runtime.LAUNCHES
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
+
 _ready = False
+
+
+def block_smem(n_cand: int) -> int:
+    """The block route's dynamic shared memory for ``n_cand`` candidates:
+    4 bytes a sort key (the next power of two, at least
+    ``BLOCK_MIN_KEYS``), a bit a key for the marks, 16 for the count."""
+    keys = BLOCK_MIN_KEYS
+    while keys < n_cand:
+        keys *= 2
+    return keys * 4 + keys // 8 + 16
+
+
+def route(k: int, degree: int) -> str:
+    """The route a query of ``k`` top-k ids and ``degree`` neighbours
+    each takes on the card: "warp" up to ``WARP_MAX_CAND`` candidates,
+    "block" up to ``MAX_CAND``; raises beyond. The seen row's width does
+    not enter: the block route searches each seen id in its sorted ids
+    and never holds the seen row in shared memory."""
+    c = k * degree
+    require(c <= MAX_CAND,
+            f"refine_round: k * degree = {c} candidates, more than the "
+            f"kernel's {MAX_CAND} (the block route sorts them in one "
+            f"block's {SMEM_MAX} bytes of shared memory)")
+    return "warp" if c <= WARP_MAX_CAND else "block"
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,8 +75,12 @@ def _lib() -> ctypes.CDLL:
         lib.refine_round_launch.restype = i
         lib.refine_empty_launch.argtypes = [v]
         lib.refine_empty_launch.restype = i
-        lib.refine_max_candidates.argtypes = []
-        lib.refine_max_candidates.restype = i
+        for fn in (lib.refine_max_candidates,
+                   lib.refine_warp_max_candidates):
+            fn.argtypes = []
+            fn.restype = i
+        lib.refine_block_smem.argtypes = [i]
+        lib.refine_block_smem.restype = i
         _ready = True
     return lib
 
@@ -79,9 +120,7 @@ def refine_round_batch(ids: torch.Tensor, scored: torch.Tensor,
             f"{name}: inputs must be contiguous")
     dev = q_dense.device
     c = k * degree
-    require(c <= max_candidates(),
-            f"{name}: k * degree = {c} candidates, more than the kernel's "
-            f"{max_candidates()} (one warp sorts them in registers)")
+    way = route(k, degree)
     cand = torch.empty((qn, c), dtype=torch.int32, device=dev)
     out = torch.empty((qn, c), dtype=torch.float32, device=dev)
     if qn == 0:
@@ -94,12 +133,19 @@ def refine_round_batch(ids: torch.Tensor, scored: torch.Tensor,
         runtime.stream_of(q_dense))
     runtime.check_launch(err, name)
     runtime.count_launch(name)
+    ROUTE_LAUNCHES[way] += 1
     return cand, out
 
 
-def max_candidates() -> int:
-    """The most candidates (k * degree) the kernel takes a query."""
-    return _lib().refine_max_candidates()
+def library_constants() -> dict:
+    """The routes' constants as the built library states them:
+    ``warp_max_cand``, ``max_cand`` and ``block_smem`` of each C in
+    ``(WARP_MAX_CAND + 1, 800, MAX_CAND)``."""
+    lib = _lib()
+    return dict(warp_max_cand=lib.refine_warp_max_candidates(),
+                max_cand=lib.refine_max_candidates(),
+                block_smem={c: lib.refine_block_smem(c) for c in
+                            (WARP_MAX_CAND + 1, 800, MAX_CAND)})
 
 
 def empty_launch(device: torch.device) -> None:
@@ -111,5 +157,6 @@ def empty_launch(device: torch.device) -> None:
         "empty kernel")
 
 
-__all__ = ["refine_round_batch", "refine_round_ref", "max_candidates",
-           "empty_launch"]
+__all__ = ["refine_round_batch", "refine_round_ref", "empty_launch",
+           "route", "block_smem", "library_constants", "ROUTE_LAUNCHES",
+           "WARP_MAX_CAND", "MAX_CAND"]

@@ -227,10 +227,7 @@ def _recsys_step(cfg: RecsysConfig, kind: str) -> Callable:
         return lambda params, batch: mod.loss_fn(params, batch, cfg)
     if kind == "retrieval":
         return lambda params, batch: mod.retrieval_step(params, batch, cfg)
-    if hasattr(mod, "serve_step"):
-        return lambda params, batch: mod.serve_step(params, batch, cfg)
-    return torch.no_grad()(lambda params, batch: mod.forward(
-        params, batch["ids"], batch["dense"], cfg))
+    return lambda params, batch: mod.serve_step(params, batch, cfg)
 
 
 # ============================================================== bundles

@@ -8,7 +8,9 @@ package.
 package does, but ``RETRIEVAL_CHUNK`` candidates at a time: rows are
 independent, so the result is the same, and at 1,000,448 candidates the
 scores ``[C, 8, 21, 21]`` alone would take 14.1 GB in float32 (a chunk's
-temporaries take about 3 GB).
+temporaries take about 3 GB). On a mesh the steps run on this rank's
+rows, as ``fm``'s do; retrieval splits each chunk's candidates over the
+data ranks and gathers the chunk's scores as it ends.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import (ParamTree, bce_with_logits, const,
                                        draw, layer_norm, mlp_apply, mlp_init,
                                        tree_from_jax, tree_to_jax)
-from repro_torch.models.recsys.embedding import init_table, lookup, padded_rows
+from repro_torch.models.recsys.embedding import (gather_rows, init_table,
+                                                 lookup, padded_rows,
+                                                 place_rows)
 
 RETRIEVAL_CHUNK = 65536
 
@@ -76,7 +80,8 @@ def _attn(b, h: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 def forward(params, seq: torch.Tensor, target: torch.Tensor,
             cfg: RecsysConfig) -> torch.Tensor:
-    """seq [B, S], target [B] -> CTR logits [B]."""
+    """seq [B, S], target [B] -> CTR logits [B] (this rank's rows on a
+    mesh)."""
     full = torch.cat([seq, target[:, None].to(seq.dtype)], dim=1)  # [B, S+1]
     h = lookup(params["item_emb"], full) + params["pos_emb"][None]
     for b in params["blocks"]:
@@ -90,12 +95,15 @@ def forward(params, seq: torch.Tensor, target: torch.Tensor,
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     logits = forward(params, batch["seq"], batch["target"], cfg)
-    return bce_with_logits(logits, batch["labels"])
+    return bce_with_logits(logits, place_rows(batch["labels"]))
 
 
 @torch.no_grad()
 def serve_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    return forward(params, batch["seq"], batch["target"], cfg)
+    """CTR logits [B] of a batch of requests {seq, target}, every row on
+    every rank."""
+    return gather_rows(forward(params, batch["seq"], batch["target"], cfg),
+                       batch["seq"].shape[0])
 
 
 @torch.no_grad()
@@ -109,6 +117,7 @@ def retrieval_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     out = torch.empty(c, dtype=torch.float32, device=cand.device)
     for i in range(0, c, RETRIEVAL_CHUNK):
         part = cand[i:i + RETRIEVAL_CHUNK]
-        out[i:i + part.shape[0]] = forward(
-            params, seq.expand(part.shape[0], seq.shape[1]), part, cfg)
+        m = part.shape[0]
+        out[i:i + m] = gather_rows(
+            forward(params, seq.expand(m, seq.shape[1]), part, cfg), m)
     return out

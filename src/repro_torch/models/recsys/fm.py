@@ -11,6 +11,11 @@ context U and candidate item embedding v_c, score(c) = const(U) + w_c +
 <sum(U), v_c>, one [C, D] @ [D] product for a million candidates. Ids
 are int64 here (``fm.py:64`` writes ``jnp.int64``, which is int32 under
 JAX's default; every id is below 2^31, so they are the same ids).
+
+On a mesh every step runs on this rank's rows (``embedding.lookup``):
+``forward`` and ``loss_fn`` on its block of the batch, the retrieval
+step on its block of the candidates; ``serve_step`` and
+``retrieval_step`` gather their scores over the data ranks at the end.
 """
 from __future__ import annotations
 
@@ -21,8 +26,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import (ParamTree, bce_with_logits, const,
                                        draw, tree_from_jax, tree_to_jax)
 from repro_torch.models.recsys.embedding import (field_offsets,
-                                                 fielded_lookup, init_table,
-                                                 lookup, padded_rows)
+                                                 fielded_lookup, gather_rows,
+                                                 init_table, lookup,
+                                                 padded_rows, place_rows)
 
 
 def init_params(cfg: RecsysConfig, *, seed: int = 0,
@@ -61,8 +67,10 @@ def params_to_jax(params: ParamTree, cfg: RecsysConfig) -> dict:
 
 def forward(params, ids: torch.Tensor, dense: torch.Tensor,
             cfg: RecsysConfig) -> torch.Tensor:
-    """ids [B, F] (per-field local ids), dense [B, Nd] -> logits [B]."""
+    """ids [B, F] (per-field local ids), dense [B, Nd] -> logits [B]
+    (this rank's rows on a mesh)."""
     offs = field_offsets(cfg.table_rows)
+    dense = place_rows(dense)
     lin = fielded_lookup(params["w_lin"], ids, offs)[..., 0].sum(-1)
     v_cat = fielded_lookup(params["v"], ids, offs)          # [B, F, D]
     v_den = params["v_dense"][None] * dense[..., None]      # [B, Nd, D]
@@ -75,7 +83,15 @@ def forward(params, ids: torch.Tensor, dense: torch.Tensor,
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     logits = forward(params, batch["ids"], batch["dense"], cfg)
-    return bce_with_logits(logits, batch["labels"])
+    return bce_with_logits(logits, place_rows(batch["labels"]))
+
+
+@torch.no_grad()
+def serve_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """The logits [B] of a batch of requests {ids, dense}, every row on
+    every rank."""
+    return gather_rows(forward(params, batch["ids"], batch["dense"], cfg),
+                       batch["ids"].shape[0])
 
 
 @torch.no_grad()
@@ -95,4 +111,4 @@ def retrieval_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     cand_g = cand.long() + int(offs[0])
     v_c = lookup(params["v"], cand_g)                       # [C, D]
     w_c = lookup(params["w_lin"], cand_g)[:, 0]
-    return const_ + w_c + v_c @ u_sum
+    return gather_rows(const_ + w_c + v_c @ u_sum, cand.shape[0])

@@ -7,7 +7,8 @@ sampled negative per position. Serving scores the last-position user
 state against candidate item embeddings, a pure MIPS, which is where the
 Seismic bridge applies (``examples/recsys_retrieval.py``; ``chip_smoke.py``
 phase 22). Attention runs in plain float32, as in the JAX package (no
-kernel there either); the causal mask writes -1e30.
+kernel there either); the causal mask writes -1e30. On a mesh the steps
+run on this rank's rows, as ``fm``'s do.
 """
 from __future__ import annotations
 
@@ -18,7 +19,11 @@ from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (ParamTree, const, draw, layer_norm,
                                        tree_from_jax, tree_to_jax)
-from repro_torch.models.recsys.embedding import init_table, lookup, padded_rows
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import axes_size
+from repro_torch.models.recsys.embedding import (gather_rows, init_table,
+                                                 lookup, padded_rows,
+                                                 place_rows, row_axes)
 
 
 def init_params(cfg: RecsysConfig, *, seed: int = 0,
@@ -72,9 +77,10 @@ def _attn(b, h: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
 
 
 def forward(params, seq: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
-    """seq [B, S] item ids (0 = pad) -> states [B, S, D]."""
+    """seq [B, S] item ids (0 = pad) -> states [B, S, D] (this rank's
+    rows on a mesh)."""
     h = lookup(params["item_emb"], seq) + params["pos_emb"][None]
-    pad = (seq == 0)[..., None]
+    pad = place_rows(seq == 0)[..., None]
     h = torch.where(pad, 0.0, h)
     for b in params["blocks"]:
         h = h + _attn(b, layer_norm(h, b["ln1_s"], b["ln1_b"]), cfg)
@@ -85,23 +91,32 @@ def forward(params, seq: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
 
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    """batch = {seq [B,S], pos [B,S], neg [B,S]}; pos/neg 0 = pad."""
+    """batch = {seq [B,S], pos [B,S], neg [B,S]}; pos/neg 0 = pad.
+
+    The mean over every live position of the global batch. On a mesh
+    each rank sums its rows' terms over the global count divided by the
+    data ranks: the train step's mean over the ranks is then the global
+    mean, whatever the ranks' shares of padding."""
     h = forward(params, batch["seq"], cfg)
     pe = lookup(params["item_emb"], batch["pos"])
     ne = lookup(params["item_emb"], batch["neg"])
     ps = (h * pe).sum(-1).float()
     ns = (h * ne).sum(-1).float()
-    mask = (batch["pos"] != 0).float()
+    mask = place_rows(batch["pos"] != 0).float()
     loss = -(F.logsigmoid(ps) + F.logsigmoid(-ns)) * mask
-    return loss.sum() / mask.sum().clamp_min(1.0)
+    axes = row_axes(batch["pos"].shape[0])
+    count = C.all_reduce(mask.sum(), axes).clamp_min(1.0)
+    return loss.sum() / (count / axes_size(axes))
 
 
 @torch.no_grad()
 def serve_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    """Score per-request candidates: batch = {seq [B,S], cand [B,C]}."""
+    """Score per-request candidates: batch = {seq [B,S], cand [B,C]}
+    -> [B, C], every row on every rank."""
     h = forward(params, batch["seq"], cfg)[:, -1]           # [B, D]
     ce = lookup(params["item_emb"], batch["cand"])          # [B, C, D]
-    return torch.einsum("bd,bcd->bc", h.float(), ce.float())
+    return gather_rows(torch.einsum("bd,bcd->bc", h.float(), ce.float()),
+                       batch["seq"].shape[0])
 
 
 @torch.no_grad()
@@ -110,4 +125,4 @@ def retrieval_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     single [C, D] @ [D] MIPS (the Seismic-applicable cell)."""
     h = forward(params, batch["seq"], cfg)[0, -1]
     ce = lookup(params["item_emb"], batch["cand"])
-    return ce.float() @ h.float()
+    return gather_rows(ce.float() @ h.float(), batch["cand"].shape[0])

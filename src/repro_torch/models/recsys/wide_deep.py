@@ -1,7 +1,7 @@
 """Wide & Deep [arXiv:1606.07792] (port of
 ``repro/models/recsys/wide_deep.py``): wide linear over categorical
 fields + deep MLP over concatenated field embeddings and dense
-features."""
+features. On a mesh the steps run on this rank's rows, as ``fm``'s do."""
 from __future__ import annotations
 
 import torch
@@ -12,8 +12,9 @@ from repro_torch.models.common import (ParamTree, bce_with_logits, const,
                                        mlp_apply, mlp_init, tree_from_jax,
                                        tree_to_jax)
 from repro_torch.models.recsys.embedding import (field_offsets,
-                                                 fielded_lookup, init_table,
-                                                 padded_rows)
+                                                 fielded_lookup, gather_rows,
+                                                 init_table, padded_rows,
+                                                 place_rows)
 
 
 def init_params(cfg: RecsysConfig, *, seed: int = 0,
@@ -47,7 +48,10 @@ def params_to_jax(params: ParamTree, cfg: RecsysConfig) -> dict:
 
 def forward(params, ids: torch.Tensor, dense: torch.Tensor,
             cfg: RecsysConfig) -> torch.Tensor:
+    """ids [B, F], dense [B, Nd] -> logits [B] (this rank's rows on a
+    mesh)."""
     offs = field_offsets(cfg.table_rows)
+    dense = place_rows(dense)
     wide = fielded_lookup(params["wide"], ids, offs)[..., 0].sum(-1)
     emb = fielded_lookup(params["emb"], ids, offs)            # [B, F, D]
     x = torch.cat([emb.reshape(emb.shape[0], -1), dense.to(emb.dtype)],
@@ -59,16 +63,27 @@ def forward(params, ids: torch.Tensor, dense: torch.Tensor,
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     logits = forward(params, batch["ids"], batch["dense"], cfg)
-    return bce_with_logits(logits, batch["labels"])
+    return bce_with_logits(logits, place_rows(batch["labels"]))
+
+
+@torch.no_grad()
+def serve_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """The logits [B] of a batch of requests {ids, dense}, every row on
+    every rank."""
+    return gather_rows(forward(params, batch["ids"], batch["dense"], cfg),
+                       batch["ids"].shape[0])
 
 
 @torch.no_grad()
 def retrieval_step(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     """Score C candidates in field 0 for one user context: the deep MLP
-    runs batched over candidates (no factorization exists for an MLP)."""
+    runs batched over candidates (no factorization exists for an MLP),
+    the context expanded to every candidate and the rows split over the
+    data ranks."""
     ids, dense, cand = batch["ids"], batch["dense"], batch["cand"]
     c = cand.shape[0]
     full_ids = torch.cat([ids.new_zeros((ids.shape[0], 1)), ids], dim=1)
     full_ids = full_ids.expand(c, full_ids.shape[1]).clone()
     full_ids[:, 0] = cand
-    return forward(params, full_ids, dense.expand(c, dense.shape[1]), cfg)
+    return gather_rows(forward(params, full_ids,
+                               dense.expand(c, dense.shape[1]), cfg), c)

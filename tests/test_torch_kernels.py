@@ -56,6 +56,7 @@ from repro_torch.kernels.gather_dot.ops import (CAND_TILE_N, CAND_TILE_Q,
 from repro_torch.kernels.gather_dot.ref import (gather_dot_batch_ref,
                                                 gather_dot_cand_ref,
                                                 gather_dot_ref)
+from repro_torch.kernels.refine_fused import ops as refine_ops
 from repro_torch.kernels.refine_fused.ops import refine_round_batch
 from repro_torch.kernels.refine_fused.ref import refine_round_ref
 from repro_torch.core.build import sample_rep_pos
@@ -431,6 +432,41 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="knn_ids"):
         refine_round_batch(ids, scored, qq, knn[:5], fc, fv, n_docs=20,
                            degree=2)
+
+
+@pytest.mark.parametrize("k,degree,want", [
+    (64, 8, "warp"), (57, 9, "block"), (100, 8, "block"), (4096, 8, "block"),
+    (4097, 8, None)])
+def test_refine_route_by_candidates(k, degree, want):
+    """The warp route up to 512 candidates (C 512), the block route from
+    513 (57 x 9) to the cap, 32768 (4096 x 8), a raise naming the cap
+    beyond it; the cap's shared memory fits a block, twice it would not
+    (the source's static_asserts)."""
+    if want is None:
+        with pytest.raises(ValueError, match="32768"):
+            refine_ops.route(k, degree)
+    else:
+        assert refine_ops.route(k, degree) == want
+    assert refine_ops.WARP_MAX_CAND == 512
+    assert refine_ops.block_smem(refine_ops.MAX_CAND) == 135184 \
+        <= row_tiles.SMEM_MAX
+    assert refine_ops.block_smem(2 * refine_ops.MAX_CAND) > row_tiles.SMEM_MAX
+    assert refine_ops.block_smem(513) == refine_ops.block_smem(1024) == 4240
+
+
+def test_refine_plain_version_answers_past_the_warp_route():
+    """On the CPU the wrapper takes the plain version at any k * degree:
+    800 candidates (k 100 x degree 8), as the JAX kernel sorts them."""
+    ids, scored, q, knn, *plane = refine_inputs(3, 100, 300, 2000, 8, 16,
+                                                256, "f32", seed=5)
+    jplane = as_jax(*plane)
+    want_c, want_s = jax_refine(*map(jnp.asarray, (ids, scored, q, knn)),
+                                *jplane, n_docs=2000, degree=8)
+    cand, scores = refine_round_batch(*map(_t, (ids, scored, q, knn)),
+                                      *as_torch(*plane), n_docs=2000,
+                                      degree=8)
+    np.testing.assert_array_equal(cand.numpy(), np.asarray(want_c))
+    assert_scores(scores.numpy(), np.asarray(want_s))
 
 
 def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
@@ -1329,15 +1365,83 @@ def test_refine_round_kernel_edges_on_card(case, kind):
 
 @pytest.mark.gpu
 def test_refine_round_wrapper_raises_beyond_its_sort_on_card():
+    """Past the block route's cap (4097 x 8 candidates) the wrapper
+    raises naming it, and launches nothing."""
     dev = _cuda()
-    ids, scored, q, knn, *plane = refine_inputs(2, 65, 70, 500, 8, 16, 64,
-                                                "f32", seed=1)
+    ids, scored, q, knn, *plane = refine_inputs(2, 4097, 4100, 500, 8, 16,
+                                                64, "f32", seed=1)
     args = [_t(x).to(dev) for x in (ids, scored, q, knn)]
     tplane = [None if x is None else x.to(dev) for x in as_torch(*plane)]
     before = dict(runtime.LAUNCHES)
-    with pytest.raises(ValueError, match="512"):
+    with pytest.raises(ValueError, match="32768"):
         refine_round_batch(*args, *tplane, n_docs=500, degree=8)
     assert dict(runtime.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+def test_refine_round_library_states_the_route_constants_on_card():
+    _cuda()
+    got = refine_ops.library_constants()
+    assert got["warp_max_cand"] == refine_ops.WARP_MAX_CAND
+    assert got["max_cand"] == refine_ops.MAX_CAND
+    assert got["block_smem"] == {c: refine_ops.block_smem(c)
+                                 for c in got["block_smem"]}
+
+
+REFINE_BLOCK = {   # qn, k, w, n_docs, deg, degree: C = k * degree
+    "C 512 (warp)": (6, 64, 600, 5000, 8, 8),
+    "C 513": (6, 57, 700, 5000, 9, 9),
+    "C 800": (8, 100, 900, 50000, 8, 8),
+    "C 4096": (4, 512, 1500, 20000, 8, 8),
+    "C 32768 (the cap)": (2, 4096, 5000, 60000, 8, 8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coords", ["int32", "uint16"])
+@pytest.mark.parametrize("kind", VAL_KINDS)
+@pytest.mark.parametrize("case", list(REFINE_BLOCK))
+def test_refine_round_block_route_on_card(case, kind, coords):
+    """The shared-memory route past 512 candidates: -1 padded and repeated
+    top-k ids, duplicate edges, missing edges (the sentinel), a seen row
+    that hides part of the frontier; frontier ids equal the plain
+    version's; scores bitwise gather_dot_cand's on the frontier and the
+    warp route's on every document both score (the warp route run on the
+    first 512 / degree top-k ids). C 512 stays on the warp route."""
+    dev = _cuda()
+    qn, k, w, n_docs, deg, degree = REFINE_BLOCK[case]
+    ids, scored, q, knn, *plane = refine_inputs(qn, k, w, n_docs, deg, 128,
+                                                30522, kind, seed=k + w)
+    knn[::2, 1] = knn[::2, 0]                        # duplicate edges
+    args = [_t(x).to(dev) for x in (ids, scored, q, knn)]
+    tplane = [None if x is None else x.to(dev) for x in as_torch(*plane)]
+    if coords == "uint16":
+        tplane[0] = tplane[0].to(torch.int16).view(torch.uint16)
+    before = dict(refine_ops.ROUTE_LAUNCHES)
+    cand, scores = refine_round_batch(*args, *tplane, n_docs=n_docs,
+                                      degree=degree)
+    torch.cuda.synchronize()
+    way = "warp" if k * degree <= 512 else "block"
+    assert refine_ops.ROUTE_LAUNCHES[way] == before.get(way, 0) + 1
+    want_c, want_s = refine_round_ref(*args, *tplane, n_docs, degree)
+    assert torch.equal(cand, want_c)
+    assert_scores(scores.cpu().numpy(), want_s.cpu())
+    assert torch.equal(scores, gather_dot_cand_batch(
+        args[2], cand, *tplane, n_docs=n_docs))
+    live = cand < n_docs
+    assert 0 < int(live.sum()) < cand.numel()
+    assert int((want_c == n_docs).sum()) > 0        # seen or duplicate ids
+    kw = 512 // degree
+    wc, ws = refine_round_batch(args[0][:, :kw].contiguous(), *args[1:],
+                                *tplane, n_docs=n_docs, degree=degree)
+    for qi in range(qn):
+        mine = dict(zip(cand[qi][live[qi]].tolist(),
+                        scores[qi][live[qi]].tolist()))
+        theirs = wc[qi] < n_docs
+        both = [(mine[d], s) for d, s in zip(wc[qi][theirs].tolist(),
+                                             ws[qi][theirs].tolist())
+                if d in mine]
+        assert all(a == b for a, b in both), (qi, case)
 
 
 @pytest.mark.gpu

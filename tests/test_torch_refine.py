@@ -309,3 +309,25 @@ def test_server_matches_refined_pipeline(small_collection, graphs):
     assert torch.equal(got.ids, i) and torch.equal(got.scores, s)
     assert torch.equal(got.docs_evaluated, e)
     assert isinstance(pq, PaddedSparse)
+
+
+def test_refined_search_past_the_warp_route_matches_reference(
+        small_collection, small_index):
+    """k 100 x graph_degree 8 (800 candidates a query: on the card the
+    block route of ``refine_round``) at fuse level 2, two rounds, on a
+    degree-8 graph the JAX package builds: the module's parity rule
+    against the JAX pipeline (``docs_evaluated`` equal)."""
+    _, queries, *_ = small_collection
+    params = dict(k=100, cut=8, block_budget=8, policy="budget",
+                  graph_degree=8, refine_rounds=2)
+    jindex = jax_build_graph(small_index[0], degree=8, batch=512,
+                             build_params=JParams(**dict(GRAPH_PARAMS, k=9)))
+    want = [np.asarray(x) for x in jax_search(jindex, queries,
+                                              JParams(**params))]
+    s, i, e = search_pipeline(carry(jindex), port_queries(queries),
+                              SearchParams(use_kernel=True, fuse_level=2,
+                                           **params))
+    assert i.shape == (queries.coords.shape[0], 100)
+    assert (want[1] >= 0).sum() > 10 * queries.coords.shape[0]
+    assert_topk(i.numpy(), s.numpy(), want[1], want[0])
+    np.testing.assert_array_equal(e.numpy(), want[2])

@@ -63,9 +63,10 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    of summary_dot's, gather_dot_cand's and router_hier's q lookups that
    hit a non-zero of the query (the rest their bitmaps answer);
    refine_round's block route on the k 100 path's first round (its own
-   entry in the kernels line); router_flat and refine_round also on the
-   4096-query batch's inputs
-   (held against their plain versions 512 queries at a time), with
+   entry in the kernels line), at 256 and at 4096 queries; router_flat
+   and refine_round also on the 4096-query batch's inputs (these and the
+   block route's held against their plain versions 512 queries at a
+   time), with
    router_flat's reuse (live (query, block) rows over the distinct live
    rows) at both batch sizes, and an empty kernel's launch time;
    router_hier at 1, 2, 4 and 8 blocks per query (cluster sizes), at 256
@@ -2404,8 +2405,9 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
         f"{n_sect} distinct 32-byte sectors of q_dense ({n_sect * 32} B, "
         f"{n_sect * 32 / qn / 1024:.1f} KB a query; a bitmap would read "
         f"{index.dim * 4 / 1024:.1f} KB a query)")
-    # d and f on the 4096-query batch's inputs, their bounds counted alike;
-    # checked against the plain versions 512 queries at a time
+    # d, f and f's block route (the k DEEP_K path) on the 4096-query
+    # batch's inputs, their bounds counted alike; checked against the
+    # plain versions 512 queries at a time (f's frontier ids equal)
     qd4, lists4, _ = prep_queries(q4096.coords, q4096.vals, index.dim,
                                   p0.cut)
     d4 = (lists4, qd4) + d_in[2:]
@@ -2413,32 +2415,50 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     seen4: dict[str, object] = {}
     run_pipeline_staged(index, q4096.coords, q4096.vals, ph,
                         probe=seen4.__setitem__, audit=True)
-    ids4 = seen4["merge_ids"]
-    del seen4
+    ids4 = seen4.pop("merge_ids")
     f4 = (ids4, scored_init(ids4, index.n_docs), qh4, index.knn_ids,
           index.fwd.coords, index.fwd.vals)
-    cand4, _ = refine_round_batch(*f4, n_docs=index.n_docs,
-                                  degree=ph.graph_degree)
+    seen4.clear()
+    run_pipeline_staged(index, q4096.coords, q4096.vals, deep[2],
+                        probe=seen4.__setitem__, audit=True)
+    ids_d4 = seen4.pop("merge_ids")
+    del seen4
+    f_d4 = (ids_d4, scored_init(ids_d4, index.n_docs)) + f4[2:]
+    cand4 = refine_round_batch(*f4, n_docs=index.n_docs,
+                               degree=ph.graph_degree)[0]
+    cand_d4 = refine_round_batch(*f_d4, n_docs=index.n_docs,
+                                 degree=ph.graph_degree)[0]
     flat4, refine4 = flat_route(lists4, qd4), refine_work(f4, cand4)
-    for name, kern, ref, w4 in (
-            ("router_flat", lambda: router_flat_batch(*d4),
-             lambda a, b: router_flat_ref(lists4[a:b], qd4[a:b], *d4[2:]),
-             flat4),
-            ("refine_round",
-             lambda: refine_round_batch(*f4, n_docs=index.n_docs,
-                                        degree=ph.graph_degree),
-             lambda a, b: refine_round_ref(
-                 *(x[a:b] for x in f4[:3]), *f4[3:], None, None,
-                 index.n_docs, ph.graph_degree), refine4)):
-        out = kern()
-        out = out if name == "router_flat" else out[1]
+    refine_d4 = refine_work(f_d4, cand_d4)
+
+    def refine_pair(fin):
+        """f's kernel and its plain version on rows [a, b) of ``fin``."""
+        return (lambda: refine_round_batch(*fin, n_docs=index.n_docs,
+                                           degree=ph.graph_degree),
+                lambda a, b: refine_round_ref(
+                    *(x[a:b] for x in fin[:3]), *fin[3:], None, None,
+                    index.n_docs, ph.graph_degree))
+
+    for name, (kern, ref), w4 in (
+            ("router_flat",
+             (lambda: (None, router_flat_batch(*d4)),
+              lambda a, b: (None, router_flat_ref(lists4[a:b], qd4[a:b],
+                                                  *d4[2:]))), flat4),
+            ("refine_round", refine_pair(f4), refine4),
+            (f"refine_round block route, k {DEEP_K} x degree "
+             f"{ph.graph_degree},", refine_pair(f_d4), refine_d4)):
+        ids_out, out = kern()
         err = 0.0
         for a in range(0, Q_BATCH, 512):
-            want = ref(a, a + 512)
-            want = want if name == "router_flat" else want[1]
+            want_ids, want = ref(a, a + 512)
+            if ids_out is not None and not torch.equal(ids_out[a:a + 512],
+                                                       want_ids):
+                raise AssertionError(f"{name} Q={Q_BATCH}: frontier ids "
+                                     "differ from the plain version in "
+                                     f"rows {a}-{a + 511}")
             err = max(err, compare(torch, f"{name} Q={Q_BATCH}",
                                    out[a:a + 512], want)[0])
-        del out, want
+        del ids_out, out, want_ids, want
         ms = bench.ms(kern, iters=10)
         bms, by = bound(*w4[:2])
         log(f"[8 {name} Q={Q_BATCH}] {ms:.4f} ms (bound {bms:.4f} ms by "
@@ -2449,8 +2469,11 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
         f"rows: reuse {flat4[4] / flat4[3]:.3f} (at {qn}: "
         f"{alive_d / rows_d:.3f}); refine_round Q={Q_BATCH}: knn rows of "
         f"{refine4[2]} distinct top-k ids, {refine4[3]} live frontier ids "
-        f"over {refine4[4]} distinct documents")
-    del d4, f4, qd4, qh4, cand4
+        f"over {refine4[4]} distinct documents; its block route at k "
+        f"{DEEP_K}: knn rows of {refine_d4[2]} distinct top-k ids, "
+        f"{refine_d4[3]} live frontier ids of {cand_d4.numel()} over "
+        f"{refine_d4[4]} distinct documents")
+    del d4, f4, f_d4, qd4, qh4, cand4, cand_d4
     empty_ms = bench.ms(lambda: empty_launch(dev), iters=20)
     log(f"  an empty kernel's launch, timed alike: {empty_ms:.4f} ms (the "
         f"floor under refine_round's {record[-1]['ms']:.4f} ms)")
@@ -6232,9 +6255,10 @@ def main() -> int:
             f"{g['groups_smem']} B, records kernel {g['records_smem']} B, "
             f"{g['grid']} persistent blocks, {g['scratch_words'] * 4} B of "
             "scratch")
-    log("  [redesigned] refine_round: static shared memory only on its warp "
-        f"route, {refine_ops.block_smem(DEEP_K * GRAPH_DEGREE)} B dynamic on "
-        f"its block route at k {DEEP_K} x degree {GRAPH_DEGREE}, "
+    log("  [redesigned] refine_round: static shared memory on its warp "
+        f"route; on its block route (beside its scan's static warp counts) "
+        f"{refine_ops.block_smem(DEEP_K * GRAPH_DEGREE)} B dynamic "
+        f"at k {DEEP_K} x degree {GRAPH_DEGREE}, "
         f"{refine_ops.block_smem(refine_ops.MAX_CAND)} B at its cap of "
         f"{refine_ops.MAX_CAND} candidates; the library states "
         f"{refine_ops.library_constants()}")

@@ -31,12 +31,34 @@ router_flat (``router_fused.cu``):
   tiles, scoring) and the producer (waiting for ring slots and for the
   consumers), printed for one flushed launch.
 
-refine_round (``refine_fused.cu``, bf16 values, int32 coords):
+refine_round's warp route (``refine_fused.cu``, bf16 values, int32
+coords), on the flat path's first round at 256 queries:
 * as built; 8 warps a block; 2 rows a warp at once;
 * q row prefetched: the 15 warps idle during the sorts ask L2 for the
   query's whole q_dense row;
 * no q lookups (a probe, its scores wrong): q read as a constant;
 * no rescoring (a probe): the frontier only.
+
+refine_round's block route (more than 512 candidates a query), on
+chip_smoke.py phase 7's path at ``TUNED`` with k ``DEEP_K`` (800
+candidates a query), its first round, at 256 and 4096 queries:
+* as built;
+* clock64 breakdown (a probe): as built, plus each block's cycles in
+  expand, sort 1, marking duplicates and seen ids, the compaction (sort 2
+  or its replacement) and rescoring, averaged over the blocks of one
+  flushed launch, with the blocks an SM holds
+  (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the waves a
+  batch takes;
+* 1 block an SM: the launch bound without its minimum of 2 blocks;
+* rows prefetched by the scan: each live id's forward row asked of L2
+  (``prefetch.global.L2``) as the compaction finds it;
+* seen row read at the marking: no early load of the seen row's first
+  ids;
+* no rescoring (a probe): the frontier only.
+The block route's patches are written for each design of the kernel
+(``BLOCK_DESIGNS``, told apart by their text), so that the script, copied
+into an older checkout, measures that checkout's kernel alike; a variant
+written for the other design only is not run and says so.
 """
 from __future__ import annotations
 
@@ -168,9 +190,124 @@ REFINE = {
          "  __device__ float operator()(int c) const { return c * 1e-30f; }\n"
          "};"),
         ("  const QRow qv{q + qi * d};", "  const ConstQ qv{};")],
-    "no rescoring": [("i0 < nl; i0 += kWarps * kRows",
-                      "i0 < 0; i0 += kWarps * kRows")],
+    "no rescoring": [("  const QRow qv{q + qi * d};\n",
+                      "  const QRow qv{q + qi * d};\n  nl = 0;\n")],
 }
+
+# the block route's clock64 probe, common to both designs: thread 0 adds
+# its stage cycles T1-T0 .. T5-T4 and one block to g_clk after a barrier
+# that closes the rescoring; clocks_occupancy gives the blocks an SM
+# holds of the bf16 / int32 instantiation at a dynamic shared memory
+BLOCK_CLOCK_SYMBOLS = (
+    '#include "row_dot.cuh"\n',
+    '#include "row_dot.cuh"\n__device__ unsigned long long g_clk[8];\n'
+    'extern "C" int clocks_read(unsigned long long* h) {\n'
+    '  cudaMemcpyFromSymbol(h, g_clk, 64);\n'
+    '  unsigned long long z[8] = {0};\n'
+    '  return (int)cudaMemcpyToSymbol(g_clk, z, 64);\n}\n')
+BLOCK_CLOCK_REPORT = (
+    "  __syncthreads();\n  if (threadIdx.x == 0) {\n"
+    "    const long long T5 = clock64();\n"
+    "    atomicAdd(&g_clk[0], (unsigned long long)(T1 - T0));\n"
+    "    atomicAdd(&g_clk[1], (unsigned long long)(T2 - T1));\n"
+    "    atomicAdd(&g_clk[2], (unsigned long long)(T3 - T2));\n"
+    "    atomicAdd(&g_clk[3], (unsigned long long)(T4 - T3));\n"
+    "    atomicAdd(&g_clk[4], (unsigned long long)(T5 - T4));\n"
+    "    atomicAdd(&g_clk[5], 1ull);\n  }\n")
+BLOCK_OCCUPANCY = (
+    'extern "C" int refine_empty_launch(cudaStream_t stream) {',
+    'extern "C" int clocks_occupancy(int smem) {\n  int n = 0;\n'
+    '  cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n'
+    '      &n, refine_block_kernel<int32_t, __nv_bfloat16, false>, kThreads,'
+    ' smem);\n  return n;\n}\n\n'
+    'extern "C" int refine_empty_launch(cudaStream_t stream) {')
+TWO_SORTS = "two block-wide sorts"
+WARP_STEPS = "warp-local sort steps, a scan compacts"
+BLOCK_CLOCKS = {
+    TWO_SORTS: [
+        BLOCK_CLOCK_SYMBOLS, BLOCK_OCCUPANCY,
+        ("  // ---- 1. expand\n  for (int t = threadIdx.x; t < P;",
+         "  const long long T0 = clock64();\n"
+         "  // ---- 1. expand\n  for (int t = threadIdx.x; t < P;"),
+        ("  __syncthreads();\n  block_sort(key, P);\n  // ---- 2. duplicates",
+         "  __syncthreads();\n  const long long T1 = clock64();\n"
+         "  block_sort(key, P);\n  const long long T2 = clock64();\n"
+         "  // ---- 2. duplicates"),
+        ("  __syncthreads();\n  // ---- 4. compact\n  block_sort(key, P);\n"
+         "  if (threadIdx.x == 0) *n_live = first_at_least(key, n_cand, "
+         "n_docs);\n  __syncthreads();\n",
+         "  __syncthreads();\n  const long long T3 = clock64();\n"
+         "  // ---- 4. compact\n  block_sort(key, P);\n"
+         "  if (threadIdx.x == 0) *n_live = first_at_least(key, n_cand, "
+         "n_docs);\n  __syncthreads();\n  const long long T4 = clock64();\n"),
+        ("  rescore<C, V, kQuant>(key, *n_live, n_cand, qi, q, fwd_coords, "
+         "fwd_vals,\n                        fwd_scale, fwd_zero, cand, out, "
+         "nnz, d);\n}",
+         "  rescore<C, V, kQuant>(key, *n_live, n_cand, qi, q, fwd_coords, "
+         "fwd_vals,\n                        fwd_scale, fwd_zero, cand, out, "
+         "nnz, d);\n" + BLOCK_CLOCK_REPORT + "}")],
+    # the expansion and the first sort steps are warp-local here: the
+    # probe adds a barrier between them so that thread 0 times the block
+    WARP_STEPS: [
+        BLOCK_CLOCK_SYMBOLS, BLOCK_OCCUPANCY,
+        ("  // ---- 1. expand, each warp into its own chunk\n",
+         "  const long long T0 = clock64();\n"
+         "  // ---- 1. expand, each warp into its own chunk\n"),
+        ("  __syncwarp();\n  block_sort(key, P);\n  __syncthreads();\n",
+         "  __syncthreads();\n  const long long T1 = clock64();\n"
+         "  block_sort(key, P);\n  __syncthreads();\n"
+         "  const long long T2 = clock64();\n"),
+        ("  __syncthreads();\n  // ---- 4. compact by a scan",
+         "  __syncthreads();\n  const long long T3 = clock64();\n"
+         "  // ---- 4. compact by a scan"),
+        ("key[t] = n_docs;\n  __syncthreads();\n",
+         "key[t] = n_docs;\n  __syncthreads();\n"
+         "  const long long T4 = clock64();\n"),
+        ("      out, nnz, d);\n}", "      out, nnz, d);\n" + BLOCK_CLOCK_REPORT
+         + "}")],
+}
+# a design is told apart by text that only its source holds
+BLOCK_DESIGNS = {TWO_SORTS: "  // ---- 4. compact\n  block_sort(key, P);",
+                 WARP_STEPS: "  // ---- 4. compact by a scan"}
+
+REFINE_BLOCK = {
+    "as built": {d: [] for d in BLOCK_DESIGNS},
+    "clock64 breakdown": BLOCK_CLOCKS,
+    # the launch bound of one block an SM: the registers not held to 64
+    "1 block an SM": {WARP_STEPS: [
+        ("constexpr int kBlockRouteBlocksPerSm = 2;",
+         "constexpr int kBlockRouteBlocksPerSm = 1;")]},
+    # each live id's forward row asked of L2 as the scan finds it, ahead
+    # of the rescoring's loads
+    "rows prefetched by the scan": {WARP_STEPS: [
+        ("    if (live) key[nl + before",
+         "    if (live) {\n"
+         "      const char* rc = reinterpret_cast<const char*>(fwd_coords + "
+         "(long long)v * nnz);\n"
+         "      const char* rv = reinterpret_cast<const char*>(fwd_vals + "
+         "(long long)v * nnz);\n"
+         "      for (int b = 0; b < nnz * (int)sizeof(C); b += 128)\n"
+         "        asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(rc + b));\n"
+         "      for (int b = 0; b < nnz * (int)sizeof(V); b += 128)\n"
+         "        asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(rv + b));\n"
+         "    }\n    if (live) key[nl + before")]},
+    # the seen row's first ids read where they are searched, not at the
+    # kernel's start
+    "seen row read at the marking": {WARP_STEPS: [
+        ("    const int v = s == threadIdx.x ? seen0 : seen[s];",
+         "    const int v = seen[s];")]},
+    "no rescoring (a probe)": {d: REFINE["no rescoring"]
+                               for d in (TWO_SORTS, WARP_STEPS)},
+}
+
+
+def block_design(runtime) -> str:
+    src = runtime.SOURCES["refine_fused"].read_text()
+    found = [d for d, text in BLOCK_DESIGNS.items() if text in src]
+    if len(found) != 1:
+        raise RuntimeError(f"refine_fused.cu: the block route's design is "
+                           f"not one of {list(BLOCK_DESIGNS)}")
+    return found[0]
 
 
 def build(runtime, name: str, family: str, patches) -> subprocess.Popen:
@@ -215,7 +352,8 @@ def main() -> int:
     from repro_torch.graph.refine import scored_init
     from repro_torch.kernels import runtime
     from repro_torch.kernels.gather_dot.ops import _COORD_KIND, _VAL_KIND
-    from repro_torch.kernels.refine_fused.ops import refine_round_batch
+    from repro_torch.kernels.refine_fused.ops import (block_smem,
+                                                      refine_round_batch)
     from repro_torch.kernels.router_fused.ops import flat_geometry
     from repro_torch.retrieval import SearchParams, run_pipeline_staged
     from repro_torch.retrieval.prep import prep_queries
@@ -226,13 +364,22 @@ def main() -> int:
              for n, p in ROUTER.items()}
     procs.update({("refine_fused", n): build(runtime, n, "refine_fused", p)
                   for n, p in REFINE.items()})
+    design = block_design(runtime)
+    block_variants = [n for n, by in REFINE_BLOCK.items() if design in by]
+    print(f"[variants] refine_round's block route: {design}; not written "
+          f"for it: {[n for n in REFINE_BLOCK if n not in block_variants]}",
+          flush=True)
+    procs.update({("refine_fused", "block " + n): build(
+        runtime, "block " + n, "refine_fused", REFINE_BLOCK[n][design])
+        for n in block_variants})
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     docs, queries, _ = make_collection(SyntheticSparseConfig(
         dim=cs.DIM, n_docs=1 << 20, n_queries=cs.Q_BATCH,
         doc_nnz=cs.DOC_NNZ, query_nnz=cs.QUERY_NNZ, seed=0), device=dev)
-    index = build_index(docs, dataclasses.replace(
-        cs.ICFG, superblock_fanout=0, seed=0))
+    # phase 5's index (its superblocks serve phase 7's TUNED path; the
+    # flat path's router and refine inputs ignore them)
+    index = build_index(docs, dataclasses.replace(cs.ICFG, seed=0))
     index = build_doc_graph(index, degree=cs.GRAPH_DEGREE,
                             batch=cs.GRAPH_BATCH)
     torch.cuda.synchronize()
@@ -242,6 +389,10 @@ def main() -> int:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{key}: nvcc failed\n{log}")
+        if key == ("refine_fused", "block as built"):
+            for line in cs.ptxas_lines(log):
+                if line.startswith("refine_block"):
+                    print(f"[variants] {line}", flush=True)
     bench = cs.Bench(torch, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = runtime.stream_of(queries.vals)
@@ -288,8 +439,8 @@ def main() -> int:
                           f"{kc[6] / g['grid']:.1f} "
                           f"({h[10] / g['grid']:.1f} groups)", flush=True)
 
-    # refine_round's first round on the hierarchical path's 256 queries,
-    # here over the flat index (the same graph and forward plane)
+    # refine_round's first round on the flat path's 256 queries (the
+    # same graph and forward plane as the hierarchical path's)
     p = SearchParams(use_kernel=True, fuse_level=2, k=10, cut=8,
                      block_budget=128, policy="budget",
                      graph_degree=cs.GRAPH_DEGREE, refine_rounds=2)
@@ -323,6 +474,68 @@ def main() -> int:
                 _VAL_KIND[index.fwd.vals.dtype], stream)
             lines.setdefault(f"refine_round Q=256 {name}", []).append(
                 bench.ms(fn, iters=20))
+
+    # the block route on phase 7's k DEEP_K path, its first round
+    deep = SearchParams(use_kernel=True, fuse_level=2,
+                        **{**cs.TUNED, "k": cs.DEEP_K})
+    for qn in (cs.Q_ONLINE, cs.Q_BATCH):
+        qs = queries[:qn]
+        seen = {}
+        run_pipeline_staged(index, qs.coords, qs.vals, deep,
+                            probe=seen.__setitem__, audit=True)
+        ids = seen.pop("merge_ids")
+        del seen
+        qh, _, _ = prep_queries(qs.coords, qs.vals, index.dim, deep.cut)
+        f_in = (ids, scored_init(ids, index.n_docs), qh, index.knn_ids,
+                index.fwd.coords, index.fwd.vals)
+        c = cs.DEEP_K * cs.GRAPH_DEGREE
+        cand, _ = refine_round_batch(*f_in, n_docs=index.n_docs,
+                                     degree=cs.GRAPH_DEGREE)
+        live = float((cand < index.n_docs).sum()) / qn
+        smem = block_smem(c)
+        per_sm = load("refine_fused", "block clock64 breakdown")
+        per_sm.clocks_occupancy.argtypes = [ctypes.c_int]
+        held = per_sm.clocks_occupancy(smem)
+        print(f"[variants] refine_round block route Q={qn} k={cs.DEEP_K}: "
+              f"{live:.1f} live frontier ids a query of {c}; {held} blocks "
+              f"an SM at {smem} B of dynamic shared memory: "
+              f"{-(-qn // max(held * sms, 1))} waves", flush=True)
+        c_t = torch.empty((qn, c), dtype=torch.int32, device=dev)
+        o_t = torch.empty((qn, c), device=dev)
+        args = [*map(runtime.ptr, f_in), runtime.ptr(None),
+                runtime.ptr(None), runtime.ptr(c_t), runtime.ptr(o_t)]
+        for rnd in range(2):
+            for name in block_variants:
+                lib = load("refine_fused", "block " + name)
+                c_t.fill_(-7)
+                fn = lambda lib=lib: lib.refine_round_launch(  # noqa: E731
+                    *args, qn, cs.DEEP_K, f_in[1].shape[1], cs.GRAPH_DEGREE,
+                    index.knn_ids.shape[1], index.n_docs,
+                    index.fwd.coords.shape[1], index.dim,
+                    _COORD_KIND[index.fwd.coords.dtype],
+                    _VAL_KIND[index.fwd.vals.dtype], stream)
+                lines.setdefault(f"refine_round block route Q={qn} {name}",
+                                 []).append(bench.ms(fn, iters=20))
+                if not torch.equal(c_t, cand):
+                    raise AssertionError(f"block route {name}: frontier ids "
+                                         "differ from the library's")
+                if name == "clock64 breakdown" and rnd == 0:
+                    lib.clocks_read.argtypes = [ctypes.c_void_p]
+                    h = (ctypes.c_ulonglong * 8)()
+                    lib.clocks_read(h)            # zero after the timing
+                    bench.flush.zero_()
+                    fn()
+                    torch.cuda.synchronize()
+                    lib.clocks_read(h)
+                    nb_ = max(h[5], 1)
+                    kc = [x / nb_ / 1e3 for x in h[:5]]
+                    print(f"[variants] refine_round block route Q={qn} "
+                          f"clock64, thousand cycles a block ({h[5]} "
+                          f"blocks): expand {kc[0]:.2f}, sort 1 "
+                          f"{kc[1]:.2f}, marking {kc[2]:.2f}, compaction "
+                          f"{kc[3]:.2f}, rescoring {kc[4]:.2f}, total "
+                          f"{sum(kc):.2f}", flush=True)
+        del f_in, ids, qh, cand, c_t, o_t
     for label, ms in lines.items():
         print(f"[variants] {label}: " + ", ".join(f"{t:.4f}" for t in ms)
               + " ms", flush=True)

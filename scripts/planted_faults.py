@@ -32,7 +32,12 @@ exits non-zero if a fault passes.
   frontier;
 * block-dedupe-neighbour: the same fault in refine_round's block route
   (more than 512 candidates a query), which marks duplicates in shared
-  memory.
+  memory;
+* block-sort-stride-2: the block route's sort skips its register steps
+  of stride 2, so its ids are not sorted;
+* block-scan-inclusive: the block route's compaction writes each live id
+  one place to the right of its count (the ballot's prefix taken
+  inclusive of the lane).
 """
 from __future__ import annotations
 
@@ -72,10 +77,17 @@ FAULTS = {
         "      const int prev = e > 1 ? key[e - 2] : left;", "phase3"),
     "block-dedupe-neighbour": (
         f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
-        "    if (key[t] == key[t - 1]) "
-        "atomicOr(&marked[t >> 5], 1u << (t & 31));",
-        "    if (t > 1 && key[t] == key[t - 2])\n"
-        "      atomicOr(&marked[t >> 5], 1u << (t & 31));", "phase3"),
+        "        0xffffffffu, t > 0 && t < n_cand && key[t] == key[t - 1]);",
+        "        0xffffffffu, t > 1 && t < n_cand && key[t] == key[t - 2]);",
+        "phase3"),
+    "block-sort-stride-2": (
+        f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
+        "  for (int j = jtop; j > 1; j >>= 1) {",
+        "  for (int j = jtop; j > 2; j >>= 1) {", "phase3"),
+    "block-scan-inclusive": (
+        f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
+        "__popc(ballot & ((1u << lane) - 1u))",
+        "__popc(ballot & ((2u << lane) - 1u))", "phase3"),
 }
 CHECKS = {
     "flash": ("['flash_attention']",

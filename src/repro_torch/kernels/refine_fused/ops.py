@@ -10,9 +10,10 @@ The signature is the JAX package's without ``tile_q`` and ``interpret``
 (one block per query here). Two routes by the candidates a query, C =
 k * degree (``route``): up to ``WARP_MAX_CAND`` = 512 one warp sorts
 them in registers (the warp route); beyond, up to ``MAX_CAND`` = 32768,
-the block sorts them in shared memory (the block route); the wrapper
-raises beyond that, naming the cap. ``ROUTE_LAUNCHES`` counts each
-route's launches. The forward plane takes the gather_dot kernels'
+the block sorts them in shared memory, with a block barrier only at the
+strides that pair two warps' ids, and compacts them by a scan (the block
+route); the wrapper raises beyond that, naming the cap.
+``ROUTE_LAUNCHES`` counts each route's launches. The forward plane takes the gather_dot kernels'
 types: int32 or uint16 coordinates; f32, bf16, or u8 values with
 per-document (scale, zero). CPU tensors take the plain version
 (``ref.py``) at any C; CUDA tensors launch the kernel or raise.
@@ -45,7 +46,7 @@ _ready = False
 def block_smem(n_cand: int) -> int:
     """The block route's dynamic shared memory for ``n_cand`` candidates:
     4 bytes a sort key (the next power of two, at least
-    ``BLOCK_MIN_KEYS``), a bit a key for the marks, 16 for the count."""
+    ``BLOCK_MIN_KEYS``), a bit a key for the marks, 16 spare."""
     keys = BLOCK_MIN_KEYS
     while keys < n_cand:
         keys *= 2

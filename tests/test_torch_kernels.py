@@ -469,6 +469,58 @@ def test_refine_plain_version_answers_past_the_warp_route():
     assert_scores(scores.numpy(), np.asarray(want_s))
 
 
+def stable_partition_of_first_sort(ids, scored, knn, n_docs, degree):
+    """The frontier in numpy: the expanded ids sorted once, an id equal to
+    its left neighbour or in the seen row dropped, and the live ids
+    (below n_docs) kept in order ahead of n_docs only."""
+    out = []
+    for row, seen in zip(ids, scored):
+        nbrs = np.where(row[:, None] >= 0,
+                        knn[np.clip(row, 0, n_docs - 1), :degree], n_docs)
+        s = np.sort(nbrs.reshape(-1))
+        drop = np.zeros(s.size, bool)
+        drop[1:] = s[1:] == s[:-1]
+        drop |= np.isin(s, seen)
+        live = s[~drop & (s < n_docs)]
+        out.append(np.concatenate([live, np.full(s.size - live.size, n_docs,
+                                                 s.dtype)]))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("k,degree", [(57, 9), (100, 8), (512, 8)])
+def test_refine_frontier_is_the_stable_partition_of_one_sort(k, degree):
+    """What the block route's compaction by a scan relies on, at C 513, 800
+    and 4,096 candidates: with -1 top-k ids (half of query 0's, all of
+    the last query's), knn rows padded with n_docs, duplicate ids and
+    edges, and a seen row that hides part of every other query's
+    frontier, the JAX kernel (interpret mode) and the plain version both
+    return the stable partition of the first sort (live ids ascending,
+    then n_docs only), so no second sort is needed."""
+    qn, n_docs, w = 4, 4000, 2 * k
+    ids, scored, q, knn, *plane = refine_inputs(qn, k, w, n_docs, 10, 16,
+                                                64, "f32", seed=k)
+    knn[::2, 1] = knn[::2, 0]                        # duplicate edges
+    knn[1::7, degree - 1] = n_docs                   # padded rows
+    rng = np.random.default_rng(k + 1)
+    for qi in range(qn - 1):                         # hide some neighbours
+        top = ids[qi][ids[qi] >= 0]
+        scored[qi, k:2 * k] = knn[rng.choice(top, k), rng.integers(
+            0, degree, k)]
+    want = stable_partition_of_first_sort(ids, scored, knn, n_docs, degree)
+    live = want < n_docs
+    assert live[:-1].any(1).all() and (~live).any(1).all()
+    assert not live[-1].any()                        # all -1
+    for r, s in zip(ids[:-1], scored[:-1]):          # some hidden
+        assert np.isin(knn[np.maximum(r, 0), :degree], s).any()
+    jc, _ = jax_refine(*map(jnp.asarray, (ids, scored, q, knn)),
+                       *as_jax(*plane), n_docs=n_docs, degree=degree)
+    tc, _ = refine_round_batch(*map(_t, (ids, scored, q, knn)),
+                               *as_torch(*plane), n_docs=n_docs,
+                               degree=degree)
+    np.testing.assert_array_equal(np.asarray(jc), want)
+    np.testing.assert_array_equal(tc.numpy(), want)
+
+
 def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     """Every retrieval source includes the shared row dot; editing a
     shared header changes every library's file name, so each source
@@ -1394,7 +1446,39 @@ REFINE_BLOCK = {   # qn, k, w, n_docs, deg, degree: C = k * degree
     "C 800": (8, 100, 900, 50000, 8, 8),
     "C 4096": (4, 512, 1500, 20000, 8, 8),
     "C 32768 (the cap)": (2, 4096, 5000, 60000, 8, 8),
+    "C 1024 (no padding)": (6, 128, 900, 20000, 8, 8),
+    "C 1025": (6, 205, 900, 20000, 8, 5),
+    "knn rows all n_docs": (6, 100, 900, 50000, 8, 8),
+    "seen holds the frontier": (6, 100, 900, 50000, 8, 8),
+    "W 0": (6, 100, 0, 50000, 8, 8),
+    "W 1": (6, 100, 1, 50000, 8, 8),
+    "all ids -1": (6, 100, 900, 50000, 8, 8),
+    "300 queries (past one wave)": (300, 100, 900, 50000, 8, 8),
 }
+# the cases whose frontier holds no live id
+REFINE_BLOCK_EMPTY = ("knn rows all n_docs", "seen holds the frontier",
+                      "all ids -1")
+
+
+def block_case_inputs(case, kind):
+    """refine_inputs for a REFINE_BLOCK case, with duplicate edges; the
+    empty cases then lose their live ids: every knn row the sentinel,
+    a seen row of every top-k id and neighbour, or every top-k id -1."""
+    qn, k, w, n_docs, deg, degree = REFINE_BLOCK[case]
+    ids, scored, q, knn, *plane = refine_inputs(qn, k, w, n_docs, deg, 128,
+                                                30522, kind, seed=k + w)
+    knn[::2, 1] = knn[::2, 0]                        # duplicate edges
+    if case == "knn rows all n_docs":
+        knn[:] = n_docs
+    elif case == "seen holds the frontier":
+        nbrs = np.where(ids[..., None] >= 0,
+                        knn[np.maximum(ids, 0), :degree], n_docs)
+        scored = np.concatenate([np.where(ids >= 0, ids, n_docs),
+                                 nbrs.reshape(qn, -1)],
+                                axis=1).astype(np.int32)
+    elif case == "all ids -1":
+        ids[:] = -1
+    return (ids, scored, q, knn, *plane), (n_docs, degree)
 
 
 @pytest.mark.gpu
@@ -1407,12 +1491,14 @@ def test_refine_round_block_route_on_card(case, kind, coords):
     that hides part of the frontier; frontier ids equal the plain
     version's; scores bitwise gather_dot_cand's on the frontier and the
     warp route's on every document both score (the warp route run on the
-    first 512 / degree top-k ids). C 512 stays on the warp route."""
+    first 512 / degree top-k ids). C 512 stays on the warp route. Also C
+    1,024 (no padding key) and 1,025 (2,048 keys), W 0 and 1, 300 queries
+    (more blocks than one wave holds), and three cases whose frontier is
+    all n_docs (``REFINE_BLOCK_EMPTY``)."""
     dev = _cuda()
-    qn, k, w, n_docs, deg, degree = REFINE_BLOCK[case]
-    ids, scored, q, knn, *plane = refine_inputs(qn, k, w, n_docs, deg, 128,
-                                                30522, kind, seed=k + w)
-    knn[::2, 1] = knn[::2, 0]                        # duplicate edges
+    (ids, scored, q, knn, *plane), (n_docs, degree) = block_case_inputs(
+        case, kind)
+    qn, k = ids.shape
     args = [_t(x).to(dev) for x in (ids, scored, q, knn)]
     tplane = [None if x is None else x.to(dev) for x in as_torch(*plane)]
     if coords == "uint16":
@@ -1429,8 +1515,11 @@ def test_refine_round_block_route_on_card(case, kind, coords):
     assert torch.equal(scores, gather_dot_cand_batch(
         args[2], cand, *tplane, n_docs=n_docs))
     live = cand < n_docs
-    assert 0 < int(live.sum()) < cand.numel()
-    assert int((want_c == n_docs).sum()) > 0        # seen or duplicate ids
+    if case in REFINE_BLOCK_EMPTY:
+        assert not bool(live.any())
+    else:
+        assert 0 < int(live.sum()) < cand.numel()
+        assert int((want_c == n_docs).sum()) > 0    # seen or duplicate ids
     kw = 512 // degree
     wc, ws = refine_round_batch(args[0][:, :kw].contiguous(), *args[1:],
                                 *tplane, n_docs=n_docs, degree=degree)

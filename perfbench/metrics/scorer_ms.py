@@ -1,0 +1,12 @@
+"""Milliseconds of the scorer stage a batch (``retrieval/scorer``), as
+``run_pipeline_staged(record=...)`` times it up to a synchronize, over
+the traced run's window."""
+LAYER = "retrieval/scorer"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "qps"
+
+
+def read(rec):
+    t = rec.stage_s.get("scorer")
+    return 1e3 * sum(t) / len(t) if t else None

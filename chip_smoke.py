@@ -26,7 +26,9 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    the three value kinds: its warp route at k 10 with 90 seen ids, its
    block route at k 100 with 900 seen ids and at its cap, k 4096 (32,768
    candidates a query), on 4 queries with 5,120 seen ids, both block
-   cases timed), d = 30522;
+   cases timed), d = 30522; block_cand (256 queries of 8, 64 and 128
+   blocks of 64 over MS MARCO's block slots, with and without a scores
+   row holding -inf, +inf and NaN, and with a tombstone plane) bitwise;
 4. run to run: a 65,536-doc collection and its index (superblock fanout
    8) made twice from one seed must be bitwise equal, plane by plane (a
    differing plane is named and fails the run);
@@ -70,7 +72,11 @@ Run from the repository root; needs one CUDA device and ``nvcc``. Phases:
    router_flat's reuse (live (query, block) rows over the distinct live
    rows) at both batch sizes, and an empty kernel's launch time;
    router_hier at 1, 2, 4 and 8 blocks per query (cluster sizes), at 256
-   and 32 queries; then the index and the graph are freed;
+   and 32 queries; block_cand on the flat path's adaptive probe (C 512)
+   and scorer (C 4,096) and the kNN path's scorer (C 8,192), each on its
+   own selection of the 4096-query batch, bitwise its plain version and
+   timed at 4096 and 256 queries (its entry in the kernels line: the kNN
+   scorer at 4096); then the index and the graph are freed;
 9. flash_attention against its plain version on seeded inputs: the
    llama3-8b prefill shape (B 1, Hq 32, Hkv 8, S 8192, D 128, bf16,
    causal), float32 at a ragged S = 200, a window of 64, causal=False,
@@ -507,6 +513,9 @@ SOURCES = {
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:84"),
+    # no TPU kernel: the JAX scorer's gather, masks, dedupe and compaction
+    "block_cand": ("src/repro_torch/kernels/block_cand/csrc/block_cand.cu",
+                   "src/repro/retrieval/scorer.py:182"),
 }
 RETRIEVAL = tuple(n for n in SOURCES if n != "flash_attention")
 # the LM slice: llama3-8b (configs/llama3_8b.py) at full width and depth;
@@ -666,8 +675,9 @@ class Bench:
 def ptxas_lines(report: str) -> list[str]:
     """One line per variant of the redesigned kernels (flash_attention's
     TMA + wgmma kernel, gather_dot_cand's, summary_dot's, router_hier's,
-    router_flat's three and refine_round's kernels) from ptxas' report:
-    registers at launch, static shared memory, spill stores and loads."""
+    router_flat's three, refine_round's kernels and block_cand's) from
+    ptxas' report: registers at launch, static shared memory, spill stores
+    and loads."""
     lines, name, info = [], None, {}
     types = {"i": "int32", "t": "uint16", "f": "f32", "h": "u8",
              "13__nv_bfloat16": "bf16"}
@@ -693,6 +703,7 @@ def ptxas_lines(report: str) -> list[str]:
                                r"(f|h|13__nv_bfloat16)Lb\dE", mangled)
             rblock = re.search(r"refine_block_kernelI(i|t)"
                                r"(f|h|13__nv_bfloat16)Lb\dE", mangled)
+            bcand = re.search(r"block_cand_kernelILi(\d+)E", mangled)
             if fa:
                 name = f"fa_wgmma_kernel<D {fa.group(1)}>"
             elif cand:
@@ -717,6 +728,8 @@ def ptxas_lines(report: str) -> list[str]:
             elif rblock:
                 name = (f"refine_block_kernel<{types[rblock.group(1)]} "
                         f"coords, {types[rblock.group(2)]} values>")
+            elif bcand:
+                name = f"block_cand_kernel<{bcand.group(1)} warps>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -938,6 +951,79 @@ def fused_synthetic_phase(torch, dev, gen) -> None:
                 f"({int((cand < n_docs).sum())} live of {cand.numel()}), max "
                 f"abs {e[0]:.3e} rel {e[1]:.3e}{timed}")
     del bench
+
+
+def block_cand_synthetic(torch, dev, gen) -> None:
+    """Phase 3, block_cand against its plain version on seeded inputs:
+    256 queries of 8, 64 and 128 selected blocks (C 512, 4,096, 8,192)
+    over SYNTH_LISTS lists of MS MARCO's block slots (lam 6,000, blocks of
+    up to 64, nine in ten full, ids below 8,841,823, 2 % purged to
+    n_docs), picked as the top blocks of random router scores (strided
+    views, as top_k returns them); each C with a scores row (-inf, +inf
+    and NaN on live blocks), without one, and with a scores row and a
+    tombstone plane (a fifth of the ids); every query probes a coordinate
+    twice (its blocks' ids come twice), query 0's scores are all -inf and
+    query 1's first block holds ids 0 and n_docs - 1. Raises on an id that
+    differs and on a launch not counted."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.block_cand.ops import (block_candidates,
+                                                    block_candidates_ref)
+    n_docs, lam, cap = 8841823, ICFG.lam, ICFG.block_cap
+    nl, nb, qn = SYNTH_LISTS, ICFG.n_blocks, Q_ONLINE
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    lists = torch.randint(0, nl, (qn, CUT), generator=gen, device=dev,
+                          dtype=torch.int32)
+    lists[:, 1] = lists[:, 0]                       # a repeated coordinate
+    ln = torch.where(rand(nl, nb) < 0.9, cap, torch.randint(
+        0, cap, (nl, nb), generator=gen, device=dev)).to(torch.int32)
+    ln[:, 0] = cap
+    ln = torch.where(torch.cumsum(ln, 1) <= lam, ln, 0).to(torch.int32)
+    off = (torch.cumsum(ln, 1) - ln).to(torch.int32)
+    docs = torch.randint(0, n_docs, (nl, lam), generator=gen, device=dev,
+                         dtype=torch.int32)
+    docs[rand(nl, lam) < 0.02] = n_docs
+    docs[lists[1, 0], :2] = torch.tensor([0, n_docs - 1], device=dev,
+                                         dtype=torch.int32)
+    tomb = rand(n_docs) < 0.2
+    tomb[[0, n_docs - 1]] = False
+    coord = lists.long()[:, :, None].expand(qn, CUT, nb)
+    r = torch.where(ln[coord, torch.arange(nb, device=dev)] > 0,
+                    rand(qn, CUT, nb), -torch.inf).reshape(qn, CUT * nb)
+    r[1, 0] = 2.0                   # query 1: list 0's first block first
+    for b in (8, 64, 128):
+        sc, bl = torch.sort(r, dim=1, descending=True)
+        sc, bl = sc[:, :b], bl[:, :b]
+        sc[0] = -torch.inf
+        sc[2:, 3::5] = -torch.inf
+        sc[2:, 1] = torch.nan
+        sc[2:, 2] = torch.inf
+        for label, scores, tombstone in (("scores", sc, None),
+                                         ("no scores", None, None),
+                                         ("scores, tombstones", sc, tomb)):
+            args = (bl, lists, off, ln, docs, scores, tombstone)
+            before = runtime.LAUNCHES["block_cand"]
+            got = block_candidates(*args, n_docs=n_docs, block_cap=cap)
+            if runtime.LAUNCHES["block_cand"] != before + 1:
+                raise AssertionError(f"block_cand C={b * cap} {label}: "
+                                     "the launch was not counted")
+            want = block_candidates_ref(*args, n_docs, cap)
+            if not torch.equal(got, want):
+                diff = got != want
+                raise AssertionError(
+                    f"block_cand C={b * cap} {label}: ids differ from the "
+                    f"plain version at {int(diff.sum())} of {diff.numel()} "
+                    f"positions in {int(diff.any(1).sum())} of {qn} queries")
+            live = want < n_docs
+            row1 = set(want[1].tolist())
+            if (scores is not None and bool(live[0].any())) or not (
+                    {0, n_docs - 1} <= row1):
+                raise AssertionError(f"block_cand C={b * cap} {label}: "
+                                     "the edge queries lost their shape")
+            log(f"  block_cand {label:18s} Q={qn} C={b * cap}: ids equal "
+                f"({int(live.sum())} live of {want.numel()})")
 
 
 def run_to_run_phase(torch, dev, seed) -> None:
@@ -1932,6 +2018,85 @@ def collection(torch, dev, args):
     return docs, queries
 
 
+def block_cand_rows(torch, index, bench, paths, qs, launches) -> dict:
+    """Phase 8's block_cand on the main paths' own selections of the
+    4096-query batch (prep, router and selector run as the pipeline runs
+    them): the flat path's adaptive probe (C 512) and scorer (C 4,096),
+    the kNN path's scorer (C 8,192). Each held bitwise to the plain
+    version, then timed at 4,096 queries and at their first 256 beside
+    its byte bound (scripts/block_cand_times.py's count: a selected
+    block's row, coordinate, offset, length and score, the ids of its
+    unmasked slots, the C ids written) and the plain version. Returns
+    the kernels-line record, the kNN scorer's at 4,096 queries."""
+    from repro_torch.kernels.block_cand.ops import (block_candidates,
+                                                    block_candidates_ref)
+    from repro_torch.retrieval.pipeline import stage_fns
+    from repro_torch.sparse.ops import top_k
+    cap, nb, n_docs = index.config.block_cap, index.config.n_blocks, \
+        index.n_docs
+    planes = (index.block_off, index.block_len, index.list_docs)
+    inputs = []
+    for label, p in paths:
+        fns = stage_fns(index, p)
+        batch = fns["router"](*fns["prep"](qs.coords, qs.vals)[:2])
+        sel = fns["selector"](batch)
+        if p.policy == "adaptive":
+            probe = min(p.probe_budget, p.block_budget)
+            inputs.append((f"{label} adaptive probe", batch.lists,
+                           top_k(batch.r, probe)[1], None))
+        inputs.append((f"{label} scorer", batch.lists, sel.blocks,
+                       sel.block_scores))
+        del batch, sel
+
+    def nbytes(lists, blocks, scores) -> int:
+        coord = lists.long().gather(1, blocks // nb)
+        ln = index.block_len[coord, blocks % nb]
+        if scores is not None:
+            ln = torch.where(torch.isfinite(scores), ln, 0)
+        per_block = 8 + 4 + 4 + 4 + (0 if scores is None else 4)
+        return (blocks.numel() * per_block + 4 * int(ln.sum())
+                + 4 * blocks.numel() * cap)
+
+    for label, lists, blocks, scores in inputs:
+        c = blocks.shape[1] * cap
+        for qn in (qs.n, Q_ONLINE):
+            args = (blocks[:qn], lists[:qn]) + planes + (
+                None if scores is None else scores[:qn], index.tombstone)
+            kern = lambda a=args: block_candidates(  # noqa: E731
+                *a, n_docs=n_docs, block_cap=cap)
+            plain = lambda a=args: block_candidates_ref(  # noqa: E731
+                *a, n_docs, cap)
+            got, want = kern(), plain()
+            if not torch.equal(got, want):
+                diff = got != want
+                raise AssertionError(
+                    f"block_cand {label} Q={qn}: ids differ from the plain "
+                    f"version at {int(diff.sum())} of {diff.numel()} "
+                    f"positions in {int(diff.any(1).sum())} queries on the "
+                    "main path's inputs")
+            n_live = int((want < n_docs).sum())
+            del got, want
+            ms = bench.ms(kern, iters=20)
+            plain_ms = bench.ms(plain, iters=5, warmup=1)
+            nb_ = nbytes(args[1], args[0], args[5])
+            bms, by = bound(nb_, 0)
+            log(f"[8 block_cand {label} Q={qn} C={c}] {ms:.4f} ms (bound "
+                f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it; "
+                f"{nb_ / ms / 1e6:.1f} GB/s of the {nb_} bytes it must "
+                f"move), plain {plain_ms:.3f} ms; ids equal, "
+                f"{n_live / qn:.1f} live a query")
+            if label == "kNN scorer" and qn == qs.n:
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by)
+    log(f"  block_cand launches: flat path and kNN path "
+        f"{launches['block_cand']} (the kernels line's row: the kNN "
+        f"scorer at {qs.n} queries)")
+    src, rep = SOURCES["block_cand"]
+    return dict(name="block_cand", route="cuda", source=src, replaces=rep,
+                launches=launches["block_cand"], max_abs_err=0.0, **row,
+                library_ms=None)
+
+
 def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     """Phases 5-8 (the index, the flat and the hierarchical, refined
     paths, kernels a-f timed) -> (the six retrieval kernels' records,
@@ -2000,7 +2165,8 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     flat_launches = dict(runtime.LAUNCHES)
     log(f"[6 flat path] launches {flat_launches}")
     for name in ("summary_dot", "gather_dot", "gather_dot_cand",
-                 "router_flat", "router_flat_groups", "router_flat_records"):
+                 "router_flat", "router_flat_groups", "router_flat_records",
+                 "block_cand"):
         if flat_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "flat path")
@@ -2058,7 +2224,7 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
         raise AssertionError(f"router_hier never ran as a cluster of "
                              f"{c_online} blocks for the online batch")
     for name in ("summary_dot", "gather_dot", "gather_dot_cand",
-                 "router_hier", "refine_round"):
+                 "router_hier", "refine_round", "block_cand"):
         if hier_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "hierarchical, refined path")
@@ -2517,6 +2683,8 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
         f"{work_d[2]} distinct top-k ids, {work_d[3]} live frontier ids of "
         f"{cand_d.numel()} over {work_d[4]} distinct documents")
     del f_deep, cand_d, scores_d
+    record.append(block_cand_rows(torch, index, bench, (
+        ("flat", levels[2]), ("kNN", tuned[2])), q4096, launches))
     # router_hier at every cluster size, at the servers' two batches and
     # one between them: the wrapper takes the most blocks per query that
     # still have an SM each (row_tiles.cluster_size)
@@ -6278,6 +6446,7 @@ def main() -> int:
     t0 = time.perf_counter()
     synthetic_phase(torch, dev, gen)
     fused_synthetic_phase(torch, dev, gen)
+    block_cand_synthetic(torch, dev, gen)
     log(f"[3 kernels vs plain] all variants within rtol={RTOL} atol={ATOL} "
         f"in {time.perf_counter() - t0:.1f} s")
 

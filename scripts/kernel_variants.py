@@ -50,8 +50,6 @@ candidates a query), its first round, at 256 and 4096 queries:
   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the waves a
   batch takes;
 * 1 block an SM: the launch bound without its minimum of 2 blocks;
-* rows prefetched by the scan: each live id's forward row asked of L2
-  (``prefetch.global.L2``) as the compaction finds it;
 * seen row read at the marking: no early load of the seen row's first
   ids;
 * no rescoring (a probe): the frontier only.
@@ -253,9 +251,10 @@ BLOCK_CLOCKS = {
         ("  // ---- 1. expand, each warp into its own chunk\n",
          "  const long long T0 = clock64();\n"
          "  // ---- 1. expand, each warp into its own chunk\n"),
-        ("  __syncwarp();\n  block_sort(key, P);\n  __syncthreads();\n",
+        ("  __syncwarp();\n  block_sort<kWarps>(key, P);\n"
+         "  __syncthreads();\n",
          "  __syncthreads();\n  const long long T1 = clock64();\n"
-         "  block_sort(key, P);\n  __syncthreads();\n"
+         "  block_sort<kWarps>(key, P);\n  __syncthreads();\n"
          "  const long long T2 = clock64();\n"),
         ("  __syncthreads();\n  // ---- 4. compact by a scan",
          "  __syncthreads();\n  const long long T3 = clock64();\n"
@@ -277,20 +276,6 @@ REFINE_BLOCK = {
     "1 block an SM": {WARP_STEPS: [
         ("constexpr int kBlockRouteBlocksPerSm = 2;",
          "constexpr int kBlockRouteBlocksPerSm = 1;")]},
-    # each live id's forward row asked of L2 as the scan finds it, ahead
-    # of the rescoring's loads
-    "rows prefetched by the scan": {WARP_STEPS: [
-        ("    if (live) key[nl + before",
-         "    if (live) {\n"
-         "      const char* rc = reinterpret_cast<const char*>(fwd_coords + "
-         "(long long)v * nnz);\n"
-         "      const char* rv = reinterpret_cast<const char*>(fwd_vals + "
-         "(long long)v * nnz);\n"
-         "      for (int b = 0; b < nnz * (int)sizeof(C); b += 128)\n"
-         "        asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(rc + b));\n"
-         "      for (int b = 0; b < nnz * (int)sizeof(V); b += 128)\n"
-         "        asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(rv + b));\n"
-         "    }\n    if (live) key[nl + before")]},
     # the seen row's first ids read where they are searched, not at the
     # kernel's start
     "seen row read at the marking": {WARP_STEPS: [

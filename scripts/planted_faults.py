@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """Check that chip_smoke.py's kernel checks reject known faults.
 
-    python3 scripts/planted_faults.py
+    python3 scripts/planted_faults.py [FAULT ...]
 
 Run from the repository root on a machine with one CUDA device and
 ``nvcc``. For each fault below the script copies ``chip_smoke.py`` and
 ``src/`` into a temporary directory (outside the checkout), plants the
 fault in the copy's kernel source, builds it there and runs the smoke's
 check of that kernel, unchanged: phase 9's ``chip_smoke.flash_check``
-for flash_attention, phase 3 (``synthetic_phase`` then
-``fused_synthetic_phase``) for the retrieval kernels. Each fault must
-raise; the script prints the check's message (which check, and by how
-much: elements or positions beyond tolerance, the worst error) and
-exits non-zero if a fault passes.
+for flash_attention, phase 3 (``synthetic_phase``,
+``fused_synthetic_phase`` and ``block_cand_synthetic``) for the
+retrieval kernels. Each fault must raise; the script prints the check's
+message (which check, and by how much: elements or positions beyond
+tolerance, the worst error) and exits non-zero if a fault passes. Names
+given on the command line plant only those faults.
 
 * tile-skip: flash_attention leaves key tile 16 (keys 2048-2175) out in
   every block with more than 32 key tiles of 128, i.e. for q rows 4096
@@ -38,6 +39,17 @@ exits non-zero if a fault passes.
 * block-scan-inclusive: the block route's compaction writes each live id
   one place to the right of its count (the ballot's prefix taken
   inclusive of the lane).
+
+The last three are planted in ``common/csrc/block_sort.cuh``, which the
+block route shares with block_cand; the block route's check, which
+runs first, rejects them.
+
+* block-cand-score-mask: block_cand masks only the blocks whose score is
+  NaN, so a block scored -inf or +inf gives its ids;
+* block-cand-length: block_cand gathers one slot past each block's
+  length (the next block's first id, or one clipped into the list);
+* block-cand-tombstone: block_cand reads the tombstone of the id one
+  above each id.
 """
 from __future__ import annotations
 
@@ -50,6 +62,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = "src/repro_torch/kernels"
 FLASH = f"{KERNELS}/flash_attention/csrc/flash_attention.cu"
+# the block route's sort, duplicate marks and scan, shared with block_cand
+BLOCK_SORT = f"{KERNELS}/common/csrc/block_sort.cuh"
+BLOCK_CAND = f"{KERNELS}/block_cand/csrc/block_cand.cu"
 # fault: (source, line to replace, replacement, check)
 FAULTS = {
     "tile-skip": (FLASH, "      if (kind != kEmpty) {",
@@ -76,26 +91,39 @@ FAULTS = {
         "      const int prev = e ? key[e - 1] : left;",
         "      const int prev = e > 1 ? key[e - 2] : left;", "phase3"),
     "block-dedupe-neighbour": (
-        f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
+        BLOCK_SORT,
         "        0xffffffffu, t > 0 && t < n_cand && key[t] == key[t - 1]);",
         "        0xffffffffu, t > 1 && t < n_cand && key[t] == key[t - 2]);",
         "phase3"),
     "block-sort-stride-2": (
-        f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
+        BLOCK_SORT,
         "  for (int j = jtop; j > 1; j >>= 1) {",
         "  for (int j = jtop; j > 2; j >>= 1) {", "phase3"),
     "block-scan-inclusive": (
-        f"{KERNELS}/refine_fused/csrc/refine_fused.cu",
+        BLOCK_SORT,
         "__popc(ballot & ((1u << lane) - 1u))",
         "__popc(ballot & ((2u << lane) - 1u))", "phase3"),
+    "block-cand-score-mask": (
+        BLOCK_CAND,
+        "                      isfinite(scores[qi * scores_stride + b]);",
+        "                      !isnan(scores[qi * scores_stride + b]);",
+        "phase3"),
+    "block-cand-length": (
+        BLOCK_CAND, "      if (j < b_len[r]) {", "      if (j <= b_len[r]) {",
+        "phase3"),
+    "block-cand-tombstone": (
+        BLOCK_CAND,
+        "tombstone[max(0, min(v, n_tomb - 1))])",
+        "tombstone[max(0, min(v + 1, n_tomb - 1))])", "phase3"),
 }
 CHECKS = {
     "flash": ("['flash_attention']",
               "chip_smoke.flash_check(torch, dev, gen)"),
     "phase3": ("['summary_dot', 'gather_dot', 'router_fused', "
-               "'refine_fused']",
+               "'refine_fused', 'block_cand']",
                "chip_smoke.synthetic_phase(torch, dev, gen)\n"
-               "    chip_smoke.fused_synthetic_phase(torch, dev, gen)"),
+               "    chip_smoke.fused_synthetic_phase(torch, dev, gen)\n"
+               "    chip_smoke.block_cand_synthetic(torch, dev, gen)"),
 }
 CHECK = """
 import sys
@@ -117,8 +145,13 @@ sys.exit(1)
 
 
 def main() -> int:
+    names = sys.argv[1:] or list(FAULTS)
+    unknown = sorted(set(names) - set(FAULTS))
+    if unknown:
+        raise SystemExit(f"unknown faults {unknown}; known: {list(FAULTS)}")
     failed = []
-    for name, (source, old, new, check) in FAULTS.items():
+    for name in names:
+        source, old, new, check = FAULTS[name]
         with tempfile.TemporaryDirectory(prefix=f"fault-{name}-") as tmp:
             work = Path(tmp)
             shutil.copy(ROOT / "chip_smoke.py", work)

@@ -13,6 +13,9 @@ wrappers.
                       place
 ``refine_fused``      fuse level 2 refine: one kNN-graph round (expand,
                       dedupe, seen-mask, compact, rescore) per launch
+``block_cand``        scorer and adaptive selector, fuse level 1 and 2:
+                      the selected blocks' doc ids gathered, sorted,
+                      deduped and compacted, one launch a call
 
 ``flash_attention``   the LM's prefill attention: online softmax over key
                       tiles with causal, window and key-existence masks,

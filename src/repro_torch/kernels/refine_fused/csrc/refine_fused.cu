@@ -59,8 +59,8 @@
 //   network sorts them in which only the strides of a chunk or more,
 //   which pair two warps' ids, wait at a block barrier: shorter strides
 //   run in registers and shuffles (below kSegKeys) or on the warp's own
-//   chunk behind __syncwarp (block_sort: 14 barriers for the 55 steps
-//   at P 1,024);
+//   chunk behind __syncwarp (block_sort, in block_sort.cuh, which
+//   block_cand.cu shares: 14 barriers for the 55 steps at P 1,024);
 // * duplicates (an id equal to its left neighbour) and seen ids are
 //   marked in a bitmap of P bits beside them: each seen id is searched
 //   (lower bound) in the sorted ids, all of them at once over the
@@ -68,7 +68,8 @@
 //   kThreads ids in flight from the kernel's start), and never broadcast
 //   id by id (at C 800 and a seen row of thousands that broadcast would
 //   be the chain);
-// * a scan compacts: the unmarked ids below n_docs move, in order, to
+// * a scan compacts (compact_by_scan, in block_sort.cuh beside the
+//   duplicate marks): the unmarked ids below n_docs move, in order, to
 //   the front (a ballot a warp, the warps' counts scanned across the
 //   block, kThreads positions a round), n_docs fills the rest, and the
 //   scan's total is the live count;
@@ -98,6 +99,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_sort.cuh"
 #include "row_dot.cuh"
 
 namespace {
@@ -112,13 +114,11 @@ constexpr int kWarpMaxCand = 512;      // the warp route: 16 ids a lane
 constexpr int kBlockMinKeys = 1024;    // the block route's smallest sort
 constexpr int kBlockMaxCand = 32768;   // the block route's cap
 constexpr int kSmemMax = 232448;       // a block's dynamic shared memory
-constexpr int kSegKeys = 64;           // the block route's keys a warp sorts
-                                       // in registers, 2 a lane
 constexpr int kBlockRouteBlocksPerSm = 2;   // the block route's launch bound
 constexpr int kBlockQuantRows = 3;     // rows a warp rescores at once on the
                                        // block route for u8 values: 4 spill
                                        // under its launch bound
-static_assert(kBlockMinKeys / kWarps >= kSegKeys,
+static_assert(kBlockMinKeys / kWarps >= seismic::kSegKeys,
               "a warp's chunk of the smallest sort holds a segment");
 
 // Dynamic shared memory of the block route for P sort keys: the keys, a
@@ -131,6 +131,10 @@ static_assert(block_smem_bytes(2 * kBlockMaxCand) > kSmemMax,
               "the cap is the most keys (a power of two) that fit");
 
 using seismic::QRow;
+using seismic::block_sort;
+using seismic::compact_by_scan;
+using seismic::kSegKeys;
+using seismic::mark_duplicates;
 using seismic::row_dots;
 
 // Ascending bitonic sort of the warp's 32 * KPL keys, lane l holding keys
@@ -304,93 +308,6 @@ refine_round_kernel(const int32_t* __restrict__ ids,
 // The block route: C ids a query in dynamic shared memory (see the
 // header), the same steps and the same rescoring.
 
-// One compare-exchange of the bitonic network on key[lo] < key[hi] in
-// position, ascending where up.
-__device__ __forceinline__ void bitonic_exchange(int* key, int lo, int hi,
-                                                 bool up) {
-  const int a = key[lo], b = key[hi];
-  if ((a > b) == up) {
-    key[lo] = b;
-    key[hi] = a;
-  }
-}
-
-// The steps j = jtop, jtop / 2, ..., 1 of merge size kk on a warp's
-// segment of kSegKeys keys in registers, lane l holding positions pos and
-// pos + 1 (pos = the segment's start + 2 l): stride 1 swaps a lane's two
-// registers, strides 2..32 trade through __shfl_xor_sync; no barrier.
-__device__ __forceinline__ void segment_steps(int (&v)[2], int pos, int kk,
-                                              int jtop) {
-  const bool up = (pos & kk) == 0;       // pos is even: pos + 1 alike
-  for (int j = jtop; j > 1; j >>= 1) {
-    const bool keep_min = ((pos & j) == 0) == up;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int other = __shfl_xor_sync(0xffffffffu, v[e], j >> 1);
-      v[e] = keep_min ? min(v[e], other) : max(v[e], other);
-    }
-  }
-  if ((v[0] > v[1]) == up) {
-    const int a = v[0];
-    v[0] = v[1];
-    v[1] = a;
-  }
-}
-
-// Runs merge size kk's steps below kSegKeys (jtop = kSegKeys / 2) on each
-// kSegKeys-key segment of the warp's chunk [base, base + chunk), or, with
-// kk 0, every merge up to kSegKeys (each segment sorted, alternately up
-// and down as its position says).
-__device__ __forceinline__ void segment_run(int* key, int base, int chunk,
-                                            int kk, int lane) {
-  for (int s = base + 2 * lane; s < base + chunk; s += kSegKeys) {
-    const int2 two = *reinterpret_cast<const int2*>(key + s);
-    int v[2] = {two.x, two.y};
-    if (kk)
-      segment_steps(v, s, kk, kSegKeys / 2);
-    else
-      for (int m = 2; m <= kSegKeys; m <<= 1) segment_steps(v, s, m, m >> 1);
-    *reinterpret_cast<int2*>(key + s) = make_int2(v[0], v[1]);
-  }
-}
-
-// Ascending bitonic sort of key[0, P), P a power of two of at least
-// kBlockMinKeys, warp w owning the chunk [w P / kWarps, (w + 1) P /
-// kWarps) of at least kSegKeys keys. A step whose stride lies within a
-// chunk never waits at a block barrier: strides below kSegKeys run in
-// registers (segment_run), strides from kSegKeys up to the chunk on the
-// warp's own chunk in shared memory behind __syncwarp; only the strides
-// of a chunk or more, which pair keys of two warps, run over the block
-// behind __syncthreads (at P 1,024 10 of the 55 steps, 14 barriers). The
-// caller syncs the block before it reads what other warps sorted.
-__device__ __forceinline__ void block_sort(int* key, int P) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunk = P / kWarps, base = warp * chunk;
-  segment_run(key, base, chunk, 0, lane);
-  for (int kk = 2 * kSegKeys; kk <= P; kk <<= 1) {
-    int j = kk >> 1;
-    if (j >= chunk) {
-      for (; j >= chunk; j >>= 1) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < P / 2; i += kThreads) {
-          const int lo = 2 * i - (i & (j - 1));
-          bitonic_exchange(key, lo, lo + j, (lo & kk) == 0);
-        }
-      }
-      __syncthreads();
-    }
-    for (; j >= kSegKeys; j >>= 1) {
-      __syncwarp();
-      for (int i = lane; i < chunk / 2; i += 32) {
-        const int lo = base + 2 * i - (i & (j - 1));
-        bitonic_exchange(key, lo, lo + j, (lo & kk) == 0);
-      }
-    }
-    __syncwarp();
-    segment_run(key, base, chunk, kk, lane);
-  }
-}
-
 // The first position in key[0, n) (ascending) whose id is not below v.
 __device__ __forceinline__ int first_at_least(const int* key, int n, int v) {
   int lo = 0;
@@ -422,7 +339,6 @@ refine_block_kernel(const int32_t* __restrict__ ids,
   extern __shared__ int smem[];
   int* key = smem;                                     // [P]
   uint32_t* marked = reinterpret_cast<uint32_t*>(smem + P);   // [P / 32]
-  __shared__ int warp_live[2][kWarps];   // the scan's warp counts, by round
   const long long qi = blockIdx.x;
   const int n_cand = k * degree;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -443,16 +359,11 @@ refine_block_kernel(const int32_t* __restrict__ ids,
   }
   for (int w = threadIdx.x; w < P / 32; w += kThreads) marked[w] = 0u;
   __syncwarp();
-  block_sort(key, P);
+  block_sort<kWarps>(key, P);
   __syncthreads();
   // ---- 2. duplicates (an id equal to its left neighbour), 3. the seen
   // set: a bit each in marked
-  for (int t0 = warp * 32; t0 < n_cand; t0 += kThreads) {
-    const int t = t0 + lane;
-    const unsigned dup = __ballot_sync(
-        0xffffffffu, t > 0 && t < n_cand && key[t] == key[t - 1]);
-    if (lane == 0 && dup) atomicOr(&marked[t0 >> 5], dup);
-  }
+  mark_duplicates<kWarps>(key, n_cand, marked);
   for (int s = threadIdx.x; s < W; s += kThreads) {
     const int v = s == threadIdx.x ? seen0 : seen[s];
     const int pos = first_at_least(key, n_cand, v);
@@ -460,36 +371,14 @@ refine_block_kernel(const int32_t* __restrict__ ids,
       atomicOr(&marked[pos >> 5], 1u << (pos & 31));
   }
   __syncthreads();
-  // ---- 4. compact by a scan: the live ids (unmarked, below n_docs) move
-  // to the front in order, rounds of kThreads positions, each id to the
-  // live count before it (a ballot within the warp, the warps' counts
-  // scanned across the block). An id never moves right, so a round
-  // writes only positions the block has read. No key in [0, C) exceeds
+  // ---- 4. compact by a scan (block_sort.cuh): the live ids (unmarked,
+  // below n_docs) move to the front in order. No key in [0, C) exceeds
   // n_docs (knn rows hold ids below n_docs and the sentinel n_docs, which
   // pads them; a -1 top-k id expands to n_docs), so what the plain
   // version's second sort leaves, the live ids in order and then n_docs
   // only, is this stable partition; its count replaces the lower bound
   // of n_docs.
-  int nl = 0;
-  for (int t0 = 0, r = 0; t0 < n_cand; t0 += kThreads, r ^= 1) {
-    const int t = t0 + threadIdx.x;
-    const int v = t < n_cand ? key[t] : n_docs;
-    const bool live = t < n_cand && v < n_docs &&
-                      !((marked[t >> 5] >> (t & 31)) & 1u);
-    const unsigned ballot = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) warp_live[r][warp] = __popc(ballot);
-    __syncthreads();
-    const int c = lane < kWarps ? warp_live[r][lane] : 0;
-    int upto = c;                              // the warps' inclusive scan
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const int x = __shfl_up_sync(0xffffffffu, upto, o);
-      if (lane >= o) upto += x;
-    }
-    const int before = __shfl_sync(0xffffffffu, upto - c, warp);
-    if (live) key[nl + before + __popc(ballot & ((1u << lane) - 1u))] = v;
-    nl += __shfl_sync(0xffffffffu, upto, kWarps - 1);
-  }
+  const int nl = compact_by_scan<kWarps>(key, marked, n_cand, n_docs);
   for (int t = nl + threadIdx.x; t < n_cand; t += kThreads) key[t] = n_docs;
   __syncthreads();
   // ---- 5. write the frontier; rescore its live prefix

@@ -40,7 +40,7 @@ INCLUDE_DIR = _PKG / "common" / "csrc"
 SOURCES = {
     name: _PKG / name / "csrc" / f"{name}.cu"
     for name in ("summary_dot", "gather_dot", "router_fused", "refine_fused",
-                 "flash_attention")
+                 "block_cand", "flash_attention")
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,7 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"summary_dot": 0, "gather_dot": 0, "gather_dot_cand": 0,
             "router_flat": 0, "router_hier": 0, "refine_round": 0,
-            "flash_attention": 0,
+            "block_cand": 0, "flash_attention": 0,
             # router_flat's two helpers: its lists inverted into groups by
             # list, and the queries' records
             "router_flat_groups": 0, "router_flat_records": 0}

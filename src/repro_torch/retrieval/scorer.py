@@ -6,8 +6,10 @@ inner products against the forward index. With ``use_kernel`` the
 gather_dot CUDA kernel scores the gathered ``[Q, C, nnz]`` rows; with
 ``fuse_level >= 1`` candidates are compacted (live ids to a sorted
 prefix) and the candidate-driven kernel gathers forward rows itself and
-skips all-sentinel tiles. Ids and ``docs_evaluated`` are equal at both
-levels; the two kernels share one row dot, so scores are too.
+skips all-sentinel tiles. At ``fuse_level >= 1`` one block_cand launch
+makes the compacted candidates (up to its cap of 32,768 ids a query on
+the card). Ids and ``docs_evaluated`` are equal at every level; the two
+scoring kernels share one row dot, so scores are too.
 
 Gathers clamp ids into range before indexing (the JAX ``mode="clip"``
 would otherwise be an out-of-range index here) and mask afterwards.
@@ -110,6 +112,29 @@ def score_candidates(index: "SeismicIndex", q_dense: torch.Tensor,
     return torch.where(cand < index.n_docs, scores, NEG)
 
 
+def selected_candidates(index: "SeismicIndex", lists: torch.Tensor,
+                        blocks: torch.Tensor,
+                        block_scores: torch.Tensor | None = None, *,
+                        fuse_level: int = 0) -> torch.Tensor:
+    """Selected blocks [Q, B] -> deduped candidate ids [Q, B*cap]; with
+    ``block_scores`` a block whose score is not finite gives only
+    sentinels, and a mutable index masks its tombstoned ids. At
+    ``fuse_level >= 1`` the live ids are a sorted prefix, made by one
+    block_cand launch (its plain version on the CPU)."""
+    if fuse_level >= 1:
+        from repro_torch.kernels.block_cand import ops as block_cand
+        return block_cand.block_candidates(
+            blocks, lists, index.block_off, index.block_len,
+            index.list_docs, block_scores, index.tombstone,
+            n_docs=index.n_docs, block_cap=index.config.block_cap)
+    docs = gather_block_docs(index, lists, blocks)
+    if block_scores is not None:
+        docs = torch.where(torch.isfinite(block_scores)[..., None], docs,
+                           index.n_docs)
+    return dedupe_batch(mask_tombstoned(index, docs.reshape(
+        blocks.shape[0], -1)), index.n_docs)
+
+
 def score_selection(index: "SeismicIndex", batch: RoutedBatch,
                     sel: Selection, use_kernel: bool, *,
                     fuse_level: int = 0
@@ -118,14 +143,8 @@ def score_selection(index: "SeismicIndex", batch: RoutedBatch,
     Blocks with a -inf selection score contribute only sentinels. A
     mutable index adds tombstone masking before dedupe and its exactly
     scored tail after the blocked candidates."""
-    docs = gather_block_docs(index, batch.lists, sel.blocks)
-    docs = torch.where(torch.isfinite(sel.block_scores)[..., None], docs,
-                       index.n_docs)
-    qn = docs.shape[0]
-    cand = dedupe_batch(mask_tombstoned(index, docs.reshape(qn, -1)),
-                        index.n_docs)
-    if fuse_level >= 1:
-        cand = compact_candidates(cand)
+    cand = selected_candidates(index, batch.lists, sel.blocks,
+                               sel.block_scores, fuse_level=fuse_level)
     scores = score_candidates(index, batch.q_dense, cand, use_kernel,
                               fuse_level=fuse_level)
     if index.tail_ids is not None:

@@ -84,18 +84,13 @@ def select_adaptive(index: "SeismicIndex", batch: RoutedBatch,
     scores the top ``probe_budget`` blocks to bootstrap a k-th-best
     estimate theta; stage 2 keeps only blocks with
     summary >= theta / heap_factor (capped at block_budget)."""
-    from repro_torch.retrieval.scorer import (compact_candidates,
-                                              dedupe_batch,
-                                              gather_block_docs,
-                                              mask_tombstoned,
-                                              score_candidates)
+    from repro_torch.retrieval.scorer import (score_candidates,
+                                              selected_candidates)
     probe = min(p.probe_budget, p.block_budget)
     r1, b1 = top_k(batch.r, probe)
-    qn = batch.r.shape[0]
-    cand1 = gather_block_docs(index, batch.lists, b1).reshape(qn, -1)
-    cand1 = dedupe_batch(mask_tombstoned(index, cand1), index.n_docs)
-    if p.fuse_level >= 1:
-        cand1 = compact_candidates(cand1)
+    # the probe's blocks are scored whatever their summary score
+    cand1 = selected_candidates(index, batch.lists, b1,
+                                fuse_level=p.fuse_level)
     s1 = score_candidates(index, batch.q_dense, cand1, p.use_kernel,
                           fuse_level=p.fuse_level)
     theta = top_k(s1, p.k)[0][:, p.k - 1]                   # [Q]

@@ -20,6 +20,7 @@ conftest and the JAX reference are not needed there, and JAX may be
 absent, in which case only the ``gpu`` tests can run).
 """
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -41,9 +42,13 @@ try:    # the JAX reference (absent on a GPU host that runs only -m gpu)
     from repro.kernels.summary_dot.ops import summary_dot as jax_summary_one
     from repro.kernels.summary_dot.ops import summary_dot_batch as jax_summary
     from repro.kernels.summary_dot.ref import summary_dot_ref as jax_summary_ref
+    from repro.retrieval import scorer as jax_scorer
 except ModuleNotFoundError:
     jnp = None
 from repro_torch.kernels import row_tiles, runtime
+from repro_torch.kernels.block_cand import ops as block_cand_ops
+from repro_torch.kernels.block_cand.ops import block_candidates
+from repro_torch.kernels.block_cand.ref import block_candidates_ref
 from repro_torch.kernels.flash_attention.ops import (TMA_BOX_COLS, TMA_ROWS,
                                                      flash_attention,
                                                      flash_attention_ref,
@@ -284,19 +289,32 @@ def test_plain_path_counts_no_launch():
     summary_dot_batch(_t(q), _t(coords), _t(u8), _t(scale), _t(zero))
     q, k, v = attention_inputs(1, 2, 1, 9, 16)
     flash_attention(_t(q), _t(k), _t(v))
+    block_candidates(*(None if x is None else _t(x)
+                       for x in block_cand_inputs("C 512 scored")[0]),
+                     n_docs=BLOCK_CAND_DOCS, block_cap=64)
     assert runtime.LAUNCHES == {"summary_dot": 0, "gather_dot": 0,
                                 "gather_dot_cand": 0, "router_flat": 0,
                                 "router_hier": 0, "refine_round": 0,
-                                "flash_attention": 0,
+                                "block_cand": 0, "flash_attention": 0,
                                 "router_flat_groups": 0,
                                 "router_flat_records": 0}
 
 
 def test_kernel_sources_are_registered_and_hashed():
+    assert set(runtime.SOURCES) == {"summary_dot", "gather_dot",
+                                    "router_fused", "refine_fused",
+                                    "block_cand", "flash_attention"}
     for name, src in runtime.SOURCES.items():
         assert src.exists(), src
         assert runtime.library_path(name).parent == runtime.BUILD_DIR
         assert src.read_text().count("Replaces") == 1
+    # the block sort, duplicate marks and scan have one copy, shared
+    for name in ("refine_fused", "block_cand"):
+        text = runtime.SOURCES[name].read_text()
+        assert '#include "block_sort.cuh"' in text, name
+        for part in ("void block_sort", "void segment_steps", "warp_live",
+                     "key[t] == key[t - 1]"):
+            assert part not in text, (name, part)
 
 
 def tier_planes(l, n, s, d, seed):
@@ -528,7 +546,8 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     assert "-I" in runtime.NVCC_FLAGS
     assert str(runtime.INCLUDE_DIR) in runtime.NVCC_FLAGS
     for name, src in runtime.SOURCES.items():
-        if name != "flash_attention":       # no row dot in attention
+        # no row dot in attention, nor in the candidates, which score none
+        if name not in ("flash_attention", "block_cand"):
             assert '#include "row_dot.cuh"' in src.read_text(), src
     for h in runtime.INCLUDE_DIR.glob("*.cuh"):
         (tmp_path / h.name).write_bytes(h.read_bytes())
@@ -539,6 +558,147 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     after = {n: runtime.library_path(n) for n in runtime.SOURCES}
     assert all(before[n] != after[n] for n in runtime.SOURCES)
     assert len(set(after.values())) == len(runtime.SOURCES)
+
+
+# the scorer's candidates: qn, B, cap, with a scores row, with tombstones
+BLOCK_CAND = {
+    "C 512": (6, 8, 64, False, False),        # the adaptive probe
+    "C 512 scored": (6, 8, 64, True, False),
+    "C 4096 scored": (5, 64, 64, True, False),
+    "C 8192 scored": (3, 128, 64, True, False),
+    "C 8192": (3, 128, 64, False, False),
+    "C 1200 (B 25 x cap 48)": (5, 25, 48, True, False),
+    "C 4096 tombstones": (5, 64, 64, True, True),
+    "C 512 tombstones": (6, 8, 64, False, True),
+}
+BLOCK_CAND_DOCS, BLOCK_CAND_CUT = 3000, 16
+
+
+def block_cand_inputs(case, seed=0):
+    """((blocks, lists, block_off, block_len, list_docs, block_scores,
+    tombstone), block_cap) as numpy for a BLOCK_CAND case: 40 lists of 12
+    blocks packed back to back, lengths 0..cap, ids from 3,000 documents
+    (so the blocks of one query share ids, and a repeated coordinate
+    repeats its blocks), some purged members (n_docs); query 0 gives only
+    sentinels (every block score -inf, or without scores every coordinate
+    the last list, whose blocks are empty); query 1's first block holds
+    ids 0 and n_docs - 1; non-finite scores (-inf, +inf, NaN) mask blocks
+    of the other queries."""
+    qn, b, cap, scored, tomb = BLOCK_CAND[case]
+    n_docs, cut, n_lists, nb = BLOCK_CAND_DOCS, BLOCK_CAND_CUT, 40, 12
+    rng = np.random.default_rng(seed + b * cap)
+    block_len = rng.integers(0, cap + 1, (n_lists, nb)).astype(np.int32)
+    block_len[:, 0] = cap
+    block_len[-1] = 0
+    block_off = np.concatenate([np.zeros((n_lists, 1), np.int64),
+                                np.cumsum(block_len, 1)[:, :-1]], 1)
+    list_docs = rng.integers(0, n_docs, (n_lists, nb * cap)).astype(np.int32)
+    list_docs[rng.random(list_docs.shape) < 0.02] = n_docs
+    lists = rng.integers(0, n_lists - 1, (qn, cut)).astype(np.int32)
+    lists[:, 1] = lists[:, 0]                       # a repeated coordinate
+    blocks = np.stack([rng.choice(cut * nb, b, replace=False)
+                       for _ in range(qn)]).astype(np.int64)
+    blocks[1, 0] = 0                                # list 0's first block
+    list_docs[lists[1, 0], :2] = (0, n_docs - 1)
+    scores = rng.normal(0, 1, (qn, b)).astype(np.float32)
+    scores[2:, ::5] = -np.inf
+    scores[2:, 1] = np.nan
+    scores[2:, 2] = np.inf
+    scores[1, 0] = 1.0
+    if scored:
+        scores[0] = -np.inf
+    else:
+        lists[0] = n_lists - 1
+    tombstone = rng.random(n_docs) < 0.2 if tomb else None
+    if tomb:
+        tombstone[[0, n_docs - 1]] = False
+    return (blocks, lists, block_off.astype(np.int32), block_len, list_docs,
+            scores if scored else None, tombstone), cap
+
+
+def jax_block_cand(blocks, lists, block_off, block_len, list_docs, scores,
+                   tombstone, n_docs, cap):
+    """The JAX package's composition: gather_block_docs, the isfinite
+    mask, mask_tombstoned, dedupe_batch, then a sort."""
+    index = SimpleNamespace(
+        config=SimpleNamespace(n_blocks=block_off.shape[1], block_cap=cap,
+                               lam=list_docs.shape[1]),
+        block_off=jnp.asarray(block_off), block_len=jnp.asarray(block_len),
+        list_docs=jnp.asarray(list_docs), n_docs=n_docs,
+        tombstone=None if tombstone is None else jnp.asarray(tombstone))
+    docs = jax_scorer.gather_block_docs(index, jnp.asarray(lists),
+                                        jnp.asarray(blocks))
+    if scores is not None:
+        docs = jnp.where(jnp.isfinite(jnp.asarray(scores))[..., None], docs,
+                         n_docs)
+    cand = jax_scorer.mask_tombstoned(index, docs.reshape(blocks.shape[0],
+                                                          -1))
+    return np.asarray(jnp.sort(jax_scorer.dedupe_batch(cand, n_docs),
+                               axis=-1))
+
+
+@pytest.mark.parametrize("case", list(BLOCK_CAND))
+def test_block_candidates_plain_matches_jax_composition(case):
+    """The plain version of the scorer's candidates equals the JAX
+    package's composition id for id, at C 512, 1,200, 4,096 and 8,192,
+    with and without a scores row, with tombstones, with ids shared
+    across blocks, an all-sentinel query and ids 0 and n_docs - 1."""
+    ins, cap = block_cand_inputs(case)
+    n_docs = BLOCK_CAND_DOCS
+    want = jax_block_cand(*ins, n_docs, cap)
+    got = block_candidates(*(None if x is None else _t(x) for x in ins),
+                           n_docs=n_docs, block_cap=cap)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    live = want < n_docs
+    assert not live[0].any() and live[1:].any(1).all()
+    assert {0, n_docs - 1} <= set(want[1].tolist())
+    for row, ok in zip(want, live):                 # ascending, unique
+        assert (np.diff(row[ok]) > 0).all() and ok[:ok.sum()].all()
+    blocks, lists, off, ln, docs = ins[:5]
+    raw = sum(int(ln[lists[q, blocks[q] // 12], blocks[q] % 12].sum())
+              for q in range(1, len(blocks)))
+    assert raw > int(live.sum())                    # duplicates dropped
+
+
+@pytest.mark.parametrize("b,cap,want", [(8, 64, "kernel"),
+                                        (128, 64, "kernel"),
+                                        (512, 64, "kernel"),
+                                        (513, 64, "raise")])
+def test_block_cand_route_by_candidates(b, cap, want, monkeypatch):
+    """At fuse level 1 the scorer's candidates always come from
+    block_cand: on the card up to its cap (512 x 64 = 32768 ids a
+    query), a raise naming the cap beyond it (checked before any launch,
+    so here with the plain route turned off); on the CPU from its plain
+    version at any C, the level-0 ids sorted. Level 0 never takes it."""
+    from repro_torch.retrieval.scorer import selected_candidates
+    rng = np.random.default_rng(b)
+    n_docs, n_lists, nb, cut = 5000, 30, 40, 16
+    block_len = _t(rng.integers(0, cap + 1, (n_lists, nb)).astype(np.int32))
+    index = SimpleNamespace(
+        config=SimpleNamespace(n_blocks=nb, block_cap=cap, lam=nb * cap),
+        block_off=torch.cumsum(block_len, 1, dtype=torch.int32) - block_len,
+        block_len=block_len, n_docs=n_docs, tombstone=None,
+        list_docs=_t(rng.integers(0, n_docs, (n_lists, nb * cap))
+                     .astype(np.int32)))
+    lists = _t(rng.integers(0, n_lists, (2, cut)).astype(np.int32))
+    blocks = torch.stack([torch.randperm(cut * nb)[:b] for _ in range(2)])
+    scores = _t(rng.normal(0, 1, (2, b)).astype(np.float32))
+    scores[:, ::7] = -torch.inf
+    calls = []
+    op = block_cand_ops.block_candidates
+    monkeypatch.setattr(block_cand_ops, "block_candidates",
+                        lambda *a, **kw: calls.append(1) or op(*a, **kw))
+    unfused = selected_candidates(index, lists, blocks, scores, fuse_level=0)
+    assert not calls
+    got = selected_candidates(index, lists, blocks, scores, fuse_level=1)
+    assert len(calls) == 1
+    assert torch.equal(got, torch.sort(unfused, dim=-1).values)
+    assert 0 < int((got < n_docs).sum()) < got.numel()
+    if want == "raise":
+        monkeypatch.setattr(runtime, "use_plain", lambda *a: False)
+        with pytest.raises(ValueError, match="32768"):
+            selected_candidates(index, lists, blocks, scores, fuse_level=1)
 
 
 @pytest.mark.parametrize("qn,sms,c", [(256, 132, 1), (4096, 132, 1),
@@ -1531,6 +1691,134 @@ def test_refine_round_block_route_on_card(case, kind, coords):
                                              ws[qi][theirs].tolist())
                 if d in mine]
         assert all(a == b for a, b in both), (qi, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("case", list(BLOCK_CAND))
+def test_block_cand_kernel_matches_plain_on_card(case, strided):
+    """The kernel's ids equal the plain version's bit for bit on every
+    CPU case (C 512 to 8,192 and 1,200, scores, tombstones, an
+    all-sentinel query, ids 0 and n_docs - 1), one launch counted; also
+    with blocks and scores as strided views, as top_k returns them."""
+    dev = _cuda()
+    ins, cap = block_cand_inputs(case, seed=7)
+    cpu = [None if x is None else _t(x) for x in ins]
+    want = block_candidates_ref(*cpu, BLOCK_CAND_DOCS, cap)
+    on = [None if x is None else x.to(dev) for x in cpu]
+    if strided:
+        for i in (0, 5):
+            if on[i] is not None:
+                on[i] = torch.cat([on[i], on[i]], 1)[:, :on[i].shape[1]]
+                assert not on[i].is_contiguous()
+    before = runtime.LAUNCHES["block_cand"]
+    got = block_candidates(*on, n_docs=BLOCK_CAND_DOCS, block_cap=cap)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["block_cand"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_block_cand_kernel_at_4096_queries_of_8192_ids_on_card():
+    """4,096 queries of 128 blocks of 64 ids (kNN's scorer shape) over a
+    synthetic index of 4,096 lists of 100 blocks and ids below 8,841,823:
+    bitwise the torch operations' ids on the card, with and without a
+    scores row; the wrapper raises past the cap."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    qn, b, cap, n_lists, nb, cut, n_docs = 4096, 128, 64, 4096, 100, 10, \
+        8841823
+    ln = torch.randint(0, cap + 1, (n_lists, nb), generator=gen, device=dev,
+                       dtype=torch.int32)
+    off = (torch.cumsum(ln, 1) - ln).to(torch.int32)
+    docs = torch.randint(0, n_docs, (n_lists, nb * cap), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lists = torch.randint(0, n_lists, (qn, cut), generator=gen, device=dev,
+                          dtype=torch.int32)
+    r = torch.rand((qn, cut * nb), generator=gen, device=dev)
+    scores, blocks = torch.sort(r, dim=1, descending=True)
+    scores, blocks = scores[:, :b], blocks[:, :b]
+    scores[::3, -20:] = -torch.inf
+    for sc in (scores, None):
+        got = block_candidates(blocks, lists, off, ln, docs, sc,
+                               n_docs=n_docs, block_cap=cap)
+        want = block_candidates_ref(blocks, lists, off, ln, docs, sc, None,
+                                    n_docs, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert 0 < int((got < n_docs).sum()) < got.numel()
+    with pytest.raises(ValueError, match="32768"):
+        block_candidates(blocks[:, :1].expand(qn, 513).contiguous(), lists,
+                         off, ln, docs, n_docs=n_docs, block_cap=cap)
+
+
+def card_index(dev):
+    """A 30,000-document index on the card with a superblock tier
+    (fanout 8) and a kNN graph of degree 8, and 300 queries."""
+    from repro_torch.core import build_index
+    from repro_torch.data import SyntheticSparseConfig, make_collection
+    from repro_torch.graph import build_doc_graph
+    docs, queries, _ = make_collection(SyntheticSparseConfig(
+        dim=4096, n_docs=30000, n_queries=300, doc_nnz=64, query_nnz=24,
+        seed=3), device=dev)
+    cfg = SeismicConfig(lam=1024, beta=24, block_cap=64, summary_nnz=64,
+                        fwd_dtype="bfloat16", superblock_fanout=8)
+    return build_doc_graph(build_index(docs, cfg), degree=8,
+                           batch=4096), queries
+
+
+@pytest.mark.gpu
+def test_pipeline_with_block_cand_is_bitwise_the_torch_path_on_card(
+        monkeypatch):
+    """run_pipeline at fuse levels 1 and 2 gives bitwise the same
+    (scores, ids, docs_evaluated) and scorer candidates with the
+    candidates from block_cand as from its plain version on the card (the
+    torch operations: gather, masks, two sorts), flat with the adaptive
+    selector (two launches a call: the probe and the scorer) and the
+    superblock route at budget 128 with two refine rounds (one launch);
+    level 0 answers the same ids and docs_evaluated, and its candidates
+    sorted are the kernel's."""
+    from repro_torch.retrieval import SearchParams, run_pipeline_staged
+    dev = _cuda()
+    index, queries = card_index(dev)
+    points = {
+        "flat adaptive": (dict(cut=10, block_budget=64, policy="adaptive"),
+                          2),
+        "knn budget refine": (dict(cut=8, block_budget=128, policy="budget",
+                                   superblock_fanout=8, superblock_budget=32,
+                                   graph_degree=8, refine_rounds=2), 1)}
+
+    def plain(blocks, lists, off, ln, docs, scores=None, tomb=None, *,
+              n_docs, block_cap):
+        return block_candidates_ref(blocks, lists, off, ln, docs, scores,
+                                    tomb, n_docs, block_cap)
+
+    for name, (kw, launches) in points.items():
+        outs = {}
+        for fuse in (0, 1, 2):
+            p = SearchParams(k=10, fuse_level=fuse, **kw)
+            for way in ("kernel", "plain"):
+                if way == "plain":
+                    monkeypatch.setattr(block_cand_ops, "block_candidates",
+                                        plain)
+                seen = {}
+                before = runtime.LAUNCHES["block_cand"]
+                out = run_pipeline_staged(index, queries.coords,
+                                          queries.vals, p,
+                                          probe=seen.__setitem__)
+                torch.cuda.synchronize()
+                n = runtime.LAUNCHES["block_cand"] - before
+                assert n == (launches if way == "kernel" and fuse else 0), \
+                    (name, fuse, way, n)
+                outs[fuse, way] = (*out, seen["cand"])
+                monkeypatch.undo()
+        for fuse in (1, 2):
+            for a, b in zip(outs[fuse, "kernel"], outs[fuse, "plain"]):
+                assert a.dtype == b.dtype and torch.equal(a, b), (name, fuse)
+            assert torch.equal(outs[fuse, "kernel"][1], outs[0, "kernel"][1])
+            assert torch.equal(outs[fuse, "kernel"][2], outs[0, "kernel"][2])
+            assert torch.equal(outs[fuse, "kernel"][3], torch.sort(
+                outs[0, "kernel"][3], dim=-1).values.to(torch.int32))
 
 
 @pytest.mark.gpu

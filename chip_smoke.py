@@ -2142,9 +2142,11 @@ def retrieval_phases(torch, dev, args, runtime) -> tuple[list, dict]:
     t_build = time.perf_counter() - t0
     log(f"[5 index] {args.n_docs} docs (MS MARCO: 8841823), d={DIM}, "
         f"collection {t_data:.1f} s, build {t_build:.1f} s: "
-        + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items()))
+        + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items()
+                    if not k.endswith("_peak_bytes")))
     log(f"  index bytes {json.dumps(index.nbytes())}; peak device memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (postings "
+        f"phase {timings['postings_peak_bytes'] / 2**30:.2f}); "
         f"n_blocks {icfg.n_blocks}, n_superblocks {icfg.n_superblocks} of "
         f"{index.sup_coords.shape[-1]} entries; live blocks "
         f"{int((index.block_len > 0).sum())}; suggest_fanout of the live "

@@ -2,8 +2,10 @@
 ``repro.configs.seismic_msmarco``): Seismic over a SPLADE-statistics
 MS MARCO-scale collection (8.8M docs, vocab 30522, lambda=6000,
 beta=400, alpha=0.4 — the paper's best MS MARCO settings, §7.1).
-``CONFIG_HIER`` / ``REDUCED_HIER`` derive the superblock tier with the
-adaptive ``core.build.suggest_fanout`` instead of a hand-picked fanout.
+``CONFIG_ESPLADE`` is the same collection under Efficient SPLADE (181
+non-zeros a passage, 6 a query). ``CONFIG_HIER`` / ``REDUCED_HIER``
+derive the superblock tier with the adaptive
+``core.build.suggest_fanout`` instead of a hand-picked fanout.
 
 ``CONFIG_TUNED`` / ``REDUCED_TUNED`` carry modeled ``TunedPolicy``
 operating points (``with_modeled_tuning``), picked by the tuner's own
@@ -46,6 +48,14 @@ CONFIG = SeismicArchConfig(
     index=SeismicConfig(lam=6000, beta=400, alpha=0.4, block_cap=64,
                         summary_nnz=96, fwd_dtype="bfloat16"),
     n_docs=8_841_823, dim=30522, doc_nnz=128, query_nnz=48)
+
+# Efficient SPLADE (Lassance & Clinchant, SIGIR 2022) over the same MS
+# MARCO v1 passages, the second embedding Seismic's evaluation runs
+# (arXiv:2404.18812, section 7.1, Table 1): about 181 non-zeros a passage
+# and 5.9 a query over BERT's vocabulary, under the same index settings.
+# Its queries are narrower than the cut of 10: each probes its own lists.
+CONFIG_ESPLADE = dataclasses.replace(CONFIG, name="seismic-msmarco-esplade",
+                                     doc_nnz=181, query_nnz=6)
 
 SHAPES = [
     ShapeCell("query_batch", "retrieval", dict(batch=4096, k=10, cut=10,
@@ -137,7 +147,7 @@ def _modeled_points(arch: SeismicArchConfig, k: int = 10, cut: int = 8,
             points.append(MeasuredPoint(
                 params=p, recall=round(recall, 6),
                 docs_evaluated=float(round(docs, 3)),
-                router_cost=router_work(icfg, p)))
+                router_cost=router_work(icfg, p, arch.query_nnz)))
     return points
 
 

@@ -31,32 +31,89 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.types import SeismicConfig, SeismicIndex
-from repro_torch.sparse.ops import PaddedSparse, widen_coords
+from repro_torch.sparse.ops import PaddedSparse, take_rows, widen_coords
 from repro_torch.sparse.quant import (dequantize_u8, quantize_u8,
                                       quantize_u8_ceil)
 
 
-def _sorted_postings(docs: PaddedSparse):
-    """Flatten (coord, val, doc) triples and sort them by (coord asc, val
-    desc, position asc), as ``lexsort((-v, c))`` does, with ONE stable
-    sort of an int64 key: the coordinate in the high 32 bits, and below it
-    the value's float32 bits counted down (a positive float's bits grow
-    with its value). Padding entries (val <= 0) get coordinate ``dim`` and
-    sort to the end. Returns (vals, docs, starts, counts): the sorted
-    values and doc ids, and each coordinate's first position and count."""
-    nnz = docs.coords.shape[1]
-    flat_v = docs.vals.reshape(-1).to(torch.float32)
-    live = flat_v > 0
-    coord = torch.where(live, widen_coords(docs.coords).reshape(-1), docs.dim)
-    counts = torch.bincount(coord, minlength=docs.dim + 1)[:docs.dim]
-    low = flat_v.view(torch.int32).to(torch.int64)         # in place below:
-    low.neg_().add_(0x7FFFFFFF).masked_fill_(~live, 0)    # 1.1e9 entries at
-    key = coord.bitwise_left_shift_(32).bitwise_or_(low)  # MS MARCO scale
-    del coord, low
-    order = torch.sort(key, stable=True).indices
-    del key
-    return flat_v[order], (order // nnz).to(torch.int32), \
-        torch.cumsum(counts, 0) - counts, counts
+# Postings the postings phase sorts at once: a range of consecutive
+# coordinates holds at most this many plus one coordinate's. A range's
+# positions, keys, values and the stable sort's outputs and scratch come
+# to about 60 bytes a posting (4 GB here); the whole collection's, sorted
+# at once, would be 48 bytes a posting beside the collection.
+POSTINGS_BUDGET = 1 << 26
+_POSITION_CHUNK = 1 << 28      # positions scanned per elementwise pass
+
+
+def _chunk_coords(coords: torch.Tensor) -> torch.Tensor:
+    """A slice of the coordinate plane, comparable with Python ints."""
+    return widen_coords(coords) if coords.dtype == torch.uint16 else coords
+
+
+def _range_positions(coords, vals, lo: int, hi: int) -> torch.Tensor:
+    """Flat positions (int64, ascending) of the live postings (val > 0)
+    whose coordinate lies in [lo, hi)."""
+    out = []
+    for a in range(0, coords.numel(), _POSITION_CHUNK):
+        c = _chunk_coords(coords[a:a + _POSITION_CHUNK])
+        live = (c >= lo) & (c < hi) & (vals[a:a + _POSITION_CHUNK] > 0)
+        out.append(live.nonzero().squeeze(1).add_(a))
+    return torch.cat(out)
+
+
+def _sorted_postings(docs: PaddedSparse, lam: int):
+    """Each coordinate's top-``lam`` postings in (val desc, position asc)
+    order, as ``lexsort((-v, c))`` of every (coord, val, doc) triple
+    followed by a cut at ``lam`` would give. Padding entries (val <= 0)
+    are no posting. Returns (vals, docs, starts, counts): the kept values
+    and doc ids, coordinate c's at ``starts[c]`` onwards, ``min(counts[c],
+    lam)`` of them; ``counts`` is each coordinate's whole posting count.
+
+    The coordinates are cut into ranges of at most ``POSTINGS_BUDGET``
+    postings (plus one coordinate's). Each range's postings are picked
+    out in position order and sorted with ONE stable sort of an int64
+    key: the coordinate in the high 32 bits, and below it the value's
+    float32 bits counted down (a positive float's bits grow with its
+    value). So the order is that of one stable sort of every posting,
+    and the memory is the collection's and one range's."""
+    coords, vals = docs.coords.reshape(-1), docs.vals.reshape(-1)
+    nnz, d, dev = docs.coords.shape[1], docs.dim, docs.device
+    counts = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+    for a in range(0, coords.numel(), _POSITION_CHUNK):
+        c = widen_coords(coords[a:a + _POSITION_CHUNK])
+        counts += torch.bincount(
+            torch.where(vals[a:a + _POSITION_CHUNK] > 0, c, d),
+            minlength=d + 1)
+    counts = counts[:d]
+    kept = counts.clamp(max=lam)
+    starts = torch.cumsum(kept, 0) - kept
+    total = int(kept.sum())
+    out_v = torch.zeros(max(total, 1), dtype=torch.float32, device=dev)
+    out_d = torch.zeros(max(total, 1), dtype=torch.int32, device=dev)
+    host = counts.cpu()
+    first = torch.cumsum(host, 0) - host           # postings before c
+    rid = first // POSTINGS_BUDGET
+    edges = (torch.nonzero(rid[1:] != rid[:-1]).squeeze(1) + 1).tolist()
+    for lo, hi in zip([0] + edges, edges + [d]):
+        if int(host[lo:hi].sum()) == 0:
+            continue
+        pos = _range_positions(coords, vals, lo, hi)
+        v = vals[pos].to(torch.float32)
+        key = widen_coords(take_rows(coords, pos)).bitwise_left_shift_(
+            32).bitwise_or_(v.view(torch.int32).to(torch.int64).neg_()
+                            .add_(0x7FFFFFFF))
+        key, order = torch.sort(key, stable=True)
+        c = key.bitwise_right_shift_(32)           # sorted coordinates
+        rank = torch.arange(pos.numel(), device=dev) \
+            - (first[lo:hi].to(dev) - int(first[lo]))[c - lo]
+        keep = rank < lam
+        src, c, rank = order[keep], c[keep], rank[keep]
+        dst = starts[c] + rank
+        out_v[dst] = v[src]
+        out_d[dst] = (pos[src] // nnz).to(torch.int32)
+        # freed before the next range is picked out, so one range is held
+        del pos, v, key, order, src, c, rank, dst, keep
+    return out_v, out_d, starts, counts
 
 
 def _prune_list(lists, sorted_v, sorted_d, starts, counts, lam: int,
@@ -373,7 +430,14 @@ def sample_rep_pos(counts, cfg: SeismicConfig,
 
 class _Ticker:
     """Accumulates seconds per build phase into ``timings`` (syncing the
-    device first); a no-op when ``timings`` is None."""
+    device first), and on a CUDA device the allocator's peak bytes at the
+    end of each phase under ``<phase>_peak_bytes``; a no-op when
+    ``timings`` is None.
+
+    The peak is ``torch.cuda.max_memory_allocated``, never reset here so
+    that a caller's own reading stays whole: it is the peak over a phase
+    wherever that phase raised it, and over the first phase (postings)
+    the peak since the caller's last reset."""
 
     def __init__(self, timings: dict | None, device: torch.device):
         self.timings, self.device = timings, device
@@ -389,6 +453,9 @@ class _Ticker:
             return
         now = self._now()
         self.timings[phase] = self.timings.get(phase, 0.0) + now - self.last
+        if self.device.type == "cuda":
+            self.timings[f"{phase}_peak_bytes"] = \
+                torch.cuda.max_memory_allocated(self.device)
         self.last = now
 
 
@@ -399,13 +466,14 @@ def build_index(docs: PaddedSparse, cfg: SeismicConfig = SeismicConfig(), *,
 
     ``rep_pos`` [dim, beta] fixes the representatives' positions
     (default: ``sample_rep_pos``, the JAX builder's draws from
-    ``cfg.seed``). With
-    ``timings`` given, seconds per phase accumulate into it."""
+    ``cfg.seed``). With ``timings`` given, seconds per phase accumulate
+    into it, and on a CUDA device each phase's allocator peak
+    (:class:`_Ticker`)."""
     dev, d, n = docs.device, docs.dim, docs.n
     lam, nb, s = cfg.lam, cfg.n_blocks, cfg.summary_nnz
     tick = _Ticker(timings, dev)
     fwd32 = docs.astype(torch.float32)
-    sorted_v, sorted_d, starts, counts = _sorted_postings(docs)
+    sorted_v, sorted_d, starts, counts = _sorted_postings(docs, lam)
     if cfg.blocking != "fixed" and rep_pos is None:
         rep_pos = sample_rep_pos(counts, cfg)
     tick("postings")

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels.gather_dot.ops import (CAND_TILE_N, CAND_TILE_Q,
                                                 cand_tiles_processed)
+from repro_torch.retrieval.prep import probed_width
 from repro_torch.retrieval.workmodel import (refine_bytes, router_bytes,
                                              scorer_bytes)
 
@@ -74,15 +75,10 @@ class DeviceAccounting:
             "seismic_stage_achieved_bytes_per_second",
             "Modeled stage bytes moved / measured stage time",
             ("stage", "fuse_level"))
+        self._summary_row = summary_row
         # router and refine traffic is static in the launch shape
         self._static = {
-            "router": router_bytes(
-                cut=p.cut, n_blocks=cfg.n_blocks,
-                summary_nnz=cfg.summary_nnz, dim=index.dim,
-                fuse_level=p.fuse_level, n_superblocks=cfg.n_superblocks,
-                fanout=p.superblock_fanout,
-                superblock_budget=p.superblock_budget,
-                superblock_nnz=cfg.superblock_nnz, **summary_row),
+            "router": self.router_bytes_per_query(),
             "refine": refine_bytes(
                 k=p.k, degree=p.graph_degree, rounds=p.refine_rounds,
                 nnz=self.nnz, quant=self.quant, dim=index.dim,
@@ -90,6 +86,19 @@ class DeviceAccounting:
         }
         for stage, b in self._static.items():
             self._modeled.labels(stage, self.fuse).set(b)
+
+    def router_bytes_per_query(self, query_nnz: int | None = None) -> int:
+        """Router traffic for a launch of queries ``query_nnz`` wide (None:
+        at least ``cut`` wide), over the lists they probe
+        (``prep.probed_width``)."""
+        p, cfg = self.p, self.index.config
+        cut = p.cut if query_nnz is None else probed_width(p.cut, query_nnz)
+        return router_bytes(
+            cut=cut, n_blocks=cfg.n_blocks, summary_nnz=cfg.summary_nnz,
+            dim=self.index.dim, fuse_level=p.fuse_level,
+            n_superblocks=cfg.n_superblocks, fanout=p.superblock_fanout,
+            superblock_budget=p.superblock_budget,
+            superblock_nnz=cfg.superblock_nnz, **self._summary_row)
 
     def scorer_bytes_per_query(self, cand: torch.Tensor | None = None
                                ) -> int:
@@ -108,11 +117,14 @@ class DeviceAccounting:
                             fuse_level=self.p.fuse_level, **self.fwd_row)
 
     def observe(self, stage_seconds: dict[str, float], width: int,
-                cand: torch.Tensor | None = None) -> None:
+                cand: torch.Tensor | None = None,
+                query_nnz: int | None = None) -> None:
         """Record one staged launch: ``stage_seconds`` maps a stage to
         its measured seconds, ``width`` is the launch's rows, ``cand`` the
-        scorer's candidate ids if captured."""
+        scorer's candidate ids if captured, ``query_nnz`` its queries'
+        width."""
         per_query = dict(self._static)
+        per_query["router"] = self.router_bytes_per_query(query_nnz)
         per_query["scorer"] = self.scorer_bytes_per_query(cand)
         for stage in MODELED_STAGES:
             b = per_query[stage]

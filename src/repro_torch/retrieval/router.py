@@ -32,6 +32,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from repro_torch.retrieval.params import SearchParams
+from repro_torch.retrieval.prep import probed_width
 
 if TYPE_CHECKING:
     from repro_torch.core.types import SeismicIndex
@@ -134,11 +135,14 @@ def route_batch(index: "SeismicIndex", q_dense: torch.Tensor,
     return _route_hierarchical(index, q_dense, lists, p)
 
 
-def router_work(cfg, p: SearchParams) -> int:
-    """Summary inner products the router evaluates per query (flat:
-    ``cut * n_blocks``; hierarchical: ``cut * n_superblocks +
+def router_work(cfg, p: SearchParams, query_nnz: int | None = None) -> int:
+    """Summary inner products the router evaluates per query, over the
+    C lists a query probes (``p.cut``, or ``prep.probed_width`` of a
+    batch ``query_nnz`` wide; None: at least ``p.cut`` wide) (flat:
+    ``C * n_blocks``; hierarchical: ``C * n_superblocks +
     superblock_budget * fanout``)."""
+    cut = p.cut if query_nnz is None else probed_width(p.cut, query_nnz)
     if p.superblock_fanout <= 0:
-        return p.cut * cfg.n_blocks
-    coarse = p.cut * cfg.n_superblocks
+        return cut * cfg.n_blocks
+    coarse = cut * cfg.n_superblocks
     return coarse + min(p.superblock_budget, coarse) * p.superblock_fanout

@@ -49,7 +49,9 @@ def router_bytes(*, cut: int, n_blocks: int, summary_nnz: int, dim: int,
                  fuse_level: int, n_superblocks: int = 0, fanout: int = 0,
                  superblock_budget: int = 0, superblock_nnz: int = 0,
                  coord_bytes: int = 4, level_bytes: int = 1) -> int:
-    """Modeled bytes per query for phase R (flat or hierarchical).
+    """Modeled bytes per query for phase R (flat or hierarchical), over
+    the ``cut`` lists a query probes (``prep.probed_width``: fewer in a
+    batch narrower than the search's cut).
 
     ``fanout == 0`` models the flat route; otherwise the two-stage route
     with ``min(superblock_budget, cut * n_superblocks)`` kept

@@ -643,7 +643,8 @@ class AsyncSeismicServer:
         self._ev_mean.set(ev_mean)
         if staged and device is not None:
             stage_seconds = {name: b - a for name, a, b in triples}
-            device.observe(stage_seconds, width, cand=probed.get("cand"))
+            device.observe(stage_seconds, width, cand=probed.get("cand"),
+                           query_nnz=self.query_nnz)
 
     def _launch(self, batch: list[Request], *, delay_s: float = 0.0,
                 span_attrs: dict | None = None, on_timing=None) -> None:

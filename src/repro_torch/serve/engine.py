@@ -212,7 +212,8 @@ class SeismicServer:
         if self._device is not None:
             stage_seconds = {name: b - a for name, a, b in triples}
             self._device.observe(stage_seconds, chunk.coords.shape[0],
-                                 cand=probed.get("cand"))
+                                 cand=probed.get("cand"),
+                                 query_nnz=chunk.coords.shape[1])
         return out, t1 - t0
 
     def search(self, queries: PaddedSparse) -> RetrievalResult:

@@ -132,7 +132,8 @@ def measure_point(index: SeismicIndex, queries: PaddedSparse,
     docs = float(int(ev.sum()) / ev.size)
     return MeasuredPoint(
         params=p, recall=recall, docs_evaluated=docs,
-        router_cost=router_work(index.config, p),
+        router_cost=router_work(index.config, p,
+                                query_nnz=queries.coords.shape[1]),
         stage_seconds=tuple(sorted(stage_s.items())))
 
 

@@ -190,3 +190,83 @@ def test_default_representatives_are_seeded(small_collection):
                                   if k != "total")
     assert a.sum_coords.shape == (docs_np.dim, cfg.n_blocks, 32)
 
+
+
+def whole_sort_postings(docs: PaddedSparse, lam: int):
+    """The postings phase as one stable sort of every posting (the int64
+    key of ``_sorted_postings``), cut at ``lam`` a coordinate: the
+    reference for the range-by-range phase."""
+    nnz, d = docs.coords.shape[1], docs.dim
+    v = docs.vals.reshape(-1).to(torch.float32)
+    live = v > 0
+    c = torch.where(live, docs.coords.reshape(-1).long(), d)
+    low = torch.where(live, 0x7FFFFFFF - v.view(torch.int32).long(), 0)
+    order = torch.sort((c << 32) | low, stable=True).indices
+    counts = torch.bincount(c, minlength=d + 1)[:d]
+    first = torch.cumsum(counts, 0) - counts
+    keep = torch.cat([torch.arange(int(f), int(f) + min(int(n), lam))
+                      for f, n in zip(first, counts)])
+    kept = order[keep]
+    return v[kept], (kept // nnz).to(torch.int32), counts
+
+
+def tied_collection(n_docs: int, nnz: int, dim: int, seed: int):
+    """Rows of ``nnz`` distinct coordinates (a few popular ones) whose
+    values take 4 levels, so that ties of (coordinate, value) are common,
+    and a padded tail (value 0, coordinate 0) in every fifth row."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.arange(1, dim + 1, dtype=torch.float64).pow(-1.1)
+    coords = torch.multinomial(w.expand(n_docs, dim), nnz, generator=g)
+    vals = (torch.randint(1, 5, (n_docs, nnz), generator=g) * 0.25).float()
+    vals[::5, nnz // 2:] = 0.0
+    coords[::5, nnz // 2:] = 0
+    return PaddedSparse(coords.to(torch.int32), vals, dim)
+
+
+def test_postings_by_range_equal_one_whole_sort(monkeypatch):
+    """Forced into many coordinate ranges (and position chunks), the
+    postings phase keeps each coordinate's top lam in the order one
+    stable sort of every posting gives, ties by position, bitwise, on
+    passages of an odd width with ties and padding; and the index built
+    from it equals, plane by plane, the index built in one range."""
+    from repro_torch.core import build
+    docs = tied_collection(1000, 45, 500, seed=45)
+    cfg = SeismicConfig(**BASE, blocking="fixed")
+    whole = build_index(docs, cfg, list_chunk=100)
+    want_v, want_d, want_counts = whole_sort_postings(docs, cfg.lam)
+    monkeypatch.setattr(build, "POSTINGS_BUDGET", 997)
+    monkeypatch.setattr(build, "_POSITION_CHUNK", 4099)
+    got_v, got_d, starts, counts = build._sorted_postings(docs, cfg.lam)
+    assert torch.equal(counts, want_counts)
+    assert int(counts.max()) > cfg.lam           # lists that are cut
+    assert torch.equal(starts, torch.cumsum(counts.clamp(max=cfg.lam), 0)
+                       - counts.clamp(max=cfg.lam))
+    assert torch.equal(got_v, want_v) and torch.equal(got_d, want_d)
+    ranged = build_index(docs, cfg, list_chunk=100)
+    for name in INT_PLANES + ULP_PLANES + ("list_vals", "sum_zero"):
+        a, b = getattr(whole, name), getattr(ranged, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    assert torch.equal(whole.fwd.vals, ranged.fwd.vals)
+
+
+def test_odd_passage_width_build_matches_reference():
+    """Passages 45 wide (not a multiple of any vector width), as the
+    E-SPLADE deployment's 181: the build equals the JAX builder's plane
+    by plane under fixed blocking, in many coordinate ranges."""
+    from repro.data import SyntheticSparseConfig, make_collection
+    from repro.sparse.ops import PaddedSparse as JPadded
+    from repro_torch.core import build
+    docs_np, _, _ = make_collection(SyntheticSparseConfig(
+        dim=1024, n_docs=1024, n_queries=4, doc_nnz=45, query_nnz=6,
+        n_topics=32, topic_coords=128, seed=11))
+    jcfg = JConfig(**BASE, blocking="fixed", fwd_dtype="bfloat16")
+    jindex = jax_build(JPadded(jnp.asarray(docs_np.coords),
+                               jnp.asarray(docs_np.vals), docs_np.dim),
+                       jcfg, list_chunk=16)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(build, "POSTINGS_BUDGET", 3000)
+        index = build_index(port_docs(docs_np),
+                            SeismicConfig(**dataclasses.asdict(jcfg)),
+                            list_chunk=50)
+    assert index.fwd.coords.shape[1] == 45
+    assert_planes(jindex, index)

@@ -20,6 +20,7 @@ conftest and the JAX reference are not needed there, and JAX may be
 absent, in which case only the ``gpu`` tests can run).
 """
 import ctypes
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -1913,3 +1914,126 @@ def test_mutated_index_on_card_is_bitwise_across_levels_and_fresh():
     mut.delete_docs(torch.tensor([mut.n_docs - 2], device=dev))
     mut.compact()
     check(True)
+
+
+# E-SPLADE's passages are 181 wide: a row starts at doc * 181 entries, at
+# no alignment of 8, 4 or 2 entries
+ODD_NNZ = 181
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coords", ["int32", "uint16"])
+@pytest.mark.parametrize("kind", VAL_KINDS)
+def test_row_kernels_at_an_odd_row_width_on_card(kind, coords):
+    """gather_dot_cand (c) and refine_round (f) on its warp route (C 80)
+    and its block route (C 800) over a forward plane 181 wide: equal to
+    their plain versions, and the scores bitwise gather_dot's, which
+    reads gathered rows."""
+    dev = _cuda()
+    n_docs, d = 6000, 30522
+    plane = [None if x is None else x.to(dev)
+             for x in as_torch(*row_inputs((n_docs, ODD_NNZ), d, kind))]
+    if coords == "uint16" and plane[0].dtype != torch.uint16:
+        plane[0] = plane[0].to(torch.int16).view(torch.uint16)
+    q = _t(np.random.default_rng(5).lognormal(0, 1, (9, d))
+           .astype(np.float32)).to(dev)
+    cand = _t(cand_inputs(9, 1000, n_docs)).to(dev)
+    got = gather_dot_cand_batch(q, cand, *plane, n_docs=n_docs)
+    torch.cuda.synchronize()
+    assert_scores(got.cpu().numpy(),
+                  gather_dot_cand_ref(q, cand, *plane, n_docs).cpu())
+    idx = cand.long().clamp(max=n_docs - 1)
+    fs, fz = plane[2:]
+    batch = gather_dot_batch(q, take_rows(plane[0], idx), plane[1][idx],
+                             None if fs is None else fs[idx],
+                             None if fz is None else fz[idx])
+    live = cand < n_docs
+    assert torch.equal(got[live], batch[live])
+    for k, way in ((10, "warp"), (100, "block")):
+        ids, scored, rq, knn, *_ = refine_inputs(6, k, 900, n_docs, 8,
+                                                 ODD_NNZ, d, kind, seed=k)
+        args = [_t(x).to(dev) for x in (ids, scored, rq, knn)]
+        before = dict(refine_ops.ROUTE_LAUNCHES)
+        fc, fsc = refine_round_batch(*args, *plane, n_docs=n_docs, degree=8)
+        torch.cuda.synchronize()
+        assert refine_ops.ROUTE_LAUNCHES[way] == before.get(way, 0) + 1
+        want_c, want_s = refine_round_ref(*args, *plane, n_docs, 8)
+        assert torch.equal(fc, want_c)
+        assert_scores(fsc.cpu().numpy(), want_s.cpu())
+        assert torch.equal(fsc, gather_dot_cand_batch(
+            args[2], fc, *plane, n_docs=n_docs))
+
+
+@pytest.mark.gpu
+def test_pipeline_at_esplade_widths_on_card(monkeypatch):
+    """An index over passages 181 wide, queried by 6-term queries under a
+    cut of 10: the flat adaptive point and, with a superblock tier and a
+    graph, a k 100 point whose refine takes f's block route (800
+    candidates a query). On the kernels (c, d, e, f, h) fuse levels 0, 1
+    and 2 answer the same ids and docs_evaluated, and every score is the
+    float64 inner product of the query with the passage's bf16 row; at
+    levels 1 and 2 everything is bitwise the same pipeline with
+    block_cand's (h) plain version; and the 6-term batch answers bitwise
+    as at cut 6. (The plain torch path sums the router's summary dots in
+    another order, and 6-term queries tie often, so its blocks and
+    answers may differ from the kernels' at a tie.)"""
+    from repro_torch.core import build_index
+    from repro_torch.data import SyntheticSparseConfig, make_collection
+    from repro_torch.graph import build_doc_graph
+    from repro_torch.retrieval import SearchParams, search_pipeline
+    dev = _cuda()
+    docs, queries, _ = make_collection(SyntheticSparseConfig(
+        dim=30522, n_docs=40000, n_queries=300, doc_nnz=ODD_NNZ,
+        query_nnz=6, seed=5), device=dev)
+    cfg = SeismicConfig(lam=1024, beta=24, block_cap=64, summary_nnz=96,
+                        fwd_dtype="bfloat16", superblock_fanout=8)
+    index = build_doc_graph(build_index(docs, cfg), degree=8, batch=4096)
+    assert index.fwd.coords.shape[1] == ODD_NNZ
+    points = {
+        "flat adaptive": dict(k=10, cut=10, block_budget=64,
+                              policy="adaptive"),
+        "knn k 100": dict(k=100, cut=8, block_budget=128, policy="budget",
+                          superblock_fanout=8, superblock_budget=32,
+                          graph_degree=8, refine_rounds=2)}
+
+    def plain_cand(blocks, lists, off, ln, docs, scores=None, tomb=None, *,
+                   n_docs, block_cap):
+        return block_candidates_ref(blocks, lists, off, ln, docs, scores,
+                                    tomb, n_docs, block_cap)
+
+    qn = queries.coords.shape[0]
+    q64 = torch.zeros((qn, 30522), dtype=torch.float64, device=dev)
+    q64.scatter_add_(1, queries.coords.long(), queries.vals.double())
+    for name, kw in points.items():
+        before = dict(refine_ops.ROUTE_LAUNCHES)
+        outs = []
+        for fuse in (0, 1, 2):
+            p = SearchParams(use_kernel=True, fuse_level=fuse, **kw)
+            got = search_pipeline(index, queries, p)
+            outs.append(got)
+            narrow = search_pipeline(index, queries,
+                                     dataclasses.replace(p, cut=6))
+            for a, b in zip(got, narrow):
+                assert torch.equal(a, b), (name, fuse)
+            if fuse:
+                monkeypatch.setattr(block_cand_ops, "block_candidates",
+                                    plain_cand)
+                again = search_pipeline(index, queries, p)
+                monkeypatch.undo()
+                for a, b in zip(got, again):
+                    assert torch.equal(a, b), (name, fuse)
+        torch.cuda.synchronize()
+        for got in outs[1:]:
+            assert torch.equal(got[1], outs[0][1]), name
+            assert torch.equal(got[2], outs[0][2]), name
+        scores, ids, _ = outs[0]
+        live = ids >= 0
+        rows = ids.long().clamp(min=0)
+        c = index.fwd.coords[rows].long()                  # [Q, k, 181]
+        ip = (q64.gather(1, c.reshape(qn, -1)).reshape(c.shape)
+              * index.fwd.vals[rows].double()).sum(-1)
+        gap = (scores.double() - ip).abs() - RTOL * ip.abs() - ATOL
+        assert bool(live.any()) and bool((gap[live] <= 0).all()), name
+        if name == "knn k 100":
+            assert refine_ops.ROUTE_LAUNCHES["block"] > before.get("block",
+                                                                   0)

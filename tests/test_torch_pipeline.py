@@ -341,3 +341,111 @@ def test_exact_topk_and_recall_match_reference(small_collection):
     assert recall_at_k(approx[0], i[0]) == 0.5
     assert mean_recall_at_k(approx, i) == 0.5
     assert mean_recall_at_k(i, i) == 1.0
+
+
+def narrowed(queries, width: int):
+    """The batch's first ``width`` entries of each query: (JAX batch,
+    port batch)."""
+    c = np.array(queries.coords)[:, :width]
+    v = np.array(queries.vals)[:, :width]
+    return (JPadded(jnp.asarray(c), jnp.asarray(v), queries.dim),
+            PaddedSparse(torch.from_numpy(c), torch.from_numpy(v),
+                         queries.dim))
+
+
+def jax_staged(jindex, jq, p: JParams) -> dict:
+    """JAX's probed lists, router scores, selected blocks and answers."""
+    fns = jax_stage_fns(jindex, p)
+    q_dense, lists, _ = fns["prep"](jq.coords, jq.vals)
+    batch = fns["router"](q_dense, lists)
+    sel = fns["selector"](batch)
+    top = fns["merge"](*fns["scorer"](batch, sel))
+    return jax.tree.map(np.asarray, dict(lists=lists, r=batch.r,
+                                         blocks=sel.blocks, top=top))
+
+
+@pytest.mark.parametrize("width,cut,policy", [
+    (6, 10, "budget"), (6, 10, "adaptive"), (6, 10, "global_threshold"),
+    (8, 8, "adaptive")])
+def test_batch_narrower_than_the_cut(small_collection, carried, policy,
+                                     width, cut):
+    """A batch 6 wide at cut 10 probes its own 6 coordinates: at fuse
+    levels 0, 1 and 2, ids, scores and docs_evaluated bitwise those of
+    the same batch at cut 6, which match the JAX package at cut 6
+    (``lax.top_k`` refuses a cut past the row). A batch as wide as the
+    cut is held to JAX at that cut.
+
+    Against JAX: the probed lists are equal and the router scores
+    allclose. A query whose selected blocks differ may differ only
+    between blocks whose router scores tie within the score tolerance
+    (the two sum a summary row in another order; narrow queries of a
+    few heavy values tie often); every other query's ``docs_evaluated``
+    is equal and its top-k held as elsewhere here."""
+    _, queries, *_ = small_collection
+    jindex, index = carried
+    jq, pq = narrowed(queries, width)
+    base = dict(BASE, cut=cut, policy=policy)
+    outs = []
+    for fuse_level in (0, 1, 2):
+        got = search_pipeline(index, pq, SearchParams(
+            use_kernel=True, fuse_level=fuse_level, **base))
+        at_width = search_pipeline(index, pq, SearchParams(
+            use_kernel=True, fuse_level=fuse_level, **dict(base, cut=width)))
+        for a, b in zip(got, at_width):
+            assert torch.equal(a, b), fuse_level
+        outs.append(got)
+    for got in outs[1:]:
+        assert torch.equal(got[1], outs[0][1])
+        assert torch.equal(got[2], outs[0][2])
+    want = jax_staged(jindex, jq, JParams(**dict(base, cut=width)))
+    seen = {}
+    run_pipeline_staged(index, pq.coords, pq.vals, SearchParams(**base),
+                        probe=seen.__setitem__, audit=True)
+    np.testing.assert_array_equal(seen["lists"].numpy(), want["lists"])
+    assert_scores(seen["router_r"].numpy(), want["r"])
+    sel = stage_fns_blocks(index, pq, SearchParams(**base))
+    same = []
+    for q in range(pq.coords.shape[0]):
+        differ = np.setxor1d(sel[q], want["blocks"][q])
+        differ = differ[differ < want["r"].shape[1]]
+        rr = want["r"][q, differ]
+        assert differ.size == 0 or (
+            rr.max() - rr.min() <= ATOL + RTOL * abs(rr.max())), (
+            f"query {q}: blocks {differ.tolist()} differ at router scores "
+            f"{rr.tolist()}")
+        same.append(differ.size == 0)
+    same = np.array(same)
+    print(f"{int(same.sum())} of {same.size} queries select JAX's blocks")
+    assert same.sum() >= same.size // 2
+    ws, wi, wev = want["top"]
+    for got in outs:
+        assert_topk(got[1].numpy()[same], got[0].numpy()[same], wi[same],
+                    ws[same])
+        np.testing.assert_array_equal(got[2].numpy()[same], wev[same])
+
+
+def stage_fns_blocks(index, pq, p: SearchParams) -> np.ndarray:
+    """The port's selected blocks for batch ``pq`` (unfused stages)."""
+    from repro_torch.retrieval.pipeline import stage_fns
+    fns = stage_fns(index, p)
+    q_dense, lists, _ = fns["prep"](pq.coords, pq.vals)
+    return fns["selector"](fns["router"](q_dense, lists)).blocks.numpy()
+
+
+def test_router_work_counts_the_lists_a_narrow_batch_probes(carried):
+    """``router_work`` and the device accounting's router bytes count the
+    lists a query probes: at cut 10 a 6-wide batch counts as cut 6, a
+    batch at least as wide as the cut as the cut."""
+    from repro_torch.obs.device import DeviceAccounting
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.retrieval.router import router_work
+    _, index = carried
+    p10, p6 = SearchParams(cut=10), SearchParams(cut=6)
+    cfg = index.config
+    assert router_work(cfg, p10, query_nnz=6) == router_work(cfg, p6)
+    assert router_work(cfg, p10, query_nnz=16) == router_work(cfg, p10) \
+        == 10 * cfg.n_blocks
+    a10 = DeviceAccounting(index, p10, MetricsRegistry())
+    a6 = DeviceAccounting(index, p6, MetricsRegistry())
+    assert a10.router_bytes_per_query(6) == a6.router_bytes_per_query() \
+        < a10.router_bytes_per_query() == a10.router_bytes_per_query(48)
